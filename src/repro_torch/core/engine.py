@@ -1,0 +1,316 @@
+"""The delayed-asynchronous iterative engine, on torch tensors.
+
+The counterpart of ``repro.core.engine``.  One *round* processes every vertex
+once, in ``S`` **commit steps**.  Commit step ``s`` computes, for every worker,
+the pull-update of chunk ``s`` (δ rows) of that worker's block reading the
+*current committed* frontier, then publishes all workers' chunks at once.
+This is a deterministic block Gauss–Seidel schedule with commit period δ:
+
+* ``S == 1``   (δ = block size)  → exact Jacobi          = paper's *synchronous*
+* ``S == B/δ_min`` (finest δ)    → finest block GS       = paper's *asynchronous*
+* in between                     → *delayed asynchronous* (the hybrid)
+
+:func:`round_fn` is the plain PyTorch round; the CUDA kernel
+(:mod:`repro_torch.kernels.round_block`) computes the same round in one
+launch.  Every function takes its tensors on an explicit device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.core.semiring import Semiring
+from repro_torch.graphs.formats import CSRGraph, build_stripe_schedule
+from repro_torch.graphs.partition import balanced_blocks
+
+__all__ = [
+    "EngineResult",
+    "DeviceSchedule",
+    "make_schedule",
+    "round_fn",
+    "host_loop",
+    "extend_frontier",
+    "MIN_CHUNK",
+]
+
+# Finest commit granularity of the reference (one TPU lane row).  Kept as the
+# default so that the port's schedules match the reference's.
+MIN_CHUNK = 128
+
+
+def extend_frontier(x0, semiring: Semiring, device) -> torch.Tensor:
+    """Append the padding-dump slot: ``(n,) → (n+1,)``, dump = ⊕-identity."""
+    x0 = torch.tensor(np.asarray(x0, dtype=semiring.dtype), device=device)
+    pad = torch.full((1,), semiring.zero.item(), dtype=x0.dtype, device=device)
+    return torch.cat([x0, pad])
+
+
+def _cell_row_ptr(dst_local: torch.Tensor, delta: int) -> torch.Tensor:
+    """``(S, P, δ+1)`` int32: row ``r`` of a cell owns edges ``[ptr[r], ptr[r+1])``.
+
+    Edges of a cell are in CSR order, grouped by destination row, with the
+    padding (``dst_local == δ``) at the end, so each row's edges are one run
+    and ``ptr[δ]`` is the cell's count of real edges.
+    """
+    S, P, _ = dst_local.shape
+    r = torch.arange(delta + 1, dtype=torch.int32, device=dst_local.device)
+    r = r.expand(S, P, delta + 1).contiguous()
+    return torch.searchsorted(dst_local, r, out_int32=True)
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceSchedule:
+    """The stripe schedule as tensors on one device, plus metadata.
+
+    ``row_ptr`` is derived from ``dst_local``: the CUDA kernel walks each
+    row's edges through it and never reads a padding entry.
+    """
+
+    n: int
+    P: int
+    delta: int
+    S: int
+    M: int
+    src: torch.Tensor  # (S, P, M) int32
+    val: torch.Tensor  # (S, P, M)
+    dst_local: torch.Tensor  # (S, P, M) int32
+    rows: torch.Tensor  # (S, P, delta) int32
+    row_ptr: torch.Tensor  # (S, P, delta + 1) int32
+    edges: int
+    padding_overhead: float
+    block_bounds: np.ndarray | None = None  # (P + 1,) int64 host-side bounds
+
+    @property
+    def n_slots(self) -> int:
+        return self.n + 1
+
+    @property
+    def device(self) -> torch.device:
+        return self.src.device
+
+    @classmethod
+    def from_host_arrays(cls, arrays, device) -> "DeviceSchedule":
+        """Build from the dict ``repro``'s ``DeviceSchedule.to_host_arrays()``
+        returns (shape-validated), with the tensors on ``device``."""
+        n, P = int(arrays["n"]), int(arrays["P"])
+        delta, S, M = int(arrays["delta"]), int(arrays["S"]), int(arrays["M"])
+        src = np.asarray(arrays["src"])
+        val = np.asarray(arrays["val"])
+        dst_local = np.asarray(arrays["dst_local"])
+        rows = np.asarray(arrays["rows"])
+        if (
+            src.shape != (S, P, M)
+            or val.shape != (S, P, M)
+            or dst_local.shape != (S, P, M)
+            or rows.shape != (S, P, delta)
+        ):
+            raise ValueError("schedule arrays inconsistent with (S, P, M, delta)")
+        bb = np.asarray(arrays["block_bounds"])
+        dst_t = torch.tensor(dst_local, device=device)  # copies: never aliases
+        return cls(
+            n=n,
+            P=P,
+            delta=delta,
+            S=S,
+            M=M,
+            src=torch.tensor(src, device=device),
+            val=torch.tensor(val, device=device),
+            dst_local=dst_t,
+            rows=torch.tensor(rows, device=device),
+            row_ptr=_cell_row_ptr(dst_t, delta),
+            edges=int(arrays["edges"]),
+            padding_overhead=float(arrays["padding_overhead"]),
+            block_bounds=bb.astype(np.int64) if bb.size else None,
+        )
+
+
+def make_schedule(
+    graph: CSRGraph,
+    P: int,
+    delta: int | None,
+    semiring: Semiring,
+    mode: str = "delayed",
+    min_chunk: int = MIN_CHUNK,
+    bounds: np.ndarray | None = None,
+    device="cpu",
+) -> DeviceSchedule:
+    """Build the device schedule for ``mode`` ∈ {sync, async, delayed}.
+
+    * ``sync``    → δ = max block size (one commit per round).
+    * ``async``   → δ = ``min_chunk`` (finest commit).
+    * ``delayed`` → δ as given (the paper's tunable).
+
+    ``bounds`` overrides the default :func:`balanced_blocks` partition.
+    """
+    if bounds is None:
+        bounds = balanced_blocks(graph, P)
+    else:
+        bounds = np.asarray(bounds, dtype=np.int64)
+        if bounds.shape != (P + 1,):
+            raise ValueError(f"bounds must have shape ({P + 1},), got {bounds.shape}")
+        if bounds[0] != 0 or bounds[-1] != graph.n or (np.diff(bounds) < 0).any():
+            raise ValueError("bounds must cover [0, n] with monotone cuts")
+    B = int(np.diff(bounds).max())
+    if mode == "sync":
+        delta_eff = B
+    elif mode == "async":
+        delta_eff = min(min_chunk, B)
+    elif mode == "delayed":
+        if delta is None:
+            raise ValueError("delayed mode needs δ")
+        delta_eff = int(min(max(delta, 1), B))
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+    host = build_stripe_schedule(graph, bounds, delta_eff, semiring.pad_edge_val)
+    arrays = {
+        "n": host.n,
+        "P": host.P,
+        "delta": host.delta,
+        "S": host.S,
+        "M": host.M,
+        "src": host.src,
+        "val": host.val,
+        "dst_local": host.dst_local,
+        "rows": host.rows,
+        "edges": host.edges,
+        "padding_overhead": host.padding_overhead,
+        "block_bounds": host.block_bounds,
+    }
+    return DeviceSchedule.from_host_arrays(arrays, device)
+
+
+def _commit_step(s: int, x_ext, sched: DeviceSchedule, semiring: Semiring, row_update):
+    """One commit step, in place on ``x_ext``: chunk-SpMV for all workers + publish.
+
+    Every read (the gather and ``old``) is taken before the publish, so the
+    step sees the commits of the steps before it and none of its own.
+    """
+    P, delta = sched.P, sched.delta
+    src_s, val_s = sched.src[s], sched.val[s]
+    dst_s, rows_s = sched.dst_local[s], sched.rows[s]
+    contrib = semiring.mul(x_ext[src_s], val_s)  # (P, M)
+    # Per-worker segment-⊕ into δ + 1 slots (last = padding dump).
+    offs = torch.arange(P, dtype=torch.int32, device=x_ext.device) * (delta + 1)
+    seg = dst_s + offs[:, None]
+    reduced = semiring.segment_reduce(
+        contrib.reshape(-1), seg.reshape(-1), P * (delta + 1)
+    ).reshape(P, delta + 1)[:, :delta]
+    new = row_update(x_ext[rows_s], reduced, rows_s)
+    # Publish: the flush.  Padding rows all land on the dump slot (index n),
+    # whose value is unspecified.
+    x_ext[rows_s.reshape(-1)] = new.reshape(-1).to(x_ext.dtype)
+
+
+def round_fn(sched: DeviceSchedule, semiring: Semiring, row_update) -> Callable:
+    """Return the plain round ``x_ext -> x_ext`` (S commit steps, out of place).
+
+    ``row_update(old, reduced, rows) -> new`` is any torch callable; the
+    problems' :class:`repro_torch.kernels.round_block.Epilogue` is one.
+    """
+
+    def body(x_ext):
+        x = x_ext.clone()
+        for s in range(sched.S):
+            _commit_step(s, x, sched, semiring, row_update)
+        return x
+
+    return body
+
+
+@dataclasses.dataclass
+class EngineResult:
+    x: np.ndarray  # (n,) converged vertex values
+    rounds: int
+    converged: bool
+    flushes: int  # total commit steps executed
+    flush_bytes: int  # total bytes published to the frontier
+    residuals: list  # per-round convergence residuals
+    round_times_s: list  # host-measured wall time per round
+    delta: int
+    P: int
+    compile_time_s: float = 0.0  # build cost paid by this run (0 = warm)
+    total_time_s: float = 0.0  # execution wall time
+
+    @classmethod
+    def from_run(
+        cls,
+        sched: DeviceSchedule,
+        semiring: Semiring,
+        x_ext,
+        *,
+        rounds: int,
+        converged: bool,
+        residuals: list,
+        round_times_s: list,
+        compile_time_s: float = 0.0,
+        total_time_s: float | None = None,
+    ) -> "EngineResult":
+        """Single authority for the counters, as in the reference.
+
+        ``flushes`` counts commit steps executed, ``rounds·S``, including the
+        round that detected convergence; every flush publishes ``P·δ`` rows.
+        """
+        bytes_per = np.dtype(semiring.dtype).itemsize
+        flushes = rounds * sched.S
+        if total_time_s is None:
+            total_time_s = float(np.sum(round_times_s)) if round_times_s else 0.0
+        return cls(
+            x=x_ext[:-1].cpu().numpy(),
+            rounds=rounds,
+            converged=converged,
+            flushes=flushes,
+            flush_bytes=flushes * sched.P * sched.delta * bytes_per,
+            residuals=residuals,
+            round_times_s=round_times_s,
+            delta=sched.delta,
+            P=sched.P,
+            compile_time_s=compile_time_s,
+            total_time_s=total_time_s,
+        )
+
+
+def host_loop(
+    rnd: Callable,
+    sched: DeviceSchedule,
+    semiring: Semiring,
+    x_ext,
+    residual_fn: Callable,
+    tol: float,
+    max_rounds: int,
+    compile_time_s: float = 0.0,
+) -> EngineResult:
+    """The host-driven convergence loop over a round ``x_ext -> x_ext``.
+
+    Each entry of ``round_times_s`` is the round's wall time up to a device
+    synchronise; the residual is read back after it.
+    """
+    residuals, times = [], []
+    converged = False
+    rounds = 0
+    for rounds in range(1, max_rounds + 1):
+        t0 = time.perf_counter()
+        x_new = rnd(x_ext)
+        if x_new.is_cuda:
+            torch.cuda.synchronize(x_new.device)
+        times.append(time.perf_counter() - t0)
+        res = float(residual_fn(x_ext[:-1], x_new[:-1]))
+        residuals.append(res)
+        x_ext = x_new
+        if res <= tol:
+            converged = True
+            break
+    return EngineResult.from_run(
+        sched,
+        semiring,
+        x_ext,
+        rounds=rounds,
+        converged=converged,
+        residuals=residuals,
+        round_times_s=times,
+        compile_time_s=compile_time_s,
+    )

@@ -1,0 +1,27 @@
+# The single-device Problem/Solver API of the port (counterpart of repro.solve).
+from repro_torch.solve.problem import (
+    Problem,
+    cc_problem,
+    count_changed_residual,
+    jacobi_problem,
+    l1_residual,
+    pagerank_problem,
+    ppr_problem,
+    ppr_teleport,
+    sssp_problem,
+)
+from repro_torch.solve.solver import BACKENDS, Solver
+
+__all__ = [
+    "BACKENDS",
+    "Problem",
+    "Solver",
+    "cc_problem",
+    "count_changed_residual",
+    "jacobi_problem",
+    "l1_residual",
+    "pagerank_problem",
+    "ppr_problem",
+    "ppr_teleport",
+    "sssp_problem",
+]

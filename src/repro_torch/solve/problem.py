@@ -1,0 +1,203 @@
+"""The :class:`Problem` spec: what an iterative graph computation *is*.
+
+The counterpart of ``repro.solve.problem``.  A pull-style fixed point
+``x'[u] = row_update(x[u], ⊕_{v∈in(u)} x[v] ⊗ A[v,u])`` is described by a
+semiring, a row update, a residual, an initial-state factory, and a
+tolerance; δ, the backend and the schedules are the :class:`Solver`'s
+business.
+
+Each factory's row update is an :class:`~repro_torch.kernels.round_block.Epilogue`,
+whose tag the CUDA round kernel evaluates itself:
+
+* ``add_const`` — pagerank: ``(1-d)/n + reduced``
+* ``add_table`` — ppr (the teleport vector ``q``) and jacobi (``b/diag``),
+  with the table padded to ``n+1`` rows so the dump row reads in bounds
+* ``min_old``   — sssp and cc: ``min(old, reduced)``
+
+Matrix frontiers (rwr, labelprop) are a later slice of the port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.core.semiring import INT_INF, MIN_PLUS, PLUS_TIMES, Semiring
+from repro_torch.graphs.formats import CSRGraph
+from repro_torch.kernels.round_block import ADD_CONST, ADD_TABLE, MIN_OLD, Epilogue
+
+__all__ = [
+    "Problem",
+    "count_changed_residual",
+    "l1_residual",
+    "pagerank_problem",
+    "ppr_problem",
+    "ppr_teleport",
+    "sssp_problem",
+    "cc_problem",
+    "jacobi_problem",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class Problem:
+    """Frozen spec of one iterative graph computation.
+
+    * ``semiring``        — ⊕/⊗ algebra (also fixes the state dtype).
+    * ``make_row_update`` — ``(graph, q, device) -> row_update``; the row
+      update is ``(old, reduced, rows) -> new`` on ``device`` (``rows`` hold
+      global row ids, dump slot = n).  ``q`` is the query for
+      ``takes_query`` problems and ``None`` otherwise.
+    * ``residual``        — ``(x_prev, x_new) -> scalar tensor``; converged
+      when ``residual ≤ tol``.
+    * ``x0``              — ``graph -> (n,) ndarray`` initial state factory.
+    * ``edge_values``     — optional ``graph -> (nnz,) ndarray`` override used
+      when building the schedule (CC zeroes the weights so ⊗ is a no-op).
+    * ``default_query``   — optional ``graph -> q`` for query problems.
+    """
+
+    name: str
+    semiring: Semiring
+    make_row_update: Callable
+    residual: Callable
+    x0: Callable
+    tol: float
+    max_rounds: int = 1000
+    edge_values: Callable | None = None
+    takes_query: bool = False
+    default_query: Callable | None = None
+
+
+def count_changed_residual(x_prev, x_new):
+    """Number of vertices whose value changed this round (paper's stop rule)."""
+    return torch.sum((x_prev != x_new).to(torch.float32))
+
+
+def l1_residual(x_prev, x_new):
+    """Total absolute change across vertices (PageRank/Jacobi stop rule)."""
+    return torch.sum(torch.abs(x_new - x_prev))
+
+
+def _row_table(values, device) -> torch.Tensor:
+    """``(n,)`` per-row values → ``(n+1,)`` f32 table with a 0 in the dump row."""
+    values = np.asarray(values, dtype=np.float32)
+    return torch.as_tensor(np.append(values, np.float32(0.0)), device=device)
+
+
+def _min_old(graph, q, device):
+    del graph, q, device  # state-free: same update for every topology
+    return Epilogue(MIN_OLD)
+
+
+def pagerank_problem(
+    damping: float = 0.85, tol: float = 1e-4, max_rounds: int = 1000
+) -> Problem:
+    """PageRank (paper §IV-A): edge values must hold ``d / outdeg(src)``."""
+
+    def make_row_update(graph, q, device):
+        return Epilogue(ADD_CONST, const=float(np.float32((1.0 - damping) / graph.n)))
+
+    return Problem(
+        name="pagerank",
+        semiring=PLUS_TIMES,
+        make_row_update=make_row_update,
+        residual=l1_residual,
+        x0=lambda g: np.full(g.n, 1.0 / g.n, dtype=np.float32),
+        tol=tol,
+        max_rounds=max_rounds,
+    )
+
+
+def ppr_teleport(graph: CSRGraph, seeds, damping: float = 0.85) -> np.ndarray:
+    """(Q, n) teleport vectors ``(1-d)·e_seed`` for :func:`ppr_problem`."""
+    seeds = np.atleast_1d(np.asarray(seeds, dtype=np.int64))
+    t = np.zeros((seeds.shape[0], graph.n), dtype=np.float32)
+    t[np.arange(seeds.shape[0]), seeds] = np.float32(1.0 - damping)
+    return t
+
+
+def ppr_problem(
+    damping: float = 0.85, tol: float = 1e-4, max_rounds: int = 1000
+) -> Problem:
+    """Personalized PageRank: the teleport vector is a *query parameter*.
+
+    ``q`` is a dense (n,) teleport vector.  The reference gathers ``q[rows]``
+    through jax's clamping gather, so the dump rows (``rows == n``) read
+    ``q[n-1]``; the port pads ``q`` with a dump row instead.  Either value
+    lands only in the dump slot.
+    """
+
+    def make_row_update(graph, q, device):
+        return Epilogue(ADD_TABLE, table=_row_table(q, device))
+
+    return Problem(
+        name="ppr",
+        semiring=PLUS_TIMES,
+        make_row_update=make_row_update,
+        residual=l1_residual,
+        x0=lambda g: np.full(g.n, 1.0 / g.n, dtype=np.float32),
+        tol=tol,
+        max_rounds=max_rounds,
+        takes_query=True,
+        default_query=lambda g: np.full(g.n, (1.0 - damping) / g.n, dtype=np.float32),
+    )
+
+
+def sssp_problem(source: int = 0, max_rounds: int = 10_000) -> Problem:
+    """Bellman-Ford SSSP (paper §IV-D): int32 min-plus relaxation."""
+
+    def x0(graph):
+        x = np.full(graph.n, INT_INF, dtype=np.int32)
+        x[source] = 0
+        return x
+
+    return Problem(
+        name="sssp",
+        semiring=MIN_PLUS,
+        make_row_update=_min_old,
+        residual=count_changed_residual,
+        x0=x0,
+        tol=0.5,  # "no vertex updated last round"
+        max_rounds=max_rounds,
+    )
+
+
+def cc_problem(max_rounds: int = 10_000) -> Problem:
+    """Connected components via min-label propagation (symmetric graphs)."""
+    return Problem(
+        name="cc",
+        semiring=MIN_PLUS,
+        make_row_update=_min_old,
+        residual=count_changed_residual,
+        x0=lambda g: np.arange(g.n, dtype=np.int32),
+        tol=0.5,
+        max_rounds=max_rounds,
+        edge_values=lambda g: np.zeros(g.nnz, dtype=np.int32),
+    )
+
+
+def jacobi_problem(
+    diag: np.ndarray, b: np.ndarray, tol: float = 1e-6, max_rounds: int = 5000
+) -> Problem:
+    """Jacobi/block-GS fixed point for ``A x = b``.
+
+    The graph must carry the pull splitting ``-A_ij / A_ii`` on edge
+    ``(j -> i)``.
+    """
+    b_over_diag = (np.asarray(b) / np.asarray(diag)).astype(np.float32)
+
+    def make_row_update(graph, q, device):
+        return Epilogue(ADD_TABLE, table=_row_table(b_over_diag, device))
+
+    return Problem(
+        name="jacobi",
+        semiring=PLUS_TIMES,
+        make_row_update=make_row_update,
+        residual=l1_residual,
+        x0=lambda g: np.zeros(g.n, dtype=np.float32),
+        tol=tol,
+        max_rounds=max_rounds,
+    )

@@ -1,0 +1,272 @@
+"""The single-device :class:`Solver` — the port's entry point.
+
+The counterpart of ``repro.solve.solver.Solver`` on one device.  A solver
+binds ``(graph, problem, n_workers)``, caches one :class:`DeviceSchedule` per
+resolved δ, and runs rounds under the host loop until the residual meets the
+tolerance.
+
+``delta`` takes the paper's disciplines by name (``"sync"``, ``"async"``), an
+integer (delayed), or ``"auto"``, which probes the sync and async round
+counts and asks the δ cost model (:mod:`repro_torch.core.delta_model`) for
+δ*.  ``backend="kernel"`` (the default) runs each round as one launch of the
+hand-written CUDA kernel K1 on a CUDA device, and as K1's plain version on
+the CPU; ``backend="torch"`` runs the plain round on either, for comparison.
+
+The solver runs on CUDA unless it is given ``device="cpu"``; with no CUDA
+device and no ``device`` it raises.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.core.delta_model import fit_delta_model
+from repro_torch.core.engine import (
+    MIN_CHUNK,
+    DeviceSchedule,
+    EngineResult,
+    extend_frontier,
+    host_loop,
+    make_schedule,
+    round_fn,
+)
+from repro_torch.graphs.formats import CSRGraph
+from repro_torch.graphs.partition import balanced_blocks
+from repro_torch.kernels.ops import fused_round
+from repro_torch.solve.problem import Problem
+
+__all__ = ["Solver", "BACKENDS", "resolve_device"]
+
+BACKENDS = ("kernel", "torch")
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` → the current CUDA device; raises if there is none."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the GPU; pass device='cpu' to run "
+            "the plain PyTorch round on the CPU"
+        )
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+class Solver:
+    """Reusable single-device solver for one ``(graph, problem)`` pair.
+
+    ``solve()`` answers a query; ``delta=`` / ``backend=`` per call override
+    the construction defaults.  Schedules are cached per δ on the instance,
+    so a second ``solve()`` at the same δ builds nothing (see ``stats``).
+    """
+
+    def __init__(
+        self,
+        graph: CSRGraph,
+        problem: Problem,
+        n_workers: int = 8,
+        delta="auto",
+        backend: str = "kernel",
+        frontier: str = "replicated",
+        min_chunk: int = MIN_CHUNK,
+        tol: float | None = None,
+        max_rounds: int | None = None,
+        device=None,
+    ):
+        self._check_backend(backend)
+        self._check_frontier(frontier)
+        self._check_delta(delta)
+        self.device = resolve_device(device)
+        self.graph = graph
+        self.problem = problem
+        self.n_workers = n_workers
+        self.default_delta = delta
+        self.default_backend = backend
+        self.min_chunk = min_chunk
+        self.tol = problem.tol if tol is None else tol
+        self.max_rounds = problem.max_rounds if max_rounds is None else max_rounds
+        self.delta_model = None  # set by the first δ="auto" probe
+        self._sched_graph = (
+            graph.with_values(problem.edge_values(graph))
+            if problem.edge_values is not None
+            else graph
+        )
+        self._row_update = (
+            None
+            if problem.takes_query
+            else problem.make_row_update(graph, None, self.device)
+        )
+        self._bounds = None
+        self._auto_delta = None
+        self._schedules: dict[int, DeviceSchedule] = {}
+        self.stats = {"solves": 0, "schedule_builds": 0}
+
+    # ------------------------------------------------------------------ #
+    # δ resolution + schedule cache
+    # ------------------------------------------------------------------ #
+    @property
+    def bounds(self) -> np.ndarray:
+        """The (P + 1,) contiguous in-degree-balanced block bounds."""
+        if self._bounds is None:
+            self._bounds = balanced_blocks(self._sched_graph, self.n_workers)
+        return self._bounds
+
+    @property
+    def block_size(self) -> int:
+        """Max worker block size B — the sync δ and the upper clamp."""
+        return int(np.diff(self.bounds).max())
+
+    @staticmethod
+    def _check_delta(delta):
+        if isinstance(delta, str) and delta not in ("sync", "async", "auto"):
+            raise ValueError(
+                f"delta must be 'sync', 'async', 'auto', or an int, got {delta!r}"
+            )
+
+    @staticmethod
+    def _check_backend(backend):
+        if backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+
+    @staticmethod
+    def _check_frontier(frontier):
+        if frontier == "halo":
+            raise NotImplementedError(
+                "frontier='halo' (the sharded owner-computes engine) is a later "
+                "slice of the port (ROADMAP queue A, multi-GPU engine)"
+            )
+        if frontier != "replicated":
+            raise ValueError(f"frontier must be 'replicated', got {frontier!r}")
+
+    def resolve_delta(self, delta=None) -> int:
+        """Normalize ``delta ∈ {None, 'sync', 'async', 'auto', int}`` to rows."""
+        if delta is None:
+            delta = self.default_delta
+        self._check_delta(delta)
+        B = self.block_size
+        if delta == "sync":
+            return B
+        if delta == "async":
+            return min(self.min_chunk, B)
+        if delta == "auto":
+            if self._auto_delta is None:
+                self._auto_delta = self._probe_auto_delta()
+            return self._auto_delta
+        return int(min(max(int(delta), 1), B))
+
+    def _probe_auto_delta(self) -> int:
+        """Fit the δ cost model from two measured probes (sync + finest δ)."""
+        r_sync = self.solve(delta="sync")
+        r_async = self.solve(delta="async")
+        self.delta_model = fit_delta_model(
+            self._sched_graph,
+            self.n_workers,
+            r_sync.rounds,
+            r_async.rounds,
+            delta_min=min(self.min_chunk, self.block_size),
+            bytes_per_elem=np.dtype(self.problem.semiring.dtype).itemsize,
+        )
+        return min(self.delta_model.best_delta(), self.block_size)
+
+    def schedule(self, delta=None) -> DeviceSchedule:
+        """The cached device schedule for ``delta`` (built on first use)."""
+        delta_eff = self.resolve_delta(delta)
+        sched = self._schedules.get(delta_eff)
+        if sched is None:
+            sched = make_schedule(
+                self._sched_graph,
+                self.n_workers,
+                delta_eff,
+                self.problem.semiring,
+                mode="delayed",
+                min_chunk=self.min_chunk,
+                bounds=self.bounds,
+                device=self.device,
+            )
+            self._schedules[delta_eff] = sched
+            self.stats["schedule_builds"] += 1
+        return sched
+
+    # ------------------------------------------------------------------ #
+    # inputs
+    # ------------------------------------------------------------------ #
+    def _x_ext(self, x0) -> torch.Tensor:
+        """Append the dump slot to a vector ``x0`` of shape ``(n,)``."""
+        if x0 is None:
+            x0 = self.problem.x0(self.graph)
+        x0 = np.asarray(x0)
+        n = self.graph.n
+        if x0.ndim == 2 and x0.shape[0] == n:
+            raise NotImplementedError(
+                "(n, F) matrix frontiers are a later slice of the port "
+                "(ROADMAP queue A, matrix frontiers)"
+            )
+        if x0.shape != (n,):
+            raise ValueError(f"x0 must have shape ({n},), got {x0.shape}")
+        return extend_frontier(x0, self.problem.semiring, self.device)
+
+    def row_update(self, q=None):
+        """The problem's row update on this solver's device, for query ``q``."""
+        if not self.problem.takes_query:
+            if q is not None:
+                raise ValueError(f"problem {self.problem.name!r} takes no query")
+            return self._row_update
+        if q is None:
+            if self.problem.default_query is None:
+                raise ValueError(f"problem {self.problem.name!r} needs q=")
+            q = self.problem.default_query(self.graph)
+        q = np.asarray(q)
+        if q.shape != (self.graph.n,):
+            raise ValueError(f"q must have shape ({self.graph.n},), got {q.shape}")
+        return self.problem.make_row_update(self.graph, q, self.device)
+
+    # ------------------------------------------------------------------ #
+    # solve
+    # ------------------------------------------------------------------ #
+    def _round(self, sched, backend, row_update):
+        sr = self.problem.semiring
+        if backend == "kernel":
+            return lambda x: fused_round(x, sched, sr, row_update)
+        return round_fn(sched, sr, row_update)
+
+    def solve(
+        self,
+        x0=None,
+        *,
+        q=None,
+        delta=None,
+        backend: str | None = None,
+        frontier: str | None = None,
+        tol: float | None = None,
+        max_rounds: int | None = None,
+    ) -> EngineResult:
+        """Run to convergence; returns the engine's instrumented result."""
+        backend = backend or self.default_backend
+        self._check_backend(backend)
+        self._check_frontier(frontier or "replicated")
+        tol = self.tol if tol is None else tol
+        max_rounds = self.max_rounds if max_rounds is None else max_rounds
+        sched = self.schedule(delta)
+        x_ext = self._x_ext(x0)
+        rnd = self._round(sched, backend, self.row_update(q))
+        build_s = 0.0
+        if backend == "kernel" and self.device.type == "cuda":
+            from repro_torch.kernels.build import load
+
+            t0 = time.perf_counter()
+            load("round_block")  # built once per process; timed apart from rounds
+            build_s = time.perf_counter() - t0
+        self.stats["solves"] += 1
+        return host_loop(
+            rnd,
+            sched,
+            self.problem.semiring,
+            x_ext,
+            self.problem.residual,
+            tol,
+            max_rounds,
+            compile_time_s=build_s,
+        )
