@@ -6,13 +6,16 @@ Phases, each printing its seconds; any failure ends the run with a nonzero
 exit and no result line:
 
 1. the card's name and power limit; build every CUDA kernel from ``src/``
-   (``build/kernels/``).
+   (``build/kernels/``, one ``nvcc`` per source, all started together).
 2. K1 (the fused-round kernel) against its plain PyTorch version, one round
    from the same ``x``, for pagerank (``add_const``), ppr (``add_table``) and
    sssp (``min_old``) at δ = sync, async (128) and 1024, on a small graph and
    at full size, and after phase 3 at every other δ the main path resolved
    (auto's δ*).  int32 must match exactly; float32 must match bit for bit
    against the plain version on the CPU (on CUDA it sums with atomics).
+   K2 (the halo commit-step kernel) likewise, one whole halo round over
+   D = 4 shards, at scale 16 at δ = sync, 128 and 1024; and at scale 14 the
+   halo kernel solves (f32, int8, fp8) must equal the CPU plain halo solves.
 3. the main path, ``Solver(...).solve()`` with ``backend="kernel"`` at sync,
    async, 1024 and auto (twice: cold, then warm): PageRank on ``twitter``
    scale 22 (4.2 M vertices, 64.3 M edges) and SSSP on the same topology
@@ -21,11 +24,21 @@ exit and no result line:
    K1's launch count is reset before and read after; it must be nonzero.  On
    a smaller graph the kernel solve must give the plain (``backend="torch"``,
    CPU) solve's rounds and ``x``.
+   Then the halo path, ``solve(frontier="halo")`` over D = 4 shards at sync
+   and δ*, with K2's launch count reset before and read after: f32 must give
+   the replicated solve's ``x``, rounds, flushes and flush_bytes exactly;
+   PageRank also runs with int8 and fp8 halos, which must converge.  Then K2
+   against its plain version at full size, at sync and δ*.
 4. K1's time per round at the full-size shapes, at sync, 128, 1024 and
    auto's δ* (CUDA events), beside its byte bound, the same round with no
    edges to walk (barriers, epilogues and publishes alone), the plain round's
    time, and at sync ``torch.sparse.mm`` (the PageRank round's SpMV) as the
-   library yardstick.
+   library yardstick.  K2's time per launch (one shard's commit step) at
+   sync and δ*, beside its bound, its plain version's time and at sync
+   ``torch.sparse.mm`` over the shard's rows.  K3 (the ELL SpMV) through its
+   entry point ``ops.spmv`` on the full-size graph's ELL (launch count reset
+   before and read after), against its plain version, timed beside its byte
+   bounds (padded ELL and real edges) and ``torch.sparse.mm``.
 5. the ``kernels`` line, the card's name and power limit, and the result line.
 
 It imports neither jax nor the JAX package ``repro``.
@@ -50,7 +63,16 @@ F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 INT32_OPS_PER_S = 33.5e12  # H100 SXM int32 (half the f32 FMA rate)
 SCALE, EFACTOR, P = 22, 16, 8
 SMALL_SCALE = 14
+HALO_SCALE = 16  # K2 against its plain version at fine δ
+SHARDS = 4  # D: the halo engine's shards, all on the one card
 DELTAS = ("sync", 128, 1024)
+# The quantized halo's per-round L1 residual stops falling at a floor set by
+# the quantization noise, below which its solves cannot converge; phase 3
+# prints that floor (the least residual of FLOOR_ROUNDS rounds at the
+# problem's own tolerance), and the quantized solves stop at QUANT_TOL,
+# above it.
+QUANT_TOL = 2e-2
+FLOOR_ROUNDS = 40
 
 
 def log(msg: str) -> None:
@@ -103,17 +125,42 @@ def time_ms(fn, budget_s: float = 0.4, max_iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bound_ms(bytes_: float, ops: float, is_f32: bool) -> tuple[float, str]:
+    """The least time for ``bytes_`` moved and ``ops`` done, and which binds."""
+    byte_s = bytes_ / HBM_BYTES_PER_S
+    op_s = ops / (F32_OPS_PER_S if is_f32 else INT32_OPS_PER_S)
+    return (max(byte_s, op_s) * 1e3, "bytes" if byte_s >= op_s else "operations")
+
+
 def round_bound(sched, table) -> tuple[float, str]:
     """Least time for one round: each real edge's index and value read once,
     the frontier (and an epilogue table) read once and written once."""
     itemsize = 4
     frontier = sched.n_slots * itemsize * 2
     bytes_ = sched.edges * 8 + frontier + (sched.n_slots * itemsize if table else 0)
-    is_f32 = sched.val.dtype == torch.float32
     ops = 2 * sched.edges + sched.n  # ⊗ and ⊕ per edge, one epilogue per row
-    byte_s = bytes_ / HBM_BYTES_PER_S
-    op_s = ops / (F32_OPS_PER_S if is_f32 else INT32_OPS_PER_S)
-    return (max(byte_s, op_s) * 1e3, "bytes" if byte_s >= op_s else "operations")
+    return bound_ms(bytes_, ops, sched.val.dtype == torch.float32)
+
+
+def halo_step_bound(step, L: int, tag: str) -> tuple[float, str]:
+    """Least time for one K2 launch: the step's real edges (index and value),
+    each distinct local slot they gather (and, for ``min_old``, each real
+    row's ``old`` slot) read once; per chunk row its edge range and local
+    slot read once and, for ``add_table``, its global id and table entry;
+    per real row (not the dump) its published value written once; the
+    boundary rows' indices read and values written once."""
+    real = step.row_ptr[:, -1]  # real edges of each worker's cell
+    edges = int(real.sum())
+    cols = torch.arange(step.src.shape[1], device=step.src.device)
+    read = torch.zeros(L, dtype=torch.bool, device=step.src.device)
+    read[step.src[cols[None, :] < real[:, None]].long()] = True
+    live = step.rows_loc[step.rows_loc != L - 1].long()
+    if tag == "min_old":
+        read[live] = True
+    rows, H = step.rows_loc.numel(), step.send_idx.numel()
+    per_row = 16 if tag == "add_table" else 8
+    bytes_ = edges * 8 + int(read.sum()) * 4 + rows * per_row + live.numel() * 4 + H * 8
+    return bound_ms(bytes_, 2 * edges + rows, step.val.dtype == torch.float32)
 
 
 def main() -> int:
@@ -125,9 +172,11 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.core import engine
+    from repro_torch.dist import engine_sharded
     from repro_torch.graphs.generators import make_graph, sssp_values
     from repro_torch.kernels import build, ops, ref
-    from repro_torch.kernels.round_block import fused_round_cuda
+    from repro_torch.kernels.round_block import fused_halo_step_cuda, fused_round_cuda
+    from repro_torch.kernels.spmv_ell import spmv_ell_cuda
     from repro_torch.solve import (
         Solver,
         pagerank_problem,
@@ -198,16 +247,86 @@ def main() -> int:
         for d in deltas["sssp"]:
             compare(f"{tag} sssp min_old δ={d}", ss.schedule(d), ss.problem.semiring, ss.row_update(), x_i)
 
+    halo_err = 0.0
+
+    def compare_halo(label, solver, sched, epilogue, x_cpu):
+        """One K2 halo round (S·D launches) against the plain halo round."""
+        nonlocal halo_err, compare_launches
+        sr = solver.problem.semiring
+        plan = solver.frontier_plan(sched)
+        kernel = engine_sharded.frontier_kernel_round_ext_fn(sched, plan, sr, epilogue.to(dev))
+        if x_cpu.dtype == torch.float32:
+            plain = engine_sharded.frontier_round_ext_fn(
+                on(sched, "cpu"), on(plan, "cpu"), sr, epilogue.to("cpu")
+            )
+            want = plain(x_cpu)
+        else:  # int32 min-plus is order-free: the plain round on the card is exact
+            want = engine_sharded.frontier_round_ext_fn(sched, plan, sr, epilogue.to(dev))(
+                x_cpu.to(dev)
+            ).cpu()
+        got, _ = kernel(x_cpu.to(dev), engine_sharded.frontier_ef_init(plan))
+        got = got.cpu()
+        compare_launches += sched.S * plan.D
+        a, b = got[:-1], want[:-1]
+        err = float((a.double() - b.double()).abs().max().item())
+        gap = ulp_gap(a, b) if a.dtype == torch.float32 else 0
+        halo_err = max(halo_err, err)
+        log(
+            f"[2] K2 {label}: S={sched.S} D={plan.D} L={plan.L} H={plan.H} "
+            f"max_abs_err={err} max_ulp={gap}"
+        )
+        if not torch.equal(a, b):
+            raise AssertionError(f"K2 disagrees with its plain version: {label}")
+
+    def compare_halo_all(tag, solvers, q, rng, deltas):
+        pr, ss = solvers["pagerank"], solvers["sssp"]
+        x_f = torch.tensor(rng.random(pr.graph.n + 1).astype(np.float32))
+        x_i = torch.tensor(rng.integers(0, 5000, ss.graph.n + 1).astype(np.int32))
+        x_i[torch.tensor(rng.random(ss.graph.n + 1) < 0.3)] = 2**30 - 1
+        ppr_ep = ppr_problem().make_row_update(pr.graph, q, dev)
+        for d in deltas:
+            sp = pr.schedule(d)
+            compare_halo(f"{tag} pagerank add_const δ={d}", pr, sp, pr.row_update(), x_f)
+            compare_halo(f"{tag} ppr add_table δ={d}", pr, sp, ppr_ep, x_f)
+            compare_halo(f"{tag} sssp min_old δ={d}", ss, ss.schedule(d), ss.row_update(), x_i)
+
     t0 = time.perf_counter()
     rng = np.random.default_rng(0)
     sg_pr, sg_ss = graphs(SMALL_SCALE)
     _, s_probs, s_q = problems(sg_pr)
     small = {
-        "pagerank": Solver(sg_pr, s_probs["pagerank"], n_workers=P),
-        "sssp": Solver(sg_ss, s_probs["sssp"], n_workers=P),
+        "pagerank": Solver(sg_pr, s_probs["pagerank"], n_workers=P, n_shards=SHARDS),
+        "sssp": Solver(sg_ss, s_probs["sssp"], n_workers=P, n_shards=SHARDS),
     }
     compare_all(f"s{SMALL_SCALE}", small, s_q, rng, dict.fromkeys(small, DELTAS))
     log(f"[2] small graphs done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    hg_pr, hg_ss = graphs(HALO_SCALE)
+    _, h_probs, h_q = problems(hg_pr)
+    mid = {
+        "pagerank": Solver(hg_pr, h_probs["pagerank"], n_workers=P, n_shards=SHARDS),
+        "sssp": Solver(hg_ss, h_probs["sssp"], n_workers=P, n_shards=SHARDS),
+    }
+    compare_halo_all(f"s{HALO_SCALE}", mid, h_q, rng, DELTAS)
+    del mid
+    log(f"[2] K2 at s{HALO_SCALE} done in {time.perf_counter() - t0:.1f} s")
+
+    # the quantized halo's rounding must not depend on the device
+    t0 = time.perf_counter()
+    pr = small["pagerank"]
+    cpu_pr = Solver(pr.graph, pr.problem, n_workers=P, n_shards=SHARDS, device="cpu")
+    for hd in engine_sharded.HALO_DTYPES:
+        kw = dict(delta="async", frontier="halo", halo_dtype=hd, tol=QUANT_TOL)
+        card_r, cpu_r = pr.solve(**kw), cpu_pr.solve(**kw)
+        same = card_r.rounds == cpu_r.rounds and np.array_equal(card_r.x, cpu_r.x)
+        log(
+            f"[2] s{SMALL_SCALE} pagerank halo {hd} δ={card_r.delta}: kernel vs plain (cpu) "
+            f"rounds {card_r.rounds}/{cpu_r.rounds} same={same}"
+        )
+        if not same:
+            raise AssertionError(f"halo kernel solve differs from the plain one: {hd}")
+    log(f"[2] s{SMALL_SCALE} halo parity done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     g_pr, g_ss = graphs(scale)
@@ -217,13 +336,22 @@ def main() -> int:
         f"(out-degree {int(g_pr.out_degree[hub])}); generated in {time.perf_counter() - t0:.1f} s"
     )
     t0 = time.perf_counter()
-    full = {name: Solver(g, probs[name], n_workers=P) for name, g in (("pagerank", g_pr), ("sssp", g_ss))}
+    indeg = np.diff(g_pr.indptr)
+    log(
+        f"[2] twitter s{scale}: largest in-degree (CSR row) {int(indeg.max())}, "
+        f"mean {float(indeg.mean()):.2f}; largest out-degree {int(g_pr.out_degree.max())}"
+    )
+    full = {
+        name: Solver(g, probs[name], n_workers=P, n_shards=SHARDS)
+        for name, g in (("pagerank", g_pr), ("sssp", g_ss))
+    }
     compare_all(f"s{scale}", full, q, rng, dict.fromkeys(full, DELTAS))
     log(f"[2] full size done in {time.perf_counter() - t0:.1f} s")
 
     # ---------------------------------------------------------------- 3 ---
     t0 = time.perf_counter()
     resolved = {name: set() for name in full}  # every δ the main path ran
+    replicated = {}  # (problem, δ) → the replicated solve's result
     fused_round_cuda.launches = 0
     for name, solver in full.items():
         # auto twice: the first call also runs the sync and async probes,
@@ -251,6 +379,7 @@ def main() -> int:
                 "launches": fused_round_cuda.launches - before,
             }
             resolved[name].add(r.delta)
+            replicated[(name, r.delta)] = r
             log(f"[3] solve {json.dumps(row)}")
             if row["launches"] == 0:
                 raise AssertionError(f"the solve never launched K1: {row}")
@@ -278,6 +407,99 @@ def main() -> int:
         if not same:
             raise AssertionError(f"kernel solve differs from plain solve: {name}")
     log(f"[3] small parity done in {time.perf_counter() - t0:.1f} s")
+
+    # the halo path: D shards on the card, each commit step one K2 launch a shard
+    t0 = time.perf_counter()
+    dstar = {name: solver.resolve_delta("auto") for name, solver in full.items()}
+    for name, solver in full.items():  # plans are set-up, built before the count
+        for d in ("sync", dstar[name]):
+            t1 = time.perf_counter()
+            plan = solver.frontier_plan(solver.schedule(d))
+            log(
+                f"[3] halo plan {name} δ={plan.delta}: built in {time.perf_counter() - t1:.2f} s; "
+                f"S={plan.S} D={plan.D} L={plan.L} H={plan.H} "
+                f"halo_sizes={plan.halo_sizes.tolist()} "
+                f"boundary_entries_per_round={plan.boundary_entries_per_round} "
+                f"halo_bytes_per_round={plan.halo_bytes_per_round()} "
+                f"replicated_bytes_per_round={plan.replicated_bytes_per_round()}"
+            )
+    fused_halo_step_cuda.launches = 0
+    for name, solver in full.items():
+        for d in ("sync", dstar[name]):
+            for hd in ("f32", "int8", "fp8") if name == "pagerank" else ("f32",):
+                kw = {} if hd == "f32" else {"tol": QUANT_TOL}
+                before = fused_halo_step_cuda.launches
+                t1 = time.perf_counter()
+                r = solver.solve(delta=d, backend="kernel", frontier="halo", halo_dtype=hd, **kw)
+                secs = time.perf_counter() - t1
+                launches = fused_halo_step_cuda.launches - before
+                rep = replicated[(name, r.delta)]
+                plan = solver.frontier_plan(solver.schedule(d))
+                row = {
+                    "problem": name,
+                    "halo_dtype": hd,
+                    "delta": r.delta,
+                    "S": plan.S,
+                    "D": plan.D,
+                    "rounds": r.rounds,
+                    "converged": r.converged,
+                    "flushes": r.flushes,
+                    "flush_bytes": r.flush_bytes,
+                    "total_s": secs,
+                    "rounds_s": r.total_time_s,
+                    "ms_per_round": r.total_time_s / r.rounds * 1e3,
+                    "replicated_ms_per_round": rep.total_time_s / rep.rounds * 1e3,
+                    "last_residual": r.residuals[-1],
+                    "launches": launches,
+                }
+                if hd == "f32":
+                    row["equals_replicated"] = (
+                        (r.rounds, r.flushes, r.flush_bytes) == (rep.rounds, rep.flushes, rep.flush_bytes)
+                        and np.array_equal(r.x, rep.x)
+                    )
+                else:
+                    # against the converged f32 answer, and against the f32
+                    # halo solve stopped at the same tolerance (what the
+                    # quantized wire itself costs)
+                    same_tol = solver.solve(delta=d, frontier="halo", tol=QUANT_TOL)
+                    for tag, f32 in (("", rep), ("_same_tol", same_tol)):
+                        gap = np.abs(r.x.astype(np.float64) - f32.x.astype(np.float64))
+                        row[f"max_gap_vs_f32{tag}"] = float(gap.max())
+                        row[f"rel_l1_gap_vs_f32{tag}"] = float(gap.sum() / np.abs(f32.x.astype(np.float64)).sum())
+                    row["f32_rounds_same_tol"] = same_tol.rounds
+                    floor = solver.solve(
+                        delta=d, frontier="halo", halo_dtype=hd, max_rounds=FLOOR_ROUNDS
+                    )
+                    row["residual_floor"] = min(floor.residuals)
+                    row["floor_rounds"] = floor.rounds
+                log(f"[3] halo solve {json.dumps(row)}")
+                if row["launches"] != r.rounds * plan.S * plan.D:
+                    raise AssertionError(f"the halo solve did not launch K2 once a shard and step: {row}")
+                if not (r.converged and np.isfinite(r.x.astype(np.float64)).all()):
+                    raise AssertionError(f"halo solve did not converge to finite values: {row}")
+                if hd == "f32" and not row["equals_replicated"]:
+                    raise AssertionError(f"the f32 halo solve differs from the replicated one: {row}")
+    halo_launches = fused_halo_step_cuda.launches
+    if halo_launches == 0:
+        raise AssertionError("the halo path never launched K2")
+    log(f"[3] halo path: {halo_launches} K2 launches; done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    compare_halo_all(f"s{scale}", full, q, rng, ["sync"])
+    pr = full["pagerank"]
+    x_f = torch.tensor(rng.random(pr.graph.n + 1).astype(np.float32))
+    for name, solver in full.items():  # at δ*, which may differ per problem
+        if name == "pagerank":
+            sp = solver.schedule(dstar[name])
+            compare_halo(f"s{scale} pagerank add_const δ={sp.delta}", solver, sp, solver.row_update(), x_f)
+            ppr_ep = ppr_problem().make_row_update(solver.graph, q, dev)
+            compare_halo(f"s{scale} ppr add_table δ={sp.delta}", solver, sp, ppr_ep, x_f)
+        else:
+            x_i = torch.tensor(rng.integers(0, 5000, solver.graph.n + 1).astype(np.int32))
+            x_i[torch.tensor(rng.random(solver.graph.n + 1) < 0.3)] = 2**30 - 1
+            sp = solver.schedule(dstar[name])
+            compare_halo(f"s{scale} sssp min_old δ={sp.delta}", solver, sp, solver.row_update(), x_i)
+    log(f"[3] K2 vs plain at full size done in {time.perf_counter() - t0:.1f} s")
 
     # ---------------------------------------------------------------- 4 ---
     t0 = time.perf_counter()
@@ -327,7 +549,140 @@ def main() -> int:
             timings.append(row)
             log(f"[4] timing {json.dumps(row)}")
     torch.cuda.synchronize()
-    log(f"[4] done in {time.perf_counter() - t0:.1f} s")
+    log(f"[4] K1 done in {time.perf_counter() - t0:.1f} s")
+
+    # K2: one shard's commit step per launch, S·D launches a round
+    t0 = time.perf_counter()
+    halo_timings = []
+    pr = full["pagerank"]
+    sr, ep = pr.problem.semiring, pr.row_update()
+    x = engine.extend_frontier(pr.problem.x0(pr.graph), sr, dev)
+    for d in ("sync", dstar["pagerank"]):
+        sched = pr.schedule(d)
+        plan = pr.frontier_plan(sched)
+        args = engine_sharded.frontier_plan_args(sched, plan)
+        x_loc = plan.scatter_x(x)
+        k_ms, p_ms, b_ms, lib_ms, host_ms = [], [], [], [], []
+        for dd in range(plan.D):
+            steps = [args.steps[s][dd] for s in range(plan.S)]
+            xs = x_loc[dd]
+            k_ms.append(time_ms(lambda: [ops.fused_halo_step(xs, st, sr, ep) for st in steps]) / plan.S)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()  # the host's side of the same launches
+            for st in steps:
+                ops.fused_halo_step(xs, st, sr, ep)
+            host_ms.append((time.perf_counter() - t1) * 1e3 / plan.S)
+            torch.cuda.synchronize()
+            p_ms.append(
+                time_ms(lambda: [ref.fused_halo_step_ref(xs, st, sr, ep) for st in steps], 0.2, 5) / plan.S
+            )
+            bounds = [halo_step_bound(st, plan.L, ep.tag) for st in steps]
+            b_ms.append(float(np.mean([b for b, _ in bounds])))
+            b_by = bounds[0][1]
+            if sched.S == 1:  # the shard's rows of the CSR matrix times x
+                g = pr.graph
+                lo, hi = (int(v) for v in plan.vertex_bounds[dd : dd + 2])
+                e0, e1 = int(g.indptr[lo]), int(g.indptr[hi])
+                A = torch.sparse_csr_tensor(
+                    torch.tensor(g.indptr[lo : hi + 1] - e0, device=dev),
+                    torch.tensor(g.indices[e0:e1].astype(np.int64), device=dev),
+                    torch.tensor(g.values[e0:e1], device=dev),
+                    size=(hi - lo, g.n),
+                )
+                xv = x[:-1].reshape(-1, 1).contiguous()
+                lib_ms.append(time_ms(lambda: torch.sparse.mm(A, xv)))
+        rnd = engine_sharded.frontier_kernel_round_ext_fn(sched, plan, sr, ep)
+        ef0 = engine_sharded.frontier_ef_init(plan)
+        row = {
+            "problem": "pagerank",
+            "delta": sched.delta,
+            "S": sched.S,
+            "D": plan.D,
+            "launches_per_round": sched.S * plan.D,
+            "ms": float(np.mean(k_ms)),
+            "ms_per_shard": k_ms,
+            "host_ms_per_launch": float(np.mean(host_ms)),
+            "plain_ms": float(np.mean(p_ms)),
+            "bound_ms": float(np.mean(b_ms)),
+            "bound_by": b_by,
+            "share_of_bound": float(np.mean(b_ms) / np.mean(k_ms)),
+            "library_ms": float(np.mean(lib_ms)) if lib_ms else None,
+            "halo_round_ms": time_ms(lambda: rnd(x, ef0)),
+            "k1_round_ms": next(t["ms"] for t in timings if t["problem"] == "pagerank" and t["delta"] == sched.delta),
+        }
+        halo_timings.append(row)
+        log(f"[4] K2 timing {json.dumps(row)}")
+    torch.cuda.synchronize()
+    log(f"[4] K2 done in {time.perf_counter() - t0:.1f} s")
+
+    # K3: the ELL SpMV through its entry point, on the full-size graph's ELL
+    t0 = time.perf_counter()
+    idx_np, val_np = ops.ell_from_csr(g_pr)
+    _, val_ss_np = ops.ell_from_csr(g_ss)
+    log(f"[4] ELL of s{scale}: {idx_np.shape}, built in {time.perf_counter() - t0:.1f} s (twice)")
+    idx = torch.from_numpy(idx_np).to(dev)
+    val_pr, val_ss = torch.from_numpy(val_np).to(dev), torch.from_numpy(val_ss_np).to(dev)
+    del idx_np, val_np, val_ss_np
+    n_slots = g_pr.n + 1
+    x_i = torch.tensor(rng.integers(0, 5000, n_slots).astype(np.int32), device=dev)
+    x_i[torch.tensor(rng.random(n_slots) < 0.3, device=dev)] = 2**30 - 1
+    cases = {
+        "plus_times F=1": (torch.tensor(rng.random(n_slots).astype(np.float32), device=dev), val_pr, "plus_times"),
+        "plus_times F=4": (torch.tensor(rng.random((n_slots, 4)).astype(np.float32), device=dev), val_pr, "plus_times"),
+        "min_plus F=1": (x_i, val_ss, "min_plus"),
+    }
+    spmv_ell_cuda.launches = 0
+    outs = {label: ops.spmv(xx, idx, vv, sr_name) for label, (xx, vv, sr_name) in cases.items()}
+    torch.cuda.synchronize()
+    k3_launches = spmv_ell_cuda.launches
+    if k3_launches != len(cases):
+        raise AssertionError(f"ops.spmv launched K3 {k3_launches} times for {len(cases)} calls")
+    log(f"[4] K3 path: {k3_launches} launches")
+    A = torch.sparse_csr_tensor(
+        torch.tensor(g_pr.indptr, device=dev),
+        torch.tensor(g_pr.indices.astype(np.int64), device=dev),
+        torch.tensor(g_pr.values, device=dev),
+        size=(g_pr.n, g_pr.n),
+    )
+    k3_err, spmv_timings = 0.0, []
+    rows_, max_deg = idx.shape
+    for label, (xx, vv, sr_name) in cases.items():
+        want = ref.spmv_ell_ref(xx, idx, vv, sr_name)
+        got = outs[label]
+        err = float((got.double() - want.double()).abs().max().item())
+        k3_err = max(k3_err, err)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K3 disagrees with its plain version: {label} ({err})")
+        F = xx.shape[1] if xx.ndim == 2 else 1
+        xo_bytes = (n_slots + rows_) * F * 4  # x read once, out written once
+        b_pad, by_pad = bound_ms(rows_ * max_deg * 8 + xo_bytes, 2 * rows_ * max_deg * F, sr_name == "plus_times")
+        b_real, _ = bound_ms(g_pr.nnz * 8 + xo_bytes, 2 * g_pr.nnz * F, sr_name == "plus_times")
+        lib_ms = None
+        if sr_name == "plus_times":
+            X = xx[:-1].reshape(g_pr.n, F).contiguous()
+            lib_ms = time_ms(lambda: torch.sparse.mm(A, X))
+            lib = torch.sparse.mm(A, X).reshape(got.shape)
+            rel = float(((lib - got).abs().max() / lib.abs().max()).item())
+            log(f"[4] sparse.mm vs K3 {label}: max rel diff {rel}")
+        row = {
+            "case": label,
+            "rows": rows_,
+            "max_deg": max_deg,
+            "F": F,
+            "max_abs_err": err,
+            "ms": time_ms(lambda: ops.spmv(xx, idx, vv, sr_name)),
+            "plain_ms": time_ms(lambda: ref.spmv_ell_ref(xx, idx, vv, sr_name), 0.2, 3),
+            "bound_ms": b_pad,
+            "bound_by": by_pad,
+            "bound_real_edges_ms": b_real,
+            "library_ms": lib_ms,
+        }
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        spmv_timings.append(row)
+        log(f"[4] K3 timing {json.dumps(row)}")
+    del idx, val_pr, val_ss, outs, cases, A
+    torch.cuda.synchronize()
+    log(f"[4] K3 done in {time.perf_counter() - t0:.1f} s")
 
     # ---------------------------------------------------------------- 5 ---
     head = next(t for t in timings if t["problem"] == "pagerank" and t["delta"] == full["pagerank"].block_size)
@@ -345,7 +700,33 @@ def main() -> int:
                 "bound_ms": head["bound_ms"],
                 "bound_by": head["bound_by"],
                 "library_ms": head["library_ms"],
-            }
+            },
+            {
+                "name": "halo_step",
+                "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/round_block.cu",
+                "replaces": "src/repro/kernels/round_block.py:204",
+                "launches": halo_launches,
+                "max_abs_err": halo_err,
+                "ms": halo_timings[0]["ms"],
+                "plain_ms": halo_timings[0]["plain_ms"],
+                "bound_ms": halo_timings[0]["bound_ms"],
+                "bound_by": halo_timings[0]["bound_by"],
+                "library_ms": halo_timings[0]["library_ms"],
+            },
+            {
+                "name": "spmv_ell",
+                "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/spmv_ell.cu",
+                "replaces": "src/repro/kernels/spmv_ell.py:56",
+                "launches": k3_launches,
+                "max_abs_err": k3_err,
+                "ms": spmv_timings[0]["ms"],
+                "plain_ms": spmv_timings[0]["plain_ms"],
+                "bound_ms": spmv_timings[0]["bound_ms"],
+                "bound_by": spmv_timings[0]["bound_by"],
+                "library_ms": spmv_timings[0]["library_ms"],
+            },
         ]
     }
     log(f"[5] total {time.perf_counter() - t_all:.1f} s; {compare_launches} comparison launches")

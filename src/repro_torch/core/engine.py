@@ -35,6 +35,7 @@ __all__ = [
     "round_fn",
     "host_loop",
     "extend_frontier",
+    "chunk_reduce",
     "MIN_CHUNK",
 ]
 
@@ -184,22 +185,31 @@ def make_schedule(
     return DeviceSchedule.from_host_arrays(arrays, device)
 
 
+def chunk_reduce(x, src_s, val_s, dst_s, delta: int, semiring: Semiring):
+    """``(P, δ)``: each worker's chunk of one commit step, ⊕ over its edges.
+
+    Gathers ``x[src_s]``, applies ⊗ with ``val_s`` and runs a per-worker
+    segment-⊕ into ``δ + 1`` slots (the last is the padding dump, dropped).
+    """
+    P = src_s.shape[0]
+    contrib = semiring.mul(x[src_s], val_s)  # (P, M)
+    offs = torch.arange(P, dtype=torch.int32, device=x.device) * (delta + 1)
+    seg = dst_s + offs[:, None]
+    return semiring.segment_reduce(
+        contrib.reshape(-1), seg.reshape(-1), P * (delta + 1)
+    ).reshape(P, delta + 1)[:, :delta]
+
+
 def _commit_step(s: int, x_ext, sched: DeviceSchedule, semiring: Semiring, row_update):
     """One commit step, in place on ``x_ext``: chunk-SpMV for all workers + publish.
 
     Every read (the gather and ``old``) is taken before the publish, so the
     step sees the commits of the steps before it and none of its own.
     """
-    P, delta = sched.P, sched.delta
-    src_s, val_s = sched.src[s], sched.val[s]
-    dst_s, rows_s = sched.dst_local[s], sched.rows[s]
-    contrib = semiring.mul(x_ext[src_s], val_s)  # (P, M)
-    # Per-worker segment-⊕ into δ + 1 slots (last = padding dump).
-    offs = torch.arange(P, dtype=torch.int32, device=x_ext.device) * (delta + 1)
-    seg = dst_s + offs[:, None]
-    reduced = semiring.segment_reduce(
-        contrib.reshape(-1), seg.reshape(-1), P * (delta + 1)
-    ).reshape(P, delta + 1)[:, :delta]
+    rows_s = sched.rows[s]
+    reduced = chunk_reduce(
+        x_ext, sched.src[s], sched.val[s], sched.dst_local[s], sched.delta, semiring
+    )
     new = row_update(x_ext[rows_s], reduced, rows_s)
     # Publish: the flush.  Padding rows all land on the dump slot (index n),
     # whose value is unspecified.

@@ -23,7 +23,7 @@ __all__ = ["BUILD_DIR", "SOURCES", "NVCC_FLAGS", "build", "load", "nvcc_command"
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("round_block",)
+SOURCES = ("round_block", "spmv_ell")
 NVCC_FLAGS = (
     "-gencode",
     "arch=compute_90a,code=sm_90a",

@@ -1,4 +1,5 @@
-// K1: one full engine round (all S commit steps) in one cooperative launch.
+// K1: one full engine round (all S commit steps) in one cooperative launch,
+// and K2: one shard's halo commit step (second entry point, further down).
 //
 // Replaces the TPU kernel src/repro/kernels/round_block.py::fused_round_fn_q
 // (its pallas_call runs the S steps as a sequential grid with the frontier
@@ -57,7 +58,8 @@ struct PlusTimes {
   __device__ static T zero() { return 0.0f; }
   __device__ static T mul(T x, T a) { return __fmul_rn(x, a); }
   __device__ static T add(T acc, T v) { return __fadd_rn(acc, v); }
-  __device__ static T epilogue(int tag, const T* x, int row, T acc, T c,
+  // slot: where old is read in x; row: the global row id (table index).
+  __device__ static T epilogue(int tag, const T*, int, int row, T acc, T c,
                                const T* table) {
     return tag == kAddConst ? __fadd_rn(c, acc) : __fadd_rn(table[row], acc);
   }
@@ -71,14 +73,27 @@ struct MinPlus {
     return s < kIntInf ? s : kIntInf;
   }
   __device__ static T add(T acc, T v) { return v < acc ? v : acc; }
-  __device__ static T epilogue(int, const T* x, int row, T acc, T, const T*) {
-    const T old = __ldcg(x + row);
+  __device__ static T epilogue(int, const T* x, int slot, int, T acc, T,
+                               const T*) {
+    const T old = __ldcg(x + slot);
     return acc < old ? acc : old;
   }
 };
 
+// The row walk: (+) over edges [e0, e1) in edge order of x[src] (x) val.
 // x is read and written by different blocks across grid.sync(), so its loads
 // go through L2 (__ldcg), never a stale L1 or the read-only path.
+template <class Sr>
+__device__ __forceinline__ typename Sr::T walk_row(
+    const typename Sr::T* x, const int32_t* __restrict__ src,
+    const typename Sr::T* __restrict__ val, int e0, int e1) {
+  typename Sr::T acc = Sr::zero();
+  for (int e = e0; e < e1; ++e) {
+    acc = Sr::add(acc, Sr::mul(__ldcg(x + src[e]), val[e]));
+  }
+  return acc;
+}
+
 template <class Sr>
 __global__ void __launch_bounds__(kThreads)
     round_kernel(typename Sr::T* x, typename Sr::T* scratch,
@@ -100,15 +115,9 @@ __global__ void __launch_bounds__(kThreads)
       const int r = static_cast<int>(i - static_cast<long long>(w) * delta);
       const long long cell = step_cell + w;
       const int32_t* ptr = row_ptr + cell * (delta + 1);
-      const int32_t* cell_src = src + cell * M;
-      const T* cell_val = val + cell * M;
-      T acc = Sr::zero();
-      const int e1 = ptr[r + 1];
-      for (int e = ptr[r]; e < e1; ++e) {
-        acc = Sr::add(acc, Sr::mul(__ldcg(x + cell_src[e]), cell_val[e]));
-      }
+      const T acc = walk_row<Sr>(x, src + cell * M, val + cell * M, ptr[r], ptr[r + 1]);
       const int row = rows[step_cell * delta + i];
-      scratch[i] = Sr::epilogue(tag, x, row, acc, c, table);
+      scratch[i] = Sr::epilogue(tag, x, row, row, acc, c, table);
     }
     grid.sync();
     for (long long i = first; i < cells; i += stride) {
@@ -119,13 +128,10 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <class Sr>
-cudaError_t launch(void* x, void* scratch, const void* src, const void* val,
-                   const void* row_ptr, const void* rows, const void* table,
-                   double c_in, int tag, int n, int S, int P, int M, int delta,
-                   cudaStream_t stream) {
-  using T = typename Sr::T;
-  const void* kernel = reinterpret_cast<const void*>(&round_kernel<Sr>);
+// One block per kThreads cells, at most as many as can be co-resident (a
+// cooperative launch needs every block resident for grid.sync()).
+cudaError_t cooperative_launch(const void* kernel, long long cells, void** args,
+                               cudaStream_t stream) {
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -136,12 +142,22 @@ cudaError_t launch(void* x, void* scratch, const void* src, const void* val,
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
   if (err != cudaSuccess) return err;
-  const long long cells = static_cast<long long>(P) * delta;
   long long blocks = (cells + kThreads - 1) / kThreads;
   const long long resident = static_cast<long long>(sms) * per_sm;
   if (blocks > resident) blocks = resident;
   if (blocks < 1) blocks = 1;
+  err = cudaLaunchCooperativeKernel(kernel, dim3(static_cast<unsigned>(blocks)),
+                                    dim3(kThreads), args, 0, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
 
+template <class Sr>
+cudaError_t launch(void* x, void* scratch, const void* src, const void* val,
+                   const void* row_ptr, const void* rows, const void* table,
+                   double c_in, int tag, int n, int S, int P, int M, int delta,
+                   cudaStream_t stream) {
+  using T = typename Sr::T;
   T* x_p = static_cast<T*>(x);
   T* scratch_p = static_cast<T*>(scratch);
   const int32_t* src_p = static_cast<const int32_t*>(src);
@@ -152,10 +168,91 @@ cudaError_t launch(void* x, void* scratch, const void* src, const void* val,
   T c = static_cast<T>(c_in);
   void* args[] = {&x_p, &scratch_p, &src_p, &val_p, &ptr_p, &rows_p, &table_p,
                   &c,   &tag,       &n,     &S,     &P,     &M,     &delta};
-  err = cudaLaunchCooperativeKernel(kernel, dim3(static_cast<unsigned>(blocks)),
-                                    dim3(kThreads), args, 0, stream);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return cooperative_launch(reinterpret_cast<const void*>(&round_kernel<Sr>),
+                            static_cast<long long>(P) * delta, args, stream);
+}
+
+// K2: one shard's owner-computes halo commit step.
+//
+// Replaces the TPU kernel src/repro/kernels/round_block.py::fused_halo_step_fn
+// (a one-step pallas_call with the shard's (L,) frontier aliased in VMEM and
+// the (H,) boundary rows as a second output).  The engine
+// (repro_torch/dist/engine_sharded.py) calls it once per shard and commit
+// step, S*D launches a round, and exchanges the boundary rows between steps.
+//
+//   every local row i = (worker w, r) of the shard's chunk, one thread each:
+//     acc = (+) over the row's edges, in edge order, of x[src] (x) val
+//     scratch[i] = epilogue(old = x[rows_loc[i]], acc, global row rows_g[i])
+//   grid.sync()
+//   publish scratch into x at rows_loc (the dump slot L-1 is skipped)
+//   send[h] = scratch[send_idx[h]]
+//
+// src holds local slots (owned, halo, dump) in the schedule's edge order, so
+// the schedule's own row_ptr columns for the shard's workers give each row
+// its edges.  The row walk, the epilogues and the rounding are K1's, so an
+// f32 halo round equals K1's round bit for bit.
+//
+// Bound on the H100: bytes, as K1's, but per step: the step's real edges
+// (8 B each), the chunk's rows read and written, and the boundary rows
+// written.  At coarse delta one step is a round's worth of one shard's
+// edges; at fine delta the launch and the grid barrier dominate (PERF.md).
+template <class Sr>
+__global__ void __launch_bounds__(kThreads)
+    halo_step_kernel(typename Sr::T* x, typename Sr::T* scratch,
+                     typename Sr::T* send, const int32_t* __restrict__ src,
+                     const typename Sr::T* __restrict__ val,
+                     const int32_t* __restrict__ row_ptr,
+                     const int32_t* __restrict__ rows_g,
+                     const int32_t* __restrict__ rows_loc,
+                     const int32_t* __restrict__ send_idx,
+                     const typename Sr::T* __restrict__ table, typename Sr::T c,
+                     int tag, int L, int P_loc, int M, int delta, int H) {
+  cg::grid_group grid = cg::this_grid();
+  const long long cells = static_cast<long long>(P_loc) * delta;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  for (long long i = first; i < cells; i += stride) {
+    const int w = static_cast<int>(i / delta);
+    const int r = static_cast<int>(i - static_cast<long long>(w) * delta);
+    const int32_t* ptr = row_ptr + static_cast<long long>(w) * (delta + 1);
+    const long long off = static_cast<long long>(w) * M;
+    const auto acc = walk_row<Sr>(x, src + off, val + off, ptr[r], ptr[r + 1]);
+    scratch[i] = Sr::epilogue(tag, x, rows_loc[i], rows_g[i], acc, c, table);
+  }
+  grid.sync();
+  for (long long i = first; i < cells; i += stride) {
+    const int slot = rows_loc[i];
+    if (slot < L - 1) x[slot] = scratch[i];
+  }
+  // scratch rows of other blocks: read through L2, as x is
+  for (long long h = first; h < H; h += stride) send[h] = __ldcg(scratch + send_idx[h]);
+}
+
+template <class Sr>
+cudaError_t launch_halo(void* x, void* scratch, void* send, const void* src,
+                        const void* val, const void* row_ptr, const void* rows_g,
+                        const void* rows_loc, const void* send_idx,
+                        const void* table, double c_in, int tag, int L, int P_loc,
+                        int M, int delta, int H, cudaStream_t stream) {
+  using T = typename Sr::T;
+  T* x_p = static_cast<T*>(x);
+  T* scratch_p = static_cast<T*>(scratch);
+  T* send_p = static_cast<T*>(send);
+  const int32_t* src_p = static_cast<const int32_t*>(src);
+  const T* val_p = static_cast<const T*>(val);
+  const int32_t* ptr_p = static_cast<const int32_t*>(row_ptr);
+  const int32_t* rg_p = static_cast<const int32_t*>(rows_g);
+  const int32_t* rl_p = static_cast<const int32_t*>(rows_loc);
+  const int32_t* snd_p = static_cast<const int32_t*>(send_idx);
+  const T* table_p = static_cast<const T*>(table);
+  T c = static_cast<T>(c_in);
+  void* args[] = {&x_p,   &scratch_p, &send_p, &src_p, &val_p, &ptr_p,
+                  &rg_p,  &rl_p,      &snd_p,  &table_p, &c,   &tag,
+                  &L,     &P_loc,     &M,      &delta, &H};
+  long long cells = static_cast<long long>(P_loc) * delta;
+  if (cells < H) cells = H;
+  return cooperative_launch(reinterpret_cast<const void*>(&halo_step_kernel<Sr>),
+                            cells, args, stream);
 }
 
 }  // namespace
@@ -174,6 +271,27 @@ extern "C" int round_block_launch(int dtype, void* x, void* scratch,
   if (dtype == 1 && tag == kMinOld) {
     return launch<MinPlus>(x, scratch, src, val, row_ptr, rows, table, c, tag, n,
                            S, P, M, delta, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// K2.  dtype and tag as for round_block_launch.  Returns a cudaError_t.
+extern "C" int halo_step_launch(int dtype, void* x, void* scratch, void* send,
+                                const void* src, const void* val,
+                                const void* row_ptr, const void* rows_g,
+                                const void* rows_loc, const void* send_idx,
+                                const void* table, double c, int tag, int L,
+                                int P_loc, int M, int delta, int H, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && (tag == kAddConst || (tag == kAddTable && table != nullptr))) {
+    return launch_halo<PlusTimes>(x, scratch, send, src, val, row_ptr, rows_g,
+                                  rows_loc, send_idx, table, c, tag, L, P_loc, M,
+                                  delta, H, st);
+  }
+  if (dtype == 1 && tag == kMinOld) {
+    return launch_halo<MinPlus>(x, scratch, send, src, val, row_ptr, rows_g,
+                                rows_loc, send_idx, table, c, tag, L, P_loc, M,
+                                delta, H, st);
   }
   return cudaErrorInvalidValue;
 }

@@ -1,4 +1,5 @@
-"""Dispatch between the CUDA kernels and their plain versions.
+"""Dispatch between the CUDA kernels and their plain versions, and the host
+side ELL layout builder.
 
 The counterpart of ``repro.kernels.ops``.  A CUDA tensor goes to the kernel,
 which launches or raises; only a tensor on the CPU goes to the plain version.
@@ -7,16 +8,75 @@ There is no fallback from one to the other.
 
 from __future__ import annotations
 
-from repro_torch.kernels import ref
-from repro_torch.kernels.round_block import fused_round_cuda
+import numpy as np
 
-__all__ = ["fused_round"]
+from repro_torch.core.semiring import INT_INF
+from repro_torch.kernels import ref
+from repro_torch.kernels.round_block import fused_halo_step_cuda, fused_round_cuda
+from repro_torch.kernels.spmv_ell import spmv_ell_cuda
+
+__all__ = ["ell_from_csr", "fused_halo_step", "fused_round", "spmv"]
+
+
+def _route(x, kernel, plain, what):
+    if x.device.type == "cuda":
+        return kernel
+    if x.device.type == "cpu":
+        return plain
+    raise ValueError(f"no {what} for device {x.device}")
 
 
 def fused_round(x_ext, sched, semiring, row_update):
     """One full engine round (all S commit steps) over ``sched``."""
-    if x_ext.device.type == "cuda":
-        return fused_round_cuda(x_ext, sched, semiring, row_update)
-    if x_ext.device.type == "cpu":
-        return ref.fused_round_ref(x_ext, sched, semiring, row_update)
-    raise ValueError(f"no fused round for device {x_ext.device}")
+    fn = _route(x_ext, fused_round_cuda, ref.fused_round_ref, "fused round")
+    return fn(x_ext, sched, semiring, row_update)
+
+
+def fused_halo_step(x_loc, step, semiring, row_update):
+    """One shard's halo commit step, in place on ``x_loc``; returns its
+    ``(H,)`` boundary rows."""
+    fn = _route(x_loc, fused_halo_step_cuda, ref.fused_halo_step_ref, "halo step")
+    return fn(x_loc, step, semiring, row_update)
+
+
+def spmv(x_ext, idx, val, semiring: str = "plus_times"):
+    """Semiring SpMV over ELL rows: ``(rows,)+feat``."""
+    fn = _route(x_ext, spmv_ell_cuda, ref.spmv_ell_ref, "spmv")
+    return fn(x_ext, idx, val, semiring)
+
+
+#: Rows laid out at a time by :func:`ell_from_csr`: bounds its int64
+#: intermediates to ``ELL_CHUNK_ROWS × max_deg`` entries.
+ELL_CHUNK_ROWS = 1 << 18
+#: :func:`ell_from_csr` pads ``max_deg`` to a multiple of this.
+ELL_LANE_PAD = 128
+
+
+def ell_from_csr(graph):
+    """Padded ELL ``(idx, val)`` from a CSRGraph (host side, numpy).
+
+    The same arrays as ``repro.kernels.ops.ell_from_csr``: slot ``(r, j)``
+    holds row ``r``'s ``j``-th in-edge; padding gathers vertex 0 and carries
+    the semiring's annihilating value (0.0, or ``INT_INF`` for int32), so it
+    contributes the ⊕-identity.  ``max_deg`` is padded to a multiple of
+    :data:`ELL_LANE_PAD`.  Rows are laid out :data:`ELL_CHUNK_ROWS` at a time, so the
+    host never holds a full-size ``(rows, max_deg)`` int64 intermediate.
+    """
+    indptr, indices, values = graph.indptr, graph.indices, graph.values
+    n = graph.n
+    degs = np.diff(indptr).astype(np.int64)
+    max_deg = int(max(degs.max() if degs.size else 0, 1))
+    max_deg = -(-max_deg // ELL_LANE_PAD) * ELL_LANE_PAD
+    pad_val = np.float32(0.0) if values.dtype.kind == "f" else INT_INF
+    idx = np.zeros((n, max_deg), np.int32)
+    val = np.full((n, max_deg), pad_val, values.dtype)
+    if graph.nnz == 0:
+        return idx, val
+    offs = np.arange(max_deg, dtype=np.int64)[None, :]
+    for r0 in range(0, n, ELL_CHUNK_ROWS):
+        r1 = min(r0 + ELL_CHUNK_ROWS, n)
+        mask = offs < degs[r0:r1, None]
+        pos = (indptr[r0:r1][:, None] + offs)[mask]
+        idx[r0:r1][mask] = indices[pos]
+        val[r0:r1][mask] = values[pos]
+    return idx, val

@@ -1,9 +1,9 @@
-"""The single-device :class:`Solver` — the port's entry point.
+"""The :class:`Solver` — the port's entry point.
 
 The counterpart of ``repro.solve.solver.Solver`` on one device.  A solver
 binds ``(graph, problem, n_workers)``, caches one :class:`DeviceSchedule` per
-resolved δ, and runs rounds under the host loop until the residual meets the
-tolerance.
+resolved δ (and one halo plan per δ), and runs rounds under the host loop
+until the residual meets the tolerance.
 
 ``delta`` takes the paper's disciplines by name (``"sync"``, ``"async"``), an
 integer (delayed), or ``"auto"``, which probes the sync and async round
@@ -11,6 +11,15 @@ counts and asks the δ cost model (:mod:`repro_torch.core.delta_model`) for
 δ*.  ``backend="kernel"`` (the default) runs each round as one launch of the
 hand-written CUDA kernel K1 on a CUDA device, and as K1's plain version on
 the CPU; ``backend="torch"`` runs the plain round on either, for comparison.
+
+``frontier="halo"`` runs the owner-computes sharded frontier
+(:mod:`repro_torch.dist.engine_sharded`) over ``n_shards`` shards, all on the
+solver's device: each shard's commit step is one launch of the halo-step
+kernel K2 (``backend="kernel"``) or its plain version (``backend="torch"``),
+and only boundary rows cross between shards.  ``halo_dtype`` ∈ ``{"f32",
+"int8", "fp8"}`` quantizes those rows with error feedback (``backend=
+"kernel"`` only; f32 gives the replicated solve's answer bit for bit).
+Both backends run both frontiers.
 
 The solver runs on CUDA unless it is given ``device="cpu"``; with no CUDA
 device and no ``device`` it raises.
@@ -33,14 +42,25 @@ from repro_torch.core.engine import (
     make_schedule,
     round_fn,
 )
+from repro_torch.dist import engine_sharded
 from repro_torch.graphs.formats import CSRGraph
 from repro_torch.graphs.partition import balanced_blocks
 from repro_torch.kernels.ops import fused_round
 from repro_torch.solve.problem import Problem
 
-__all__ = ["Solver", "BACKENDS", "resolve_device"]
+__all__ = [
+    "BACKENDS",
+    "FRONTIERS",
+    "HALO_DTYPES",
+    "Solver",
+    "resolve_device",
+]
 
 BACKENDS = ("kernel", "torch")
+FRONTIERS = ("replicated", "halo")
+
+#: Wire dtypes of the halo exchange (``backend="kernel"``, ``frontier="halo"``).
+HALO_DTYPES = engine_sharded.HALO_DTYPES
 
 
 def resolve_device(device=None) -> torch.device:
@@ -71,6 +91,8 @@ class Solver:
         delta="auto",
         backend: str = "kernel",
         frontier: str = "replicated",
+        halo_dtype: str = "f32",
+        n_shards: int = 1,
         min_chunk: int = MIN_CHUNK,
         tol: float | None = None,
         max_rounds: int | None = None,
@@ -78,13 +100,19 @@ class Solver:
     ):
         self._check_backend(backend)
         self._check_frontier(frontier)
+        self._check_halo_dtype(halo_dtype)
         self._check_delta(delta)
+        if n_shards < 1 or n_workers % n_shards:
+            raise ValueError(f"P={n_workers} not divisible by D={n_shards}")
         self.device = resolve_device(device)
         self.graph = graph
         self.problem = problem
         self.n_workers = n_workers
         self.default_delta = delta
         self.default_backend = backend
+        self.default_frontier = frontier
+        self.default_halo_dtype = halo_dtype
+        self.n_shards = n_shards
         self.min_chunk = min_chunk
         self.tol = problem.tol if tol is None else tol
         self.max_rounds = problem.max_rounds if max_rounds is None else max_rounds
@@ -102,7 +130,8 @@ class Solver:
         self._bounds = None
         self._auto_delta = None
         self._schedules: dict[int, DeviceSchedule] = {}
-        self.stats = {"solves": 0, "schedule_builds": 0}
+        self._plans: dict[tuple, engine_sharded.FrontierPlan] = {}
+        self.stats = {"solves": 0, "schedule_builds": 0, "plan_builds": 0}
 
     # ------------------------------------------------------------------ #
     # δ resolution + schedule cache
@@ -133,13 +162,45 @@ class Solver:
 
     @staticmethod
     def _check_frontier(frontier):
-        if frontier == "halo":
-            raise NotImplementedError(
-                "frontier='halo' (the sharded owner-computes engine) is a later "
-                "slice of the port (ROADMAP queue A, multi-GPU engine)"
+        if frontier not in FRONTIERS:
+            raise ValueError(f"frontier must be one of {FRONTIERS}, got {frontier!r}")
+
+    @staticmethod
+    def _check_halo_dtype(halo_dtype):
+        if halo_dtype not in HALO_DTYPES:
+            raise ValueError(
+                f"halo_dtype must be one of {HALO_DTYPES}, got {halo_dtype!r}"
             )
-        if frontier != "replicated":
-            raise ValueError(f"frontier must be 'replicated', got {frontier!r}")
+
+    def resolve_frontier(self, frontier=None) -> str:
+        """Normalize the frontier knob (``None`` → the construction default)."""
+        if frontier is None:
+            frontier = self.default_frontier
+        self._check_frontier(frontier)
+        return frontier
+
+    def resolve_halo_dtype(
+        self, halo_dtype=None, backend: str | None = None, frontier: str | None = None
+    ) -> str:
+        """Normalize the halo wire dtype; quantization is kernel + halo only.
+
+        An explicit low-precision ``halo_dtype`` on any other (backend,
+        frontier) pair is an error; a low-precision construction default
+        resolves to ``"f32"`` there, so exact paths stay exact.
+        """
+        explicit = halo_dtype is not None
+        if halo_dtype is None:
+            halo_dtype = self.default_halo_dtype
+        self._check_halo_dtype(halo_dtype)
+        if halo_dtype != "f32" and not (backend == "kernel" and frontier == "halo"):
+            if explicit:
+                raise ValueError(
+                    f"halo_dtype={halo_dtype!r} requires backend='kernel', "
+                    f"frontier='halo'; got backend={backend!r}, "
+                    f"frontier={frontier!r}"
+                )
+            return "f32"
+        return halo_dtype
 
     def resolve_delta(self, delta=None) -> int:
         """Normalize ``delta ∈ {None, 'sync', 'async', 'auto', int}`` to rows."""
@@ -159,8 +220,8 @@ class Solver:
 
     def _probe_auto_delta(self) -> int:
         """Fit the δ cost model from two measured probes (sync + finest δ)."""
-        r_sync = self.solve(delta="sync")
-        r_async = self.solve(delta="async")
+        r_sync = self.solve(delta="sync", frontier="replicated")
+        r_async = self.solve(delta="async", frontier="replicated")
         self.delta_model = fit_delta_model(
             self._sched_graph,
             self.n_workers,
@@ -189,6 +250,17 @@ class Solver:
             self._schedules[delta_eff] = sched
             self.stats["schedule_builds"] += 1
         return sched
+
+    def frontier_plan(self, sched: DeviceSchedule) -> engine_sharded.FrontierPlan:
+        """The cached owner-computes halo plan for ``sched`` over
+        ``n_shards`` (built on first use; ``stats["plan_builds"]``)."""
+        key = (sched.delta, self.n_shards)
+        plan = self._plans.get(key)
+        if plan is None:
+            plan = engine_sharded.make_frontier_plan(sched, self.n_shards)
+            self._plans[key] = plan
+            self.stats["plan_builds"] += 1
+        return plan
 
     # ------------------------------------------------------------------ #
     # inputs
@@ -226,8 +298,24 @@ class Solver:
     # ------------------------------------------------------------------ #
     # solve
     # ------------------------------------------------------------------ #
-    def _round(self, sched, backend, row_update):
+    def _round(self, sched, backend, frontier, halo_dtype, row_update):
         sr = self.problem.semiring
+        if frontier == "halo":
+            plan = self.frontier_plan(sched)
+            if backend == "torch":
+                return engine_sharded.frontier_round_ext_fn(sched, plan, sr, row_update)
+            fn = engine_sharded.frontier_kernel_round_ext_fn(
+                sched, plan, sr, row_update, halo_dtype
+            )
+            # The error-feedback residuals are loop state of one solve: fresh
+            # zeros per solve, carried from round to round.
+            state = {"ef": engine_sharded.frontier_ef_init(plan)}
+
+            def rnd(x):
+                x, state["ef"] = fn(x, state["ef"])
+                return x
+
+            return rnd
         if backend == "kernel":
             return lambda x: fused_round(x, sched, sr, row_update)
         return round_fn(sched, sr, row_update)
@@ -240,18 +328,20 @@ class Solver:
         delta=None,
         backend: str | None = None,
         frontier: str | None = None,
+        halo_dtype: str | None = None,
         tol: float | None = None,
         max_rounds: int | None = None,
     ) -> EngineResult:
         """Run to convergence; returns the engine's instrumented result."""
         backend = backend or self.default_backend
         self._check_backend(backend)
-        self._check_frontier(frontier or "replicated")
+        frontier = self.resolve_frontier(frontier)
+        halo_dtype = self.resolve_halo_dtype(halo_dtype, backend, frontier)
         tol = self.tol if tol is None else tol
         max_rounds = self.max_rounds if max_rounds is None else max_rounds
         sched = self.schedule(delta)
         x_ext = self._x_ext(x0)
-        rnd = self._round(sched, backend, self.row_update(q))
+        rnd = self._round(sched, backend, frontier, halo_dtype, self.row_update(q))
         build_s = 0.0
         if backend == "kernel" and self.device.type == "cuda":
             from repro_torch.kernels.build import load

@@ -361,7 +361,8 @@ def test_engine_result_counters_match_reference():
 def test_port_imports_neither_jax_nor_repro():
     code = (
         "import sys, repro_torch, repro_torch.kernels.ops, repro_torch.kernels.build, "
-        "repro_torch.core.delta_model\n"
+        "repro_torch.core.delta_model, repro_torch.dist.engine_sharded, "
+        "repro_torch.kernels.spmv_ell\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"

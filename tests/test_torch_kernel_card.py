@@ -1,4 +1,4 @@
-"""K1 on the card against its plain version, bit for bit.
+"""K1, K2 and K3 on the card against their plain versions, bit for bit.
 
 Imports neither jax nor ``repro``, so it runs on a machine with a CUDA card
 and only the port installed:
@@ -15,23 +15,26 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import engine  # noqa: E402
-from repro_torch.core.semiring import MIN_PLUS, PLUS_TIMES  # noqa: E402
+from repro_torch.core.semiring import INT_INF, MIN_PLUS, PLUS_TIMES  # noqa: E402
+from repro_torch.dist import engine_sharded  # noqa: E402
 from repro_torch.graphs.generators import make_graph  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.round_block import (  # noqa: E402
     ADD_CONST,
     ADD_TABLE,
     MIN_OLD,
     Epilogue,
+    fused_halo_step_cuda,
     fused_round_cuda,
 )
-from repro_torch.solve import Solver, sssp_problem  # noqa: E402
+from repro_torch.kernels.spmv_ell import spmv_ell_cuda  # noqa: E402
+from repro_torch.solve import Solver, pagerank_problem, sssp_problem  # noqa: E402
 
 
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: K1 is CUDA C++ and has no CPU mode")
+        pytest.skip("needs a CUDA card: K1, K2 and K3 are CUDA C++ and have no CPU mode")
     return torch.device("cuda")
 
 
@@ -77,3 +80,85 @@ def test_solver_kernel_backend_matches_cpu(cuda_device):
     on_cpu = Solver(g, sssp_problem(), n_workers=8, delta="async", device="cpu").solve()
     assert on_card.rounds == on_cpu.rounds
     np.testing.assert_array_equal(on_card.x, on_cpu.x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tag", [ADD_CONST, ADD_TABLE, MIN_OLD])
+@pytest.mark.parametrize("mode,delta", [("sync", None), ("delayed", 96)])
+def test_halo_kernel_round_matches_plain_round(cuda_device, tag, mode, delta):
+    g, sr, x0, ep = _inputs(tag, cuda_device)
+    cpu = engine.make_schedule(g, 8, delta, sr, mode=mode, min_chunk=32)
+    dev = engine.make_schedule(g, 8, delta, sr, mode=mode, min_chunk=32, device=cuda_device)
+    plain = engine_sharded.frontier_round_ext_fn(
+        cpu, engine_sharded.make_frontier_plan(cpu, 4), sr, ep
+    )
+    plan = engine_sharded.make_frontier_plan(dev, 4)
+    kernel = engine_sharded.frontier_kernel_round_ext_fn(dev, plan, sr, ep.to(cuda_device))
+    x = engine.extend_frontier(x0, sr, "cpu")
+    ef = engine_sharded.frontier_ef_init(plan)
+    launches = fused_halo_step_cuda.launches
+    for _ in range(3):
+        want = plain(x)
+        got, ef = kernel(x.to(cuda_device), ef)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu()[:-1], want[:-1])
+        x = want
+    assert fused_halo_step_cuda.launches == launches + 3 * dev.S * 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("halo_dtype", ["f32", "int8", "fp8"])
+def test_halo_solver_on_card_matches_cpu(cuda_device, halo_dtype):
+    g = make_graph("twitter", scale=10, efactor=8, kind="pagerank")
+    kw = dict(n_workers=8, delta=96, min_chunk=32, frontier="halo", n_shards=4)
+    on_card = Solver(g, pagerank_problem(), **kw).solve(halo_dtype=halo_dtype, tol=1e-2)
+    on_cpu = Solver(g, pagerank_problem(), device="cpu", **kw).solve(
+        halo_dtype=halo_dtype, tol=1e-2
+    )
+    assert on_card.rounds == on_cpu.rounds
+    np.testing.assert_array_equal(on_card.x, on_cpu.x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("F", [None, 4])
+@pytest.mark.parametrize("semiring", ["plus_times", "min_plus"])
+def test_spmv_kernel_matches_plain_version(cuda_device, semiring, F):
+    rng = np.random.default_rng(3)
+    g = make_graph("kron", scale=11, efactor=8, kind="sssp" if semiring == "min_plus" else "pagerank")
+    idx, val = ops.ell_from_csr(g)
+    shape = (g.n + 1,) if F is None else (g.n + 1, F)
+    if semiring == "min_plus":
+        x = rng.integers(0, 1000, shape).astype(np.int32)
+        x[rng.random(shape) < 0.3] = INT_INF
+    else:
+        x = rng.random(shape).astype(np.float32)
+    args = [torch.as_tensor(a, device=cuda_device) for a in (x, idx, val)]
+    launches = spmv_ell_cuda.launches
+    got = ops.spmv(*args, semiring)
+    want = ref.spmv_ell_ref(*args, semiring)
+    torch.cuda.synchronize()
+    assert spmv_ell_cuda.launches == launches + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_halo_solve_without_nvcc_raises_instead_of_running_plain(cuda_device, tmp_path, monkeypatch):
+    """No fallback: with no built library and no nvcc, the kernel backend's
+    halo solve raises and never runs the plain step."""
+    from repro_torch.kernels import build
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    build.load.cache_clear()
+    calls = []
+    monkeypatch.setattr(ref, "fused_halo_step_ref", lambda *a: calls.append(a))
+    try:
+        g = make_graph("twitter", scale=9, efactor=8, kind="pagerank")
+        solver = Solver(g, pagerank_problem(), n_workers=8, delta=64, min_chunk=32,
+                        frontier="halo", n_shards=4)
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            solver.solve(backend="kernel")
+        assert not calls
+    finally:
+        build.load.cache_clear()

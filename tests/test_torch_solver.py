@@ -116,7 +116,7 @@ def test_schedule_cache_and_stats():
     ts.solve(delta=24)
     ts.solve(delta=24)
     ts.solve(delta="async")
-    assert ts.stats == {"solves": 3, "schedule_builds": 2}
+    assert ts.stats == {"solves": 3, "schedule_builds": 2, "plan_builds": 0}
     assert fused_round_cuda.launches == launches  # the CPU never launches K1
 
 
@@ -131,8 +131,8 @@ def test_solver_without_device_needs_cuda():
 @pytest.mark.parametrize(
     "kwargs,solve_kwargs,exc",
     [
-        ({"frontier": "halo"}, {}, NotImplementedError),
-        ({}, {"frontier": "halo"}, NotImplementedError),
+        ({"frontier": "halo"}, {"x0": np.zeros((512, 2), np.float32)}, NotImplementedError),
+        ({}, {"frontier": "halo", "x0": np.zeros((512, 3), np.float32)}, NotImplementedError),
         ({}, {"x0": np.zeros((512, 2), np.float32)}, NotImplementedError),
         ({}, {"x0": np.zeros(7, np.float32)}, ValueError),
         ({"backend": "pallas"}, {}, ValueError),
