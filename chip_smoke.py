@@ -6,7 +6,9 @@ Phases, each printing its seconds; any failure ends the run with a nonzero
 exit and no result line:
 
 1. the card's name and power limit; build every CUDA kernel from ``src/``
-   (``build/kernels/``, one ``nvcc`` per source, all started together).
+   (``build/kernels/``, one ``nvcc`` per source, all started together), and
+   print each kernel's registers, shared memory and spills as ``ptxas -v``
+   reports them.
 2. K1 (the fused-round kernel) against its plain PyTorch version, one round
    from the same ``x``, for pagerank (``add_const``), ppr (``add_table``) and
    sssp (``min_old``) at δ = sync, async (128) and 1024, on a small graph and
@@ -32,13 +34,18 @@ exit and no result line:
 4. K1's time per round at the full-size shapes, at sync, 128, 1024 and
    auto's δ* (CUDA events), beside its byte bound, the same round with no
    edges to walk (barriers, epilogues and publishes alone), the plain round's
-   time, and at sync ``torch.sparse.mm`` (the PageRank round's SpMV) as the
-   library yardstick.  K2's time per launch (one shard's commit step) at
-   sync and δ*, beside its bound, its plain version's time and at sync
+   time, and for PageRank ``torch.sparse.mm`` as the library yardstick: at
+   sync over the whole matrix (the round's SpMV), at δ* one call over each
+   commit step's rows, S calls a round (the step blocks built before
+   timing).  K2's time per launch (one shard's commit step) at sync and δ*,
+   beside its bound, its plain version's time and at sync
    ``torch.sparse.mm`` over the shard's rows.  K3 (the ELL SpMV) through its
    entry point ``ops.spmv`` on the full-size graph's ELL (launch count reset
    before and read after), against its plain version, timed beside its byte
-   bounds (padded ELL and real edges) and ``torch.sparse.mm``.
+   bounds (padded ELL and real edges) and ``torch.sparse.mm``: plus-times at
+   F = 1 and 4 and min-plus on the reference's layout (``lane_pad = 128``),
+   and plus-times F = 1 on a ``lane_pad = 8`` layout of the same graph,
+   which must give the same bits.
 5. the ``kernels`` line, the card's name and power limit, and the result line.
 
 It imports neither jax nor the JAX package ``repro``.
@@ -50,6 +57,7 @@ import argparse
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -88,6 +96,46 @@ def card_line() -> str:
         timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(nvcc_log: str) -> list[dict]:
+    """Registers, shared memory and spills of each kernel in ``ptxas -v``'s log."""
+    out, cur = [], None
+    for ln in nvcc_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            mangled = m.group(1)
+            base = next((k for k in ("halo_step_kernel", "round_kernel", "spmv_tiles") if k in mangled), mangled)
+            args = re.findall(r"PlusTimes|MinPlus|(?<=Li)\d+(?=E)", mangled.split(base, 1)[-1])
+            cur = {"kernel": f"{base}<{','.join(args)}>"}
+            out.append(cur)
+        elif cur is not None and "spill stores" in ln:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        elif cur is not None and "registers" in ln:
+            cur["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+            m = re.search(r"(\d+) bytes smem", ln)
+            cur["smem_bytes"] = int(m.group(1)) if m else 0
+    return out
+
+
+def step_blocks(graph, sched, device) -> list:
+    """The rows of each commit step of ``sched`` as a CSR matrix ``(rows, n)``:
+    S matrices, whose SpMVs do a round's work as S library calls."""
+    indptr = torch.tensor(graph.indptr, device=device)
+    indices = torch.tensor(graph.indices.astype(np.int64), device=device)
+    values = torch.tensor(graph.values, device=device)
+    mats = []
+    for s in range(sched.S):
+        r = sched.rows[s].reshape(-1)
+        r = r[r < graph.n].long()
+        counts = indptr[r + 1] - indptr[r]
+        crow = torch.zeros(r.numel() + 1, dtype=torch.int64, device=device)
+        crow[1:] = counts.cumsum(0)
+        pos = torch.repeat_interleave(indptr[r] - crow[:-1], counts)
+        pos += torch.arange(pos.numel(), device=device)
+        mats.append(torch.sparse_csr_tensor(crow, indices[pos], values[pos], size=(r.numel(), graph.n)))
+    return mats
 
 
 def on(sched, device):
@@ -192,11 +240,11 @@ def main() -> int:
     t0 = time.perf_counter()
     card = card_line()
     log(f"[1] card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
-    for name, (secs, nvcc_log) in build.build().items():
-        regs = [ln.strip() for ln in nvcc_log.splitlines() if "registers" in ln]
-        log(f"[1] built {name}.cu in {secs:.2f} s; ptxas: {regs}")
+    for name, (secs, _) in build.build().items():
+        log(f"[1] built {name}.cu in {secs:.2f} s")
     for name in build.SOURCES:
         build.load(name)
+        log(f"[1] ptxas {name}.cu: {json.dumps(ptxas_summary(build.build_log(name)))}")
     log(f"[1] done in {time.perf_counter() - t0:.1f} s")
 
     def graphs(scale):
@@ -518,6 +566,13 @@ def main() -> int:
             p_ms = time_ms(lambda: plain(x), budget_s=0.2, max_iters=5)
             b_ms, b_by = round_bound(sched, None)
             lib_ms = None
+            if name == "pagerank" and d == "auto":  # S library calls, one a step
+                mats = step_blocks(solver.graph, sched, dev)
+                if sum(A._nnz() for A in mats) != solver.graph.nnz:
+                    raise AssertionError("the step blocks do not cover the matrix once")
+                xv = x[:-1].reshape(-1, 1).contiguous()
+                lib_ms = time_ms(lambda: [torch.sparse.mm(A, xv) for A in mats])
+                del mats
             if name == "pagerank" and d == "sync":
                 g = solver.graph
                 A = torch.sparse_csr_tensor(
@@ -540,6 +595,7 @@ def main() -> int:
                 "padding_overhead": sched.padding_overhead,
                 "ms": k_ms,
                 "no_edges_ms": e_ms,
+                "walk_ms": k_ms - e_ms,
                 "plain_ms": p_ms,
                 "bound_ms": b_ms,
                 "bound_by": b_by,
@@ -619,25 +675,34 @@ def main() -> int:
     t0 = time.perf_counter()
     idx_np, val_np = ops.ell_from_csr(g_pr)
     _, val_ss_np = ops.ell_from_csr(g_ss)
-    log(f"[4] ELL of s{scale}: {idx_np.shape}, built in {time.perf_counter() - t0:.1f} s (twice)")
+    idx8_np, val8_np = ops.ell_from_csr(g_pr, lane_pad=8)
+    log(
+        f"[4] ELL of s{scale}: {idx_np.shape} (lane_pad 128, twice) and {idx8_np.shape} "
+        f"(lane_pad 8), built in {time.perf_counter() - t0:.1f} s"
+    )
     idx = torch.from_numpy(idx_np).to(dev)
     val_pr, val_ss = torch.from_numpy(val_np).to(dev), torch.from_numpy(val_ss_np).to(dev)
-    del idx_np, val_np, val_ss_np
+    idx8, val8 = torch.from_numpy(idx8_np).to(dev), torch.from_numpy(val8_np).to(dev)
+    del idx_np, val_np, val_ss_np, idx8_np, val8_np
     n_slots = g_pr.n + 1
     x_i = torch.tensor(rng.integers(0, 5000, n_slots).astype(np.int32), device=dev)
     x_i[torch.tensor(rng.random(n_slots) < 0.3, device=dev)] = 2**30 - 1
+    x_1 = torch.tensor(rng.random(n_slots).astype(np.float32), device=dev)
     cases = {
-        "plus_times F=1": (torch.tensor(rng.random(n_slots).astype(np.float32), device=dev), val_pr, "plus_times"),
-        "plus_times F=4": (torch.tensor(rng.random((n_slots, 4)).astype(np.float32), device=dev), val_pr, "plus_times"),
-        "min_plus F=1": (x_i, val_ss, "min_plus"),
+        "plus_times F=1": (x_1, idx, val_pr, "plus_times"),
+        "plus_times F=4": (torch.tensor(rng.random((n_slots, 4)).astype(np.float32), device=dev), idx, val_pr, "plus_times"),
+        "min_plus F=1": (x_i, idx, val_ss, "min_plus"),
+        "plus_times F=1 lane_pad=8": (x_1, idx8, val8, "plus_times"),
     }
     spmv_ell_cuda.launches = 0
-    outs = {label: ops.spmv(xx, idx, vv, sr_name) for label, (xx, vv, sr_name) in cases.items()}
+    outs = {label: ops.spmv(*case) for label, case in cases.items()}
     torch.cuda.synchronize()
     k3_launches = spmv_ell_cuda.launches
     if k3_launches != len(cases):
         raise AssertionError(f"ops.spmv launched K3 {k3_launches} times for {len(cases)} calls")
     log(f"[4] K3 path: {k3_launches} launches")
+    same_bits = torch.equal(outs["plus_times F=1 lane_pad=8"], outs["plus_times F=1"])
+    log(f"[4] K3 plus_times F=1: lane_pad 8 output equals lane_pad 128 output: {same_bits}")
     A = torch.sparse_csr_tensor(
         torch.tensor(g_pr.indptr, device=dev),
         torch.tensor(g_pr.indices.astype(np.int64), device=dev),
@@ -645,9 +710,9 @@ def main() -> int:
         size=(g_pr.n, g_pr.n),
     )
     k3_err, spmv_timings = 0.0, []
-    rows_, max_deg = idx.shape
-    for label, (xx, vv, sr_name) in cases.items():
-        want = ref.spmv_ell_ref(xx, idx, vv, sr_name)
+    for label, (xx, ii, vv, sr_name) in cases.items():
+        rows_, max_deg = ii.shape
+        want = ref.spmv_ell_ref(xx, ii, vv, sr_name)
         got = outs[label]
         err = float((got.double() - want.double()).abs().max().item())
         k3_err = max(k3_err, err)
@@ -670,8 +735,8 @@ def main() -> int:
             "max_deg": max_deg,
             "F": F,
             "max_abs_err": err,
-            "ms": time_ms(lambda: ops.spmv(xx, idx, vv, sr_name)),
-            "plain_ms": time_ms(lambda: ref.spmv_ell_ref(xx, idx, vv, sr_name), 0.2, 3),
+            "ms": time_ms(lambda: ops.spmv(xx, ii, vv, sr_name)),
+            "plain_ms": time_ms(lambda: ref.spmv_ell_ref(xx, ii, vv, sr_name), 0.2, 3),
             "bound_ms": b_pad,
             "bound_by": by_pad,
             "bound_real_edges_ms": b_real,
@@ -680,7 +745,7 @@ def main() -> int:
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
         spmv_timings.append(row)
         log(f"[4] K3 timing {json.dumps(row)}")
-    del idx, val_pr, val_ss, outs, cases, A
+    del idx, val_pr, val_ss, idx8, val8, outs, cases, A
     torch.cuda.synchronize()
     log(f"[4] K3 done in {time.perf_counter() - t0:.1f} s")
 

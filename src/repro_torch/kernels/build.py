@@ -19,7 +19,7 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "SOURCES", "NVCC_FLAGS", "build", "load", "nvcc_command"]
+__all__ = ["BUILD_DIR", "SOURCES", "NVCC_FLAGS", "build", "build_log", "load", "nvcc_command"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -62,7 +62,8 @@ def build(names=SOURCES) -> dict:
     """Compile ``names`` (one ``nvcc`` each, all started together).
 
     Returns ``{name: (seconds, nvcc's stderr)}``; raises with the compiler's
-    output if any build fails.  A library already built is not rebuilt.
+    output if any build fails.  A library already built is not rebuilt; its
+    build's output stays readable through :func:`build_log`.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -89,10 +90,18 @@ def build(names=SOURCES) -> dict:
         if proc.returncode != 0:
             failed.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{log}")
         else:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))
     return done
+
+
+def build_log(name: str) -> str:
+    """What ``nvcc`` printed (``-Xptxas=-v``: registers, shared memory,
+    spills) when the current library of ``csrc/<name>.cu`` was built."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 @functools.cache

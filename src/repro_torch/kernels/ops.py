@@ -48,35 +48,38 @@ def spmv(x_ext, idx, val, semiring: str = "plus_times"):
 #: Rows laid out at a time by :func:`ell_from_csr`: bounds its int64
 #: intermediates to ``ELL_CHUNK_ROWS × max_deg`` entries.
 ELL_CHUNK_ROWS = 1 << 18
-#: :func:`ell_from_csr` pads ``max_deg`` to a multiple of this.
+#: :func:`ell_from_csr` pads ``max_deg`` to a multiple of this by default.
 ELL_LANE_PAD = 128
 
 
-def ell_from_csr(graph):
+def ell_from_csr(graph, rows_slice=None, lane_pad: int = ELL_LANE_PAD):
     """Padded ELL ``(idx, val)`` from a CSRGraph (host side, numpy).
 
-    The same arrays as ``repro.kernels.ops.ell_from_csr``: slot ``(r, j)``
-    holds row ``r``'s ``j``-th in-edge; padding gathers vertex 0 and carries
-    the semiring's annihilating value (0.0, or ``INT_INF`` for int32), so it
-    contributes the ⊕-identity.  ``max_deg`` is padded to a multiple of
-    :data:`ELL_LANE_PAD`.  Rows are laid out :data:`ELL_CHUNK_ROWS` at a time, so the
-    host never holds a full-size ``(rows, max_deg)`` int64 intermediate.
+    The same arrays as ``repro.kernels.ops.ell_from_csr``: slot ``(i, j)``
+    holds row ``rows_slice[i]``'s ``j``-th in-edge (every row when
+    ``rows_slice`` is None); padding gathers vertex 0 and carries the
+    semiring's annihilating value (0.0, or ``INT_INF`` for int32), so it
+    contributes the ⊕-identity.  ``max_deg``, the longest selected row, is
+    padded to a multiple of ``lane_pad``.  Rows are laid out
+    :data:`ELL_CHUNK_ROWS` at a time, so the host never holds a full-size
+    ``(rows, max_deg)`` int64 intermediate.
     """
     indptr, indices, values = graph.indptr, graph.indices, graph.values
-    n = graph.n
-    degs = np.diff(indptr).astype(np.int64)
+    rows = np.arange(graph.n) if rows_slice is None else np.asarray(rows_slice)
+    starts = indptr[rows]
+    degs = (indptr[rows + 1] - starts).astype(np.int64)
     max_deg = int(max(degs.max() if degs.size else 0, 1))
-    max_deg = -(-max_deg // ELL_LANE_PAD) * ELL_LANE_PAD
+    max_deg = -(-max_deg // lane_pad) * lane_pad
     pad_val = np.float32(0.0) if values.dtype.kind == "f" else INT_INF
-    idx = np.zeros((n, max_deg), np.int32)
-    val = np.full((n, max_deg), pad_val, values.dtype)
+    idx = np.zeros((len(rows), max_deg), np.int32)
+    val = np.full((len(rows), max_deg), pad_val, values.dtype)
     if graph.nnz == 0:
         return idx, val
     offs = np.arange(max_deg, dtype=np.int64)[None, :]
-    for r0 in range(0, n, ELL_CHUNK_ROWS):
-        r1 = min(r0 + ELL_CHUNK_ROWS, n)
+    for r0 in range(0, len(rows), ELL_CHUNK_ROWS):
+        r1 = min(r0 + ELL_CHUNK_ROWS, len(rows))
         mask = offs < degs[r0:r1, None]
-        pos = (indptr[r0:r1][:, None] + offs)[mask]
+        pos = (starts[r0:r1][:, None] + offs)[mask]
         idx[r0:r1][mask] = indices[pos]
         val[r0:r1][mask] = values[pos]
     return idx, val

@@ -3,14 +3,17 @@
 K1 (:func:`fused_round_cuda`) is the counterpart of
 ``repro.kernels.round_block.fused_round_fn_q``.  Its kernel
 (``csrc/round_block.cu``) runs the S commit steps of a round inside one
-persistent cooperative launch, with two grid barriers per step, and computes
-exactly what :func:`repro_torch.core.engine.round_fn` computes, bit for bit.
+persistent cooperative launch, with two grid barriers per step; a block
+stages a tile of rows' edges and folds each row in edge order, so it
+computes exactly what :func:`repro_torch.core.engine.round_fn` computes, bit
+for bit.
 
 K2 (:func:`fused_halo_step_cuda`) is the counterpart of
 ``repro.kernels.round_block.fused_halo_step_fn``: one shard's commit step of
 the owner-computes halo round, on the shard's local ``(L,)`` frontier, plus
 the selection of the ``(H,)`` boundary rows it ships.  It is a second entry
-point of the same source and shares K1's row walk and epilogues.
+point of the same source, shares K1's epilogues and sums each row in K1's
+order (one thread a row).
 
 Pallas evaluated any traced ``row_update`` inside the kernel.  The CUDA kernel
 takes a fixed set instead: an :class:`Epilogue` names the row update with a

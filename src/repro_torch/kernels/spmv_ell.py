@@ -3,10 +3,11 @@
 The counterpart of ``repro.kernels.spmv_ell.spmv_ell``:
 ``out[r] = ⊕_j x_ext[idx[r, j]] ⊗ val[r, j]`` for a vector ``x_ext``
 ``(n_slots,)`` or a matrix ``(n_slots, F)``.  The kernel
-(``csrc/spmv_ell.cu``) gives one thread each ``(row, feature)`` output and
-walks the row's columns in order, so it equals its plain version
-(:func:`repro_torch.kernels.ref.spmv_ell_ref`) bit for bit.  Padding entries
-gather any slot and carry the annihilating value
+(``csrc/spmv_ell.cu``) stages a tile of rows a column chunk at a time
+(coalesced loads, the gathers in parallel, products in shared memory) and
+folds each ``(row, feature)`` output in column order, so it equals its plain
+version (:func:`repro_torch.kernels.ref.spmv_ell_ref`) bit for bit.  Padding
+entries gather any slot and carry the annihilating value
 (:func:`repro_torch.kernels.ops.ell_from_csr`).
 """
 

@@ -17,6 +17,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import engine  # noqa: E402
 from repro_torch.core.semiring import INT_INF, MIN_PLUS, PLUS_TIMES  # noqa: E402
 from repro_torch.dist import engine_sharded  # noqa: E402
+from repro_torch.graphs.formats import CSRGraph  # noqa: E402
 from repro_torch.graphs.generators import make_graph  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.round_block import (  # noqa: E402
@@ -139,6 +140,114 @@ def test_spmv_kernel_matches_plain_version(cuda_device, semiring, F):
     torch.cuda.synchronize()
     assert spmv_ell_cuda.launches == launches + 1
     assert torch.equal(got, want)
+
+
+def _bits_equal(got, want) -> bool:
+    """Equal bit for bit; NaN compared by position (payloads may differ)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return False
+    if got.dtype != torch.float32:
+        return torch.equal(got, want)
+    nan = torch.isnan(want)
+    return torch.equal(torch.isnan(got), nan) and torch.equal(
+        got.view(torch.int32)[~nan], want.view(torch.int32)[~nan]
+    )
+
+
+def _wide_range(rng, shape):
+    """f32 over 48 binades: any other summation order changes the bits."""
+    return (rng.random(shape) * np.exp2(rng.integers(-24, 24, shape))).astype(np.float32)
+
+
+# K1 stages a tile's edges 1,024 at a time (csrc/round_block.cu, kChunk).
+K1_CHUNK = 1024
+
+
+def _hub_graph(kind, n, hub_deg):
+    """Row 5 has ``hub_deg`` in-edges, a fifth of the rows have none, the
+    rest a few each."""
+    rng = np.random.default_rng(11)
+    dst = rng.integers(0, n, 4 * n)
+    dst = dst[dst % 5 != 2]  # rows with no in-edges
+    src = np.concatenate([rng.choice(n, hub_deg, replace=False), rng.integers(0, n, dst.size)])
+    dst = np.concatenate([np.full(hub_deg, 5), dst])
+    if kind == "sssp":
+        vals = rng.integers(1, 256, src.size).astype(np.int32)
+    else:
+        vals = _wide_range(rng, src.size)
+    return CSRGraph.from_edges(n, src, dst, vals, name=f"hub-{kind}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tag", [ADD_CONST, ADD_TABLE, MIN_OLD])
+@pytest.mark.parametrize("mode,delta", [("sync", None), ("delayed", 1), ("delayed", 7), ("delayed", 301), ("delayed", 3001)])
+def test_tiled_round_sums_each_row_in_edge_order(cuda_device, tag, mode, delta):
+    """K1's tiles: a row of 24 chunks (at δ ≥ 301; at δ = 1 and 7, where
+    every (step, worker) cell is padded to the hub's, of 2.4), empty rows,
+    δ not a multiple of the tile, S > 1; equal to the plain round bit for
+    bit."""
+    rng = np.random.default_rng(12)
+    n, hub_deg = (30_001, 25_000) if mode == "sync" or delta > 100 else (4_001, 2_500)
+    assert hub_deg > K1_CHUNK and (n < 30_001 or hub_deg >= 10 * K1_CHUNK)
+    g = _hub_graph("sssp" if tag == MIN_OLD else "pagerank", n, hub_deg)
+    if tag == MIN_OLD:
+        sr, ep = MIN_PLUS, Epilogue(MIN_OLD)
+        x0 = rng.integers(0, 1000, g.n).astype(np.int32)
+    else:
+        sr, x0 = PLUS_TIMES, _wide_range(rng, g.n)
+        if tag == ADD_CONST:
+            ep = Epilogue(ADD_CONST, const=float(np.float32(0.15 / g.n)))
+        else:
+            ep = Epilogue(ADD_TABLE, table=torch.as_tensor(_wide_range(rng, g.n + 1)))
+    kw = dict(mode=mode, min_chunk=1)
+    cpu = engine.make_schedule(g, 4, delta, sr, **kw)
+    dev = engine.make_schedule(g, 4, delta, sr, device=cuda_device, **kw)
+    assert mode == "sync" or cpu.S > 1
+    x = engine.extend_frontier(x0, sr, "cpu")
+    launches = fused_round_cuda.launches
+    for _ in range(2):
+        want = ref.fused_round_ref(x, cpu, sr, ep)
+        got = ops.fused_round(x.to(cuda_device), dev, sr, ep.to(cuda_device))
+        torch.cuda.synchronize()
+        assert _bits_equal(got.cpu()[:-1], want[:-1])
+        x = want
+    assert fused_round_cuda.launches == launches + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("F", [None, 3, 4, 8])
+@pytest.mark.parametrize("max_deg", [1, 7, 128, 4096])
+@pytest.mark.parametrize("semiring", ["plus_times", "min_plus"])
+def test_tiled_spmv_matches_plain_version_bit_for_bit(cuda_device, semiring, max_deg, F):
+    """K3's tiles and column chunks at any max_deg, rows not a multiple of a
+    tile, F = 3 (scalar gathers), 4 and 8 (16-B gathers; min-plus at F = 8
+    takes more than 48 KB of shared memory); x holds -0.0, inf and NaN
+    (plus-times), and the plain version runs on the card, where NaN is NaN
+    as the kernel makes it."""
+    rng = np.random.default_rng(max_deg)
+    rows, n = (1001 if max_deg < 4096 else 301), 500
+    idx = rng.integers(0, n + 1, (rows, max_deg)).astype(np.int32)
+    shape = (n + 1,) if F is None else (n + 1, F)
+    if semiring == "min_plus":
+        val = rng.integers(1, 200, (rows, max_deg)).astype(np.int32)
+        val[rng.random(val.shape) < 0.3] = INT_INF
+        x = rng.integers(0, 1000, shape).astype(np.int32)
+        x[rng.random(shape) < 0.3] = INT_INF
+    else:
+        val = _wide_range(rng, (rows, max_deg))
+        val[rng.random(val.shape) < 0.3] = 0.0
+        x = _wide_range(rng, shape)
+        flat = x.reshape(-1)
+        flat[0] = -0.0
+        for special, count in ((-0.0, 40), (np.inf, 3), (np.nan, 3)):
+            flat[rng.integers(1, flat.size, count)] = special
+    args = [torch.as_tensor(a, device=cuda_device) for a in (x, idx, val)]
+    launches = spmv_ell_cuda.launches
+    got = ops.spmv(*args, semiring)
+    want = ref.spmv_ell_ref(*args, semiring)
+    torch.cuda.synchronize()
+    assert spmv_ell_cuda.launches == launches + 1
+    assert _bits_equal(got, want)
 
 
 @pytest.mark.gpu

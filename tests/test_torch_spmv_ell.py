@@ -6,7 +6,7 @@ equal ``repro.kernels.spmv_ell.spmv_ell`` in interpret mode exactly for
 min-plus and within ``rtol=1e-5`` for plus-times: the reference's own gate
 (``tests/test_kernels.py``), because XLA's ``jnp.sum`` over a row does not
 add in column order.  The ELL layout builder must give the reference's
-arrays.
+arrays for any ``rows_slice`` and ``lane_pad``.
 """
 
 import numpy as np
@@ -87,18 +87,67 @@ def test_plus_times_sums_columns_in_order():
     np.testing.assert_array_equal(_port(x, idx, val, "plus_times"), want)
 
 
+def _graph_pair(name, kind, scale=9):
+    kw = {} if name == "road" else {"efactor": 8}
+    return (
+        j_gen.make_graph(name, scale=scale, kind=kind, **kw),
+        t_gen.make_graph(name, scale=scale, kind=kind, **kw),
+    )
+
+
 @pytest.mark.parametrize("name,kind", [("web", "pagerank"), ("kron", "sssp"), ("road", "unit")])
 @pytest.mark.parametrize("chunk_rows", [1 << 18, 37])
 def test_ell_from_csr_equals_reference(name, kind, chunk_rows, monkeypatch):
     monkeypatch.setattr(ops, "ELL_CHUNK_ROWS", chunk_rows)
-    kw = {} if name == "road" else {"efactor": 8}
-    jg = j_gen.make_graph(name, scale=9, kind=kind, **kw)
-    tg = t_gen.make_graph(name, scale=9, kind=kind, **kw)
+    jg, tg = _graph_pair(name, kind)
     j_idx, j_val = j_ops.ell_from_csr(jg)
     t_idx, t_val = ops.ell_from_csr(tg)
     for want, got in ((j_idx, t_idx), (j_val, t_val)):
         assert got.dtype == want.dtype and got.shape == want.shape
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("lane_pad", [8, 32, 128])
+@pytest.mark.parametrize("rows", ["all", "range", "permuted"])
+@pytest.mark.parametrize("name,kind", [("web", "pagerank"), ("kron", "sssp"), ("road", "unit")])
+@pytest.mark.parametrize("chunk_rows", [1 << 18, 37])
+def test_ell_from_csr_rows_and_lane_pad_equal_reference(name, kind, chunk_rows, rows, lane_pad, monkeypatch):
+    monkeypatch.setattr(ops, "ELL_CHUNK_ROWS", chunk_rows)
+    jg, tg = _graph_pair(name, kind)
+    n = tg.n
+    rows_slice = {
+        "all": None,
+        "range": np.arange(n // 5, n // 2),
+        "permuted": np.random.default_rng(n).permutation(n)[: n // 3],
+    }[rows]
+    j_idx, j_val = j_ops.ell_from_csr(jg, rows_slice, lane_pad=lane_pad)
+    t_idx, t_val = ops.ell_from_csr(tg, rows_slice, lane_pad=lane_pad)
+    assert t_idx.shape[1] % lane_pad == 0
+    for want, got in ((j_idx, t_idx), (j_val, t_val)):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("F", [None, 4])
+@pytest.mark.parametrize("semiring", ["plus_times", "min_plus"])
+def test_spmv_equal_on_lane_pad_8_and_128_layouts(semiring, F):
+    """Extra ⊕-identity padding is idempotent: the narrow and the reference
+    layout of one graph give the same bits, although every row is padded in
+    both (the longest row, 30, is not a multiple of 8)."""
+    g = t_gen.make_graph("urand", scale=9, efactor=8, kind="sssp" if semiring == "min_plus" else "pagerank")
+    assert int(np.diff(g.indptr).max()) % 8 != 0
+    narrow, wide = ops.ell_from_csr(g, lane_pad=8), ops.ell_from_csr(g, lane_pad=128)
+    assert narrow[0].shape[1] < wide[0].shape[1]
+    rng = np.random.default_rng(8)
+    shape = (g.n + 1,) if F is None else (g.n + 1, F)
+    if semiring == "min_plus":
+        x = rng.integers(0, 1000, shape).astype(np.int32)
+        x[rng.random(shape) < 0.3] = INT_INF
+    else:  # over many binades, so any change to a sum would show in its bits
+        x = (rng.random(shape) * np.exp2(rng.integers(-20, 20, shape))).astype(np.float32)
+    got_narrow, got_wide = _port(x, *narrow, semiring), _port(x, *wide, semiring)
+    assert got_narrow.dtype == got_wide.dtype
+    np.testing.assert_array_equal(got_narrow.view(np.int32), got_wide.view(np.int32))
 
 
 def test_spmv_on_real_graph_matches_pallas():
