@@ -15,9 +15,13 @@ exit and no result line:
    at full size, and after phase 3 at every other δ the main path resolved
    (auto's δ*).  int32 must match exactly; float32 must match bit for bit
    against the plain version on the CPU (on CUDA it sums with atomics).
-   K2 (the halo commit-step kernel) likewise, one whole halo round over
-   D = 4 shards, at scale 16 at δ = sync, 128 and 1024; and at scale 14 the
-   halo kernel solves (f32, int8, fp8) must equal the CPU plain halo solves.
+   K2 (the halo round kernel: one launch a round for all D = 4 shards, the
+   exchange and the int8/fp8 quantizer inside) likewise, on the stacked
+   ``(D, L)`` frontier: ``x_loc`` outside the dump slots and the residuals
+   ``ef``, bit for bit, after one f32 round and after three int8 and three
+   fp8 rounds (pagerank and ppr; sssp is f32 only), at scale 16 at δ = sync,
+   128 and 1024; and at scale 14 the halo kernel solves (f32, int8, fp8)
+   must equal the CPU plain halo solves.
 3. the main path, ``Solver(...).solve()`` with ``backend="kernel"`` at sync,
    async, 1024 and auto (twice: cold, then warm): PageRank on ``twitter``
    scale 22 (4.2 M vertices, 64.3 M edges) and SSSP on the same topology
@@ -27,19 +31,24 @@ exit and no result line:
    a smaller graph the kernel solve must give the plain (``backend="torch"``,
    CPU) solve's rounds and ``x``.
    Then the halo path, ``solve(frontier="halo")`` over D = 4 shards at sync
-   and δ*, with K2's launch count reset before and read after: f32 must give
-   the replicated solve's ``x``, rounds, flushes and flush_bytes exactly;
-   PageRank also runs with int8 and fp8 halos, which must converge.  Then K2
-   against its plain version at full size, at sync and δ*.
+   and δ*, with K2's launch count reset before and read after, one launch a
+   round: f32 must give the replicated solve's ``x``, rounds, flushes and
+   flush_bytes exactly; PageRank also runs with int8 and fp8 halos, which
+   must converge.  Then K2 against its plain round at full size, at sync
+   and δ*, as in phase 2.
 4. K1's time per round at the full-size shapes, at sync, 128, 1024 and
    auto's δ* (CUDA events), beside its byte bound, the same round with no
    edges to walk (barriers, epilogues and publishes alone), the plain round's
    time, and for PageRank ``torch.sparse.mm`` as the library yardstick: at
    sync over the whole matrix (the round's SpMV), at δ* one call over each
    commit step's rows, S calls a round (the step blocks built before
-   timing).  K2's time per launch (one shard's commit step) at sync and δ*,
-   beside its bound, its plain version's time and at sync
-   ``torch.sparse.mm`` over the shard's rows.  K3 (the ELL SpMV) through its
+   timing).  K2's time per launch, one launch a round (CUDA events), for
+   PageRank at sync, 128, 1024 and δ* and SSSP at sync and δ*, beside the
+   host's time issuing that launch, the same steps launched one at a time,
+   its bound (``halo_round_bound``), the plain round's time on the card,
+   the library yardstick of K1's row at the same δ, the int8 and fp8 wires'
+   kernel times, the halo round with its scatter and gather
+   (``halo_round_ms``) and K1's round (``k1_round_ms``).  K3 (the ELL SpMV) through its
    entry point ``ops.spmv`` on the full-size graph's ELL (launch count reset
    before and read after), against its plain version, timed beside its byte
    bounds (padded ELL and real edges) and ``torch.sparse.mm``: plus-times at
@@ -105,7 +114,7 @@ def ptxas_summary(nvcc_log: str) -> list[dict]:
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
             mangled = m.group(1)
-            base = next((k for k in ("halo_step_kernel", "round_kernel", "spmv_tiles") if k in mangled), mangled)
+            base = next((k for k in ("halo_round_kernel", "round_kernel", "spmv_tiles") if k in mangled), mangled)
             args = re.findall(r"PlusTimes|MinPlus|(?<=Li)\d+(?=E)", mangled.split(base, 1)[-1])
             cur = {"kernel": f"{base}<{','.join(args)}>"}
             out.append(cur)
@@ -190,25 +199,37 @@ def round_bound(sched, table) -> tuple[float, str]:
     return bound_ms(bytes_, ops, sched.val.dtype == torch.float32)
 
 
-def halo_step_bound(step, L: int, tag: str) -> tuple[float, str]:
-    """Least time for one K2 launch: the step's real edges (index and value),
-    each distinct local slot they gather (and, for ``min_old``, each real
-    row's ``old`` slot) read once; per chunk row its edge range and local
-    slot read once and, for ``add_table``, its global id and table entry;
-    per real row (not the dump) its published value written once; the
-    boundary rows' indices read and values written once."""
-    real = step.row_ptr[:, -1]  # real edges of each worker's cell
+def halo_round_bound(sched, plan, tag: str, wire: str) -> tuple[float, str]:
+    """Least time for one K2 launch over a whole halo round, summed over its
+    commit steps and shards.  Per (step, shard): the real edges (local source
+    slot and value, 8 B each); each distinct local slot they gather (and,
+    for ``min_old``, each real row's ``old`` slot) read once; per chunk row
+    its edge range and local slot read once (8 B) and, for ``add_table``,
+    its global id and table entry (8 B more); each real row (not the dump)
+    written once.  The exchange, per step: ``send_idx`` (D·H) and
+    ``recv_idx`` (D·D·H) read once, each real halo slot (a ``recv_idx``
+    entry other than the dump) written once, and for an int8/fp8 wire
+    ``ef`` (D·H) read and written once.  Operations: ⊗ and ⊕ per real edge
+    and one epilogue per chunk row."""
+    D, L, H, P_loc, S, M = plan.D, plan.L, plan.H, plan.P_loc, sched.S, sched.M
+    dev = plan.src_loc.device
+    real = sched.row_ptr[:, :, -1].reshape(S, D, P_loc).permute(1, 0, 2)  # (D, S, P_loc)
     edges = int(real.sum())
-    cols = torch.arange(step.src.shape[1], device=step.src.device)
-    read = torch.zeros(L, dtype=torch.bool, device=step.src.device)
-    read[step.src[cols[None, :] < real[:, None]].long()] = True
-    live = step.rows_loc[step.rows_loc != L - 1].long()
+    base = (torch.arange(D * S, device=dev, dtype=torch.int64) * L).view(D, S, 1, 1)
+    keys = (base + plan.src_loc)[torch.arange(M, device=dev) < real[..., None]]
+    live = plan.rows_loc != L - 1
     if tag == "min_old":
-        read[live] = True
-    rows, H = step.rows_loc.numel(), step.send_idx.numel()
+        keys = torch.cat([keys, (base + plan.rows_loc)[live]])
+    distinct = int(torch.unique(keys).numel())
+    del keys
+    rows = sched.P * sched.delta * S
     per_row = 16 if tag == "add_table" else 8
-    bytes_ = edges * 8 + int(read.sum()) * 4 + rows * per_row + live.numel() * 4 + H * 8
-    return bound_ms(bytes_, 2 * edges + rows, step.val.dtype == torch.float32)
+    halo_writes = int((plan.recv_idx != L - 1).sum())
+    exchange = S * D * H * 4 + S * D * D * H * 4 + halo_writes * 4
+    if wire != "f32":
+        exchange += S * D * H * 8
+    bytes_ = edges * 8 + distinct * 4 + rows * per_row + int(live.sum()) * 4 + exchange
+    return bound_ms(bytes_, 2 * edges + rows, sched.val.dtype == torch.float32)
 
 
 def main() -> int:
@@ -223,7 +244,7 @@ def main() -> int:
     from repro_torch.dist import engine_sharded
     from repro_torch.graphs.generators import make_graph, sssp_values
     from repro_torch.kernels import build, ops, ref
-    from repro_torch.kernels.round_block import fused_halo_step_cuda, fused_round_cuda
+    from repro_torch.kernels.round_block import fused_halo_round_cuda, fused_round_cuda
     from repro_torch.kernels.spmv_ell import spmv_ell_cuda
     from repro_torch.solve import (
         Solver,
@@ -298,33 +319,36 @@ def main() -> int:
     halo_err = 0.0
 
     def compare_halo(label, solver, sched, epilogue, x_cpu):
-        """One K2 halo round (S·D launches) against the plain halo round."""
+        """K2, one launch a round, against the plain halo round on the
+        stacked (D, L) frontier: x_loc outside the dump slots and ef, bit for
+        bit; one f32 round, and for plus-times three int8 and three fp8
+        rounds, each wire from the same x and zero residuals."""
         nonlocal halo_err, compare_launches
         sr = solver.problem.semiring
         plan = solver.frontier_plan(sched)
-        kernel = engine_sharded.frontier_kernel_round_ext_fn(sched, plan, sr, epilogue.to(dev))
-        if x_cpu.dtype == torch.float32:
-            plain = engine_sharded.frontier_round_ext_fn(
-                on(sched, "cpu"), on(plan, "cpu"), sr, epilogue.to("cpu")
-            )
-            want = plain(x_cpu)
-        else:  # int32 min-plus is order-free: the plain round on the card is exact
-            want = engine_sharded.frontier_round_ext_fn(sched, plan, sr, epilogue.to(dev))(
-                x_cpu.to(dev)
-            ).cpu()
-        got, _ = kernel(x_cpu.to(dev), engine_sharded.frontier_ef_init(plan))
-        got = got.cpu()
-        compare_launches += sched.S * plan.D
-        a, b = got[:-1], want[:-1]
-        err = float((a.double() - b.double()).abs().max().item())
-        gap = ulp_gap(a, b) if a.dtype == torch.float32 else 0
-        halo_err = max(halo_err, err)
-        log(
-            f"[2] K2 {label}: S={sched.S} D={plan.D} L={plan.L} H={plan.H} "
-            f"max_abs_err={err} max_ulp={gap}"
-        )
-        if not torch.equal(a, b):
-            raise AssertionError(f"K2 disagrees with its plain version: {label}")
+        is_f32 = x_cpu.dtype == torch.float32
+        # int32 min-plus is order-free: the plain round on the card is exact
+        p_dev = "cpu" if is_f32 else dev
+        p_sched, p_plan, p_ep = on(sched, p_dev), on(plan, p_dev), epilogue.to(p_dev)
+        for wire in engine_sharded.HALO_DTYPES if is_f32 else ("f32",):
+            want = (p_plan.scatter_x(x_cpu.to(p_dev)), engine_sharded.frontier_ef_init(p_plan))
+            got = (plan.scatter_x(x_cpu.to(dev)), engine_sharded.frontier_ef_init(plan))
+            for k in range(1 if wire == "f32" else 3):
+                ref.fused_halo_round_ref(*want, p_sched, p_plan, sr, p_ep, wire)
+                fused_halo_round_cuda(*got, sched, plan, sr, epilogue.to(dev), wire)
+                compare_launches += 1
+                a, b = got[0][:, :-1].cpu(), want[0][:, :-1].cpu()
+                ea, eb = got[1].cpu(), want[1].cpu()
+                err = float((a.double() - b.double()).abs().max().item())
+                err = max(err, float((ea.double() - eb.double()).abs().max().item()))
+                gap = ulp_gap(a, b) if is_f32 else 0
+                halo_err = max(halo_err, err)
+                log(
+                    f"[2] K2 {label} {wire} round {k + 1}: S={sched.S} D={plan.D} L={plan.L} "
+                    f"H={plan.H} max_abs_err={err} max_ulp={gap} ef_max_ulp={ulp_gap(ea, eb)}"
+                )
+                if not (torch.equal(a, b) and torch.equal(ea, eb)):
+                    raise AssertionError(f"K2 disagrees with its plain round: {label} {wire} round {k + 1}")
 
     def compare_halo_all(tag, solvers, q, rng, deltas):
         pr, ss = solvers["pagerank"], solvers["sssp"]
@@ -456,13 +480,20 @@ def main() -> int:
             raise AssertionError(f"kernel solve differs from plain solve: {name}")
     log(f"[3] small parity done in {time.perf_counter() - t0:.1f} s")
 
-    # the halo path: D shards on the card, each commit step one K2 launch a shard
+    # the halo path: D shards on the card, one K2 launch a round
     t0 = time.perf_counter()
     dstar = {name: solver.resolve_delta("auto") for name, solver in full.items()}
     for name, solver in full.items():  # plans are set-up, built before the count
         for d in ("sync", dstar[name]):
             t1 = time.perf_counter()
-            plan = solver.frontier_plan(solver.schedule(d))
+            sched = solver.schedule(d)
+            plan = solver.frontier_plan(sched)
+            # and one round each, so first allocations fall outside the solves
+            x = engine.extend_frontier(solver.problem.x0(solver.graph), solver.problem.semiring, dev)
+            engine_sharded.frontier_kernel_round_ext_fn(
+                sched, plan, solver.problem.semiring, solver.row_update()
+            )(x, engine_sharded.frontier_ef_init(plan))
+            torch.cuda.synchronize()
             log(
                 f"[3] halo plan {name} δ={plan.delta}: built in {time.perf_counter() - t1:.2f} s; "
                 f"S={plan.S} D={plan.D} L={plan.L} H={plan.H} "
@@ -471,16 +502,16 @@ def main() -> int:
                 f"halo_bytes_per_round={plan.halo_bytes_per_round()} "
                 f"replicated_bytes_per_round={plan.replicated_bytes_per_round()}"
             )
-    fused_halo_step_cuda.launches = 0
+    fused_halo_round_cuda.launches = 0
     for name, solver in full.items():
         for d in ("sync", dstar[name]):
             for hd in ("f32", "int8", "fp8") if name == "pagerank" else ("f32",):
                 kw = {} if hd == "f32" else {"tol": QUANT_TOL}
-                before = fused_halo_step_cuda.launches
+                before = fused_halo_round_cuda.launches
                 t1 = time.perf_counter()
                 r = solver.solve(delta=d, backend="kernel", frontier="halo", halo_dtype=hd, **kw)
                 secs = time.perf_counter() - t1
-                launches = fused_halo_step_cuda.launches - before
+                launches = fused_halo_round_cuda.launches - before
                 rep = replicated[(name, r.delta)]
                 plan = solver.frontier_plan(solver.schedule(d))
                 row = {
@@ -521,13 +552,13 @@ def main() -> int:
                     row["residual_floor"] = min(floor.residuals)
                     row["floor_rounds"] = floor.rounds
                 log(f"[3] halo solve {json.dumps(row)}")
-                if row["launches"] != r.rounds * plan.S * plan.D:
-                    raise AssertionError(f"the halo solve did not launch K2 once a shard and step: {row}")
+                if row["launches"] != r.rounds:
+                    raise AssertionError(f"the halo solve did not launch K2 once a round: {row}")
                 if not (r.converged and np.isfinite(r.x.astype(np.float64)).all()):
                     raise AssertionError(f"halo solve did not converge to finite values: {row}")
                 if hd == "f32" and not row["equals_replicated"]:
                     raise AssertionError(f"the f32 halo solve differs from the replicated one: {row}")
-    halo_launches = fused_halo_step_cuda.launches
+    halo_launches = fused_halo_round_cuda.launches
     if halo_launches == 0:
         raise AssertionError("the halo path never launched K2")
     log(f"[3] halo path: {halo_launches} K2 launches; done in {time.perf_counter() - t0:.1f} s")
@@ -607,67 +638,72 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"[4] K1 done in {time.perf_counter() - t0:.1f} s")
 
-    # K2: one shard's commit step per launch, S·D launches a round
+    # K2: one launch a round, all D shards, the exchange inside
     t0 = time.perf_counter()
     halo_timings = []
-    pr = full["pagerank"]
-    sr, ep = pr.problem.semiring, pr.row_update()
-    x = engine.extend_frontier(pr.problem.x0(pr.graph), sr, dev)
-    for d in ("sync", dstar["pagerank"]):
-        sched = pr.schedule(d)
-        plan = pr.frontier_plan(sched)
-        args = engine_sharded.frontier_plan_args(sched, plan)
-        x_loc = plan.scatter_x(x)
-        k_ms, p_ms, b_ms, lib_ms, host_ms = [], [], [], [], []
-        for dd in range(plan.D):
-            steps = [args.steps[s][dd] for s in range(plan.S)]
-            xs = x_loc[dd]
-            k_ms.append(time_ms(lambda: [ops.fused_halo_step(xs, st, sr, ep) for st in steps]) / plan.S)
+    k2_cases = [("pagerank", d) for d in ("sync", 128, 1024, dstar["pagerank"])]
+    k2_cases += [("sssp", d) for d in ("sync", dstar["sssp"])]
+    for name, d in k2_cases:
+        solver = full[name]
+        sr, ep = solver.problem.semiring, solver.row_update()
+        x = engine.extend_frontier(solver.problem.x0(solver.graph), sr, dev)
+        sched = solver.schedule(d)
+        t1 = time.perf_counter()
+        plan = solver.frontier_plan(sched)
+        plan_s = time.perf_counter() - t1
+        x_loc = plan.scatter_x(x)  # each timed call runs a round in place on it
+
+        def k2(steps=None, wire="f32", ef=None):
+            return ops.fused_halo_round(x_loc, ef, sched, plan, sr, ep, wire, steps)
+
+        k_ms = time_ms(k2)
+        host = []
+        for _ in range(20):  # the host's side of one launch
             torch.cuda.synchronize()
-            t1 = time.perf_counter()  # the host's side of the same launches
-            for st in steps:
-                ops.fused_halo_step(xs, st, sr, ep)
-            host_ms.append((time.perf_counter() - t1) * 1e3 / plan.S)
-            torch.cuda.synchronize()
-            p_ms.append(
-                time_ms(lambda: [ref.fused_halo_step_ref(xs, st, sr, ep) for st in steps], 0.2, 5) / plan.S
-            )
-            bounds = [halo_step_bound(st, plan.L, ep.tag) for st in steps]
-            b_ms.append(float(np.mean([b for b, _ in bounds])))
-            b_by = bounds[0][1]
-            if sched.S == 1:  # the shard's rows of the CSR matrix times x
-                g = pr.graph
-                lo, hi = (int(v) for v in plan.vertex_bounds[dd : dd + 2])
-                e0, e1 = int(g.indptr[lo]), int(g.indptr[hi])
-                A = torch.sparse_csr_tensor(
-                    torch.tensor(g.indptr[lo : hi + 1] - e0, device=dev),
-                    torch.tensor(g.indices[e0:e1].astype(np.int64), device=dev),
-                    torch.tensor(g.values[e0:e1], device=dev),
-                    size=(hi - lo, g.n),
-                )
-                xv = x[:-1].reshape(-1, 1).contiguous()
-                lib_ms.append(time_ms(lambda: torch.sparse.mm(A, xv)))
+            t1 = time.perf_counter()
+            k2()
+            host.append((time.perf_counter() - t1) * 1e3)
+        torch.cuda.synchronize()
+        step_ms = time_ms(lambda: [k2((s, s + 1)) for s in range(sched.S)])
+        wire_ms = {}
+        if name == "pagerank":
+            for wire in ("int8", "fp8"):
+                ef = engine_sharded.frontier_ef_init(plan)
+                wire_ms[wire] = time_ms(lambda: k2(wire=wire, ef=ef))
+        x_plain = plan.scatter_x(x)
+        p_ms = time_ms(lambda: ref.fused_halo_round_ref(x_plain, None, sched, plan, sr, ep), 0.2, 5)
+        del x_plain
+        b_ms, b_by = halo_round_bound(sched, plan, ep.tag, "f32")
         rnd = engine_sharded.frontier_kernel_round_ext_fn(sched, plan, sr, ep)
         ef0 = engine_sharded.frontier_ef_init(plan)
+        k1 = next(t for t in timings if t["problem"] == name and t["delta"] == sched.delta)
         row = {
-            "problem": "pagerank",
+            "problem": name,
             "delta": sched.delta,
             "S": sched.S,
             "D": plan.D,
-            "launches_per_round": sched.S * plan.D,
-            "ms": float(np.mean(k_ms)),
-            "ms_per_shard": k_ms,
-            "host_ms_per_launch": float(np.mean(host_ms)),
-            "plain_ms": float(np.mean(p_ms)),
-            "bound_ms": float(np.mean(b_ms)),
+            "H": plan.H,
+            "plan_build_s": plan_s,
+            "launches_per_round": 1,
+            "ms": k_ms,
+            "host_ms_per_launch": float(np.median(host)),
+            "host_ms_max": float(np.max(host)),
+            "one_step_a_launch_ms": step_ms,
+            "int8_ms": wire_ms.get("int8"),
+            "fp8_ms": wire_ms.get("fp8"),
+            "plain_ms": p_ms,
+            "bound_ms": b_ms,
             "bound_by": b_by,
-            "share_of_bound": float(np.mean(b_ms) / np.mean(k_ms)),
-            "library_ms": float(np.mean(lib_ms)) if lib_ms else None,
+            "share_of_bound": b_ms / k_ms,
+            "library_ms": k1["library_ms"],
             "halo_round_ms": time_ms(lambda: rnd(x, ef0)),
-            "k1_round_ms": next(t["ms"] for t in timings if t["problem"] == "pagerank" and t["delta"] == sched.delta),
+            "k1_round_ms": k1["ms"],
+            "k1_bound_ms": k1["bound_ms"],
         }
+        row["ms_over_k1"] = row["ms"] / row["k1_round_ms"]
         halo_timings.append(row)
         log(f"[4] K2 timing {json.dumps(row)}")
+        del x_loc, rnd, ef0
     torch.cuda.synchronize()
     log(f"[4] K2 done in {time.perf_counter() - t0:.1f} s")
 
@@ -767,7 +803,7 @@ def main() -> int:
                 "library_ms": head["library_ms"],
             },
             {
-                "name": "halo_step",
+                "name": "halo_round",
                 "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/round_block.cu",
                 "replaces": "src/repro/kernels/round_block.py:204",

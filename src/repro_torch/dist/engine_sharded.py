@@ -13,20 +13,21 @@ halo round equals :func:`repro_torch.core.engine.round_fn` bit for bit.
 
 All ``D`` shards live on the solver's one device, stacked as ``(D, L)``, as
 the reference's tests put ``D`` fake devices on one CPU.  The exchange
-between commit steps is one function, :func:`halo_exchange`, the
-counterpart of ``jax.lax.all_gather(..., tiled=True)`` followed by each
-shard's scatter into its halo slots.
+between commit steps is, in the plain round, one function,
+:func:`halo_exchange` (the counterpart of ``jax.lax.all_gather(...,
+tiled=True)`` followed by each shard's scatter into its halo slots); the
+kernel K2 runs it on the card between grid barriers.
 
 Two rounds over the same plan:
 
-* :func:`frontier_sharded_round_fn` — the plain round (each shard's step is
-  :func:`repro_torch.kernels.ref.fused_halo_step_ref`); the counterpart of
-  the reference's ``frontier_sharded_round_fn``.
-* :func:`frontier_kernel_round_fn` — each shard's step goes through
-  :func:`repro_torch.kernels.ops.fused_halo_step` (K2 on CUDA, its plain
-  version on the CPU), optionally with the boundary rows quantized to int8
-  or fp8 with error feedback; the counterpart of the reference's
-  ``frontier_pallas_round_fn``.
+* :func:`frontier_sharded_round_fn` — the plain round
+  (:func:`repro_torch.kernels.ref.fused_halo_round_ref`); the counterpart
+  of the reference's ``frontier_sharded_round_fn``.
+* :func:`frontier_kernel_round_fn` — the whole round is one
+  :func:`repro_torch.kernels.ops.fused_halo_round` (one K2 launch on CUDA,
+  its plain version on the CPU), optionally with the boundary rows
+  quantized to int8 or fp8 with error feedback; the counterpart of the
+  reference's ``frontier_pallas_round_fn``.
 
 The plan is built on the host from the schedule's numpy arrays and equals
 the reference's plan array for array.
@@ -43,18 +44,16 @@ import torch
 from repro_torch.core.engine import DeviceSchedule
 from repro_torch.core.semiring import Semiring
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.round_block import HaloStep
+from repro_torch.kernels.ref import halo_exchange, quantize_halo
 
 __all__ = [
     "FrontierPlan",
     "HALO_DTYPES",
-    "HaloArgs",
     "assemble_frontier_plan",
     "build_plan_shard",
     "frontier_ef_init",
     "frontier_kernel_round_ext_fn",
     "frontier_kernel_round_fn",
-    "frontier_plan_args",
     "frontier_round_ext_fn",
     "frontier_sharded_round_fn",
     "halo_exchange",
@@ -68,11 +67,6 @@ __all__ = [
 #: rows as they are (exact rounds); ``"int8"`` / ``"fp8"`` quantize them per
 #: (shard, commit step) with an error-feedback residual.
 HALO_DTYPES = ("f32", "int8", "fp8")
-
-_HALO_QUANT = {
-    "int8": (torch.int8, 127.0),
-    "fp8": (torch.float8_e4m3fn, 448.0),
-}
 
 
 def resolve_halo_dtype(halo_dtype: str, semiring: Semiring) -> str:
@@ -296,94 +290,9 @@ def frontier_ef_init(plan: FrontierPlan, feat: tuple = ()) -> torch.Tensor:
     )
 
 
-@dataclasses.dataclass(frozen=True)
-class HaloArgs:
-    """The runtime arguments of a halo round over one ``(sched, plan)``.
-
-    ``steps[s][d]`` holds shard ``d``'s views for commit step ``s``;
-    ``recv[s]`` is the ``(D·D·H,)`` flat index into the stacked ``(D, L)``
-    frontier where shard ``e``'s copy of the gathered buffer lands.
-    """
-
-    steps: tuple  # S × D × HaloStep
-    recv: torch.Tensor  # (S, D·D·H) int64
-
-
-def frontier_plan_args(sched: DeviceSchedule, plan: FrontierPlan) -> HaloArgs:
-    """Per-(step, shard) views of the schedule and the plan, and the flat
-    receive indices.  The shard's workers ``[w0, w1)`` are contiguous in
-    the schedule, so every view is contiguous and nothing is copied."""
-    D, P_loc = plan.D, plan.P_loc
-    steps = tuple(
-        tuple(
-            HaloStep(
-                n=sched.n,
-                src=plan.src_loc[d, s],
-                val=sched.val[s, d * P_loc : (d + 1) * P_loc],
-                dst_local=sched.dst_local[s, d * P_loc : (d + 1) * P_loc],
-                row_ptr=sched.row_ptr[s, d * P_loc : (d + 1) * P_loc],
-                rows_g=sched.rows[s, d * P_loc : (d + 1) * P_loc],
-                rows_loc=plan.rows_loc[d, s],
-                send_idx=plan.send_idx[s, d],
-            )
-            for d in range(D)
-        )
-        for s in range(plan.S)
-    )
-    offs = torch.arange(D, device=plan.recv_idx.device)[None, :, None] * plan.L
-    recv = (plan.recv_idx.long() + offs).reshape(plan.S, -1)
-    return HaloArgs(steps=steps, recv=recv)
-
-
-def halo_exchange(x_loc, send, recv_s) -> None:
-    """All-gather the ``(D, H)`` boundary rows and scatter them into every
-    shard's halo slots, in place on the stacked ``(D, L)`` frontier."""
-    D = x_loc.shape[0]
-    x_loc.view(-1)[recv_s] = send.reshape(-1).repeat(D)
-
-
-def quantize_halo(send, ef_s, halo_dtype: str):
-    """Quantize the ``(D, H)`` boundary rows per shard against a max-abs
-    scale (floored at 1e-30), with error feedback.
-
-    Returns ``(dequantized rows, new residuals)``; ``want = send + ef_s`` is
-    rounded then clipped (int8) or clipped then cast (fp8), as the
-    reference's fused halo round does.  Its rounding is the reference's as
-    XLA compiles it: ``/ qmax`` is a product with the f32 reciprocal, and
-    ``want - q·scale`` rounds once, as a fused multiply-add (``q·scale`` is
-    exact in float64, so one rounding of the float64 difference is the
-    FMA's).  So the port's residuals equal the reference's bit for bit.
-    """
-    qdtype, qmax = _HALO_QUANT[halo_dtype]
-    want = send.to(torch.float32) + ef_s
-    scale = want.abs().amax(dim=1, keepdim=True).clamp_min(1e-30) * np.float32(1 / qmax)
-    q = want / scale
-    if qdtype == torch.int8:
-        q = torch.round(q)
-    q = q.clamp(-qmax, qmax).to(qdtype).to(torch.float32)
-    ef = (want.double() - q.double() * scale.double()).to(torch.float32)
-    return q * scale, ef
-
-
-def _halo_round(sched, plan, semiring, row_update, step_fn, halo_dtype):
-    """``(x_loc, ef) -> (x_loc, ef)``, in place: S commit steps, each one
-    ``step_fn`` per shard, the boundary rows (quantized unless f32)
-    exchanged between steps."""
+def _check_plan(sched: DeviceSchedule, plan: FrontierPlan) -> None:
     if plan.S != sched.S or plan.delta != sched.delta:
         raise ValueError("plan built for another schedule")
-    args = frontier_plan_args(sched, plan)
-
-    def rnd(x_loc, ef=None):
-        for s, shard_steps in enumerate(args.steps):
-            send = torch.stack(
-                [step_fn(x_loc[d], st, semiring, row_update) for d, st in enumerate(shard_steps)]
-            )
-            if halo_dtype != "f32":
-                send, ef[:, s] = quantize_halo(send, ef[:, s], halo_dtype)
-            halo_exchange(x_loc, send.to(x_loc.dtype), args.recv[s])
-        return x_loc, ef
-
-    return rnd
 
 
 def frontier_sharded_round_fn(
@@ -392,8 +301,8 @@ def frontier_sharded_round_fn(
     """The plain owner-computes round ``x_loc -> x_loc`` over the stacked
     ``(D, L)`` frontier, in place.  ``row_update(old, reduced, rows)`` sees
     global rows."""
-    rnd = _halo_round(sched, plan, semiring, row_update, ref.fused_halo_step_ref, "f32")
-    return lambda x_loc: rnd(x_loc)[0]
+    _check_plan(sched, plan)
+    return lambda x_loc: ref.fused_halo_round_ref(x_loc, None, sched, plan, semiring, row_update)[0]
 
 
 def frontier_round_ext_fn(
@@ -414,14 +323,17 @@ def frontier_kernel_round_fn(
     row_update,
     halo_dtype: str = "f32",
 ) -> Callable:
-    """The K2 round ``(x_loc, ef) -> (x_loc, ef)``, in place: every shard's
-    commit step is one :func:`repro_torch.kernels.ops.fused_halo_step`
-    (S·D launches a round on CUDA).  ``halo_dtype="f32"`` equals the plain
-    round bit for bit and leaves ``ef`` at zero; ``"int8"`` / ``"fp8"``
-    quantize the shipped rows against the residuals ``ef``
-    (:func:`frontier_ef_init`), which the caller carries across rounds."""
+    """The K2 round ``(x_loc, ef) -> (x_loc, ef)``, in place: the whole
+    round is one :func:`repro_torch.kernels.ops.fused_halo_round` (one
+    launch on CUDA).  ``halo_dtype="f32"`` equals the plain round bit for
+    bit and leaves ``ef`` at zero; ``"int8"`` / ``"fp8"`` quantize the
+    shipped rows against the residuals ``ef`` (:func:`frontier_ef_init`),
+    which the caller carries across rounds."""
     resolve_halo_dtype(halo_dtype, semiring)
-    return _halo_round(sched, plan, semiring, row_update, ops.fused_halo_step, halo_dtype)
+    _check_plan(sched, plan)
+    return lambda x_loc, ef: ops.fused_halo_round(
+        x_loc, ef, sched, plan, semiring, row_update, halo_dtype
+    )
 
 
 def frontier_kernel_round_ext_fn(

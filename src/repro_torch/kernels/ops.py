@@ -12,10 +12,10 @@ import numpy as np
 
 from repro_torch.core.semiring import INT_INF
 from repro_torch.kernels import ref
-from repro_torch.kernels.round_block import fused_halo_step_cuda, fused_round_cuda
+from repro_torch.kernels.round_block import fused_halo_round_cuda, fused_round_cuda
 from repro_torch.kernels.spmv_ell import spmv_ell_cuda
 
-__all__ = ["ell_from_csr", "fused_halo_step", "fused_round", "spmv"]
+__all__ = ["ell_from_csr", "fused_halo_round", "fused_round", "spmv"]
 
 
 def _route(x, kernel, plain, what):
@@ -32,11 +32,12 @@ def fused_round(x_ext, sched, semiring, row_update):
     return fn(x_ext, sched, semiring, row_update)
 
 
-def fused_halo_step(x_loc, step, semiring, row_update):
-    """One shard's halo commit step, in place on ``x_loc``; returns its
-    ``(H,)`` boundary rows."""
-    fn = _route(x_loc, fused_halo_step_cuda, ref.fused_halo_step_ref, "halo step")
-    return fn(x_loc, step, semiring, row_update)
+def fused_halo_round(x_loc, ef, sched, plan, semiring, row_update, halo_dtype="f32", steps=None):
+    """The commit steps ``steps`` (default: all) of one halo round over every
+    shard of the stacked ``(D, L)`` frontier, in place on ``x_loc`` and (for
+    an int8/fp8 wire) on the residuals ``ef``; returns ``(x_loc, ef)``."""
+    fn = _route(x_loc, fused_halo_round_cuda, ref.fused_halo_round_ref, "halo round")
+    return fn(x_loc, ef, sched, plan, semiring, row_update, halo_dtype, steps)
 
 
 def spmv(x_ext, idx, val, semiring: str = "plus_times"):

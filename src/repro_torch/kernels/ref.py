@@ -4,19 +4,40 @@ The counterpart of ``repro.kernels.ref``.  The fused round's contract is "the
 engine's round, in one kernel", so its plain version is the engine's round
 itself (:func:`repro_torch.core.engine.round_fn`): S commit steps of gather,
 ⊗, per-worker segment-⊕ (``index_add_``, or ``scatter_reduce("amin")`` from
-int32 max), row update and publish.  The halo step's plain version is one
-such commit step on a shard's local frontier; the ELL SpMV's sums column by
-column, in the kernel's order.
+int32 max), row update and publish.  The halo round's plain version runs,
+per commit step, one such step on every shard's local frontier
+(:func:`fused_halo_step_ref`), then the quantizer (:func:`quantize_halo`,
+int8/fp8 only) and the exchange (:func:`halo_exchange`); the ELL SpMV's sums
+column by column, in the kernel's order.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
 from repro_torch.core.engine import chunk_reduce, round_fn
 from repro_torch.core.semiring import INT_INF
 
-__all__ = ["fused_halo_step_ref", "fused_round_ref", "spmv_ell_ref"]
+__all__ = [
+    "HALO_QUANT",
+    "HaloStep",
+    "fused_halo_round_ref",
+    "fused_halo_step_ref",
+    "fused_round_ref",
+    "halo_exchange",
+    "halo_step",
+    "quantize_halo",
+    "spmv_ell_ref",
+]
+
+#: The quantized halo wires: ``halo_dtype -> (wire dtype, qmax)``.
+HALO_QUANT = {
+    "int8": (torch.int8, 127.0),
+    "fp8": (torch.float8_e4m3fn, 448.0),
+}
 
 
 def fused_round_ref(x_ext, sched, semiring, row_update):
@@ -24,8 +45,46 @@ def fused_round_ref(x_ext, sched, semiring, row_update):
     return round_fn(sched, semiring, row_update)(x_ext)
 
 
+@dataclasses.dataclass(frozen=True)
+class HaloStep:
+    """One shard's inputs to one halo commit step (views into the schedule
+    and the plan, never copies).
+
+    ``src`` holds the shard's local frontier slots (owned, then halo; dump
+    ``L - 1``) in the schedule's ``(P_loc, M)`` edge order, so the
+    schedule's ``dst_local`` for the shard's workers still gives each edge
+    its row.  ``rows_g`` are the global row ids the row update sees (dump
+    ``n``), ``rows_loc`` the local slots it reads ``old`` from and publishes
+    to (dump ``L - 1``), ``send_idx`` the ``(H,)`` positions of the boundary
+    rows in the flat ``(P_loc·δ,)`` chunk.
+    """
+
+    src: torch.Tensor  # (P_loc, M) int32
+    val: torch.Tensor  # (P_loc, M)
+    dst_local: torch.Tensor  # (P_loc, M) int32
+    rows_g: torch.Tensor  # (P_loc, delta) int32
+    rows_loc: torch.Tensor  # (P_loc, delta) int32
+    send_idx: torch.Tensor  # (H,) int32
+
+
+def halo_step(sched, plan, s: int, d: int) -> HaloStep:
+    """Shard ``d``'s views for commit step ``s``.  The shard's workers
+    ``[d·P_loc, (d+1)·P_loc)`` are contiguous in the schedule, so every view
+    is contiguous and nothing is copied."""
+    w = slice(d * plan.P_loc, (d + 1) * plan.P_loc)
+    return HaloStep(
+        src=plan.src_loc[d, s],
+        val=sched.val[s, w],
+        dst_local=sched.dst_local[s, w],
+        rows_g=sched.rows[s, w],
+        rows_loc=plan.rows_loc[d, s],
+        send_idx=plan.send_idx[s, d],
+    )
+
+
 def fused_halo_step_ref(x_loc, step, semiring, row_update) -> torch.Tensor:
-    """Plain version of :func:`repro_torch.kernels.round_block.fused_halo_step_cuda`.
+    """One shard's commit step of the halo round (the reference's
+    ``fused_halo_step_fn``).
 
     One commit step of one shard, in place on its ``(L,)`` frontier: the
     gather reads local slots, ``row_update`` sees the global rows
@@ -40,6 +99,65 @@ def fused_halo_step_ref(x_loc, step, semiring, row_update) -> torch.Tensor:
     chunk = new.reshape(-1).to(x_loc.dtype)
     x_loc[step.rows_loc.reshape(-1)] = chunk
     return chunk[step.send_idx]
+
+
+def halo_exchange(x_loc, send, recv_s) -> None:
+    """All-gather the ``(D, H)`` boundary rows and scatter them into every
+    shard's halo slots, in place on the stacked ``(D, L)`` frontier.
+    ``recv_s`` indexes the flat ``(D·L,)`` frontier: ``(D·D·H,)``, shard
+    ``e``'s copy of the gathered buffer at ``e·D·H``."""
+    D = x_loc.shape[0]
+    x_loc.view(-1)[recv_s] = send.reshape(-1).repeat(D)
+
+
+def quantize_halo(send, ef_s, halo_dtype: str):
+    """Quantize the ``(D, H)`` boundary rows per shard against a max-abs
+    scale (floored at 1e-30), with error feedback.
+
+    Returns ``(dequantized rows, new residuals)``; ``want = send + ef_s`` is
+    rounded then clipped (int8) or clipped then cast (fp8), as the
+    reference's fused halo round does.  Its rounding is the reference's as
+    XLA compiles it: ``/ qmax`` is a product with the f32 reciprocal, and
+    ``want - q·scale`` rounds once, as a fused multiply-add (``q·scale`` is
+    exact in float64, so one rounding of the float64 difference is the
+    FMA's).  So the port's residuals equal the reference's bit for bit.
+    """
+    qdtype, qmax = HALO_QUANT[halo_dtype]
+    want = send.to(torch.float32) + ef_s
+    scale = want.abs().amax(dim=1, keepdim=True).clamp_min(1e-30) * np.float32(1 / qmax)
+    q = want / scale
+    if qdtype == torch.int8:
+        q = torch.round(q)
+    q = q.clamp(-qmax, qmax).to(qdtype).to(torch.float32)
+    ef = (want.double() - q.double() * scale.double()).to(torch.float32)
+    return q * scale, ef
+
+
+def fused_halo_round_ref(
+    x_loc, ef, sched, plan, semiring, row_update, halo_dtype: str = "f32", steps=None
+):
+    """Plain version of :func:`repro_torch.kernels.round_block.fused_halo_round_cuda`.
+
+    The commit steps ``steps = (s0, s1)`` (default: all ``S``) of the halo
+    round, in place on the stacked ``(D, L)`` frontier ``x_loc`` and, for an
+    int8/fp8 wire, on the ``(D, S, H)`` residuals ``ef``: per step, every
+    shard's :func:`fused_halo_step_ref`, then :func:`quantize_halo` (unless
+    f32) and :func:`halo_exchange`.  Returns ``(x_loc, ef)``.
+    """
+    s0, s1 = (0, sched.S) if steps is None else steps
+    offs = torch.arange(plan.D, device=x_loc.device)[:, None] * plan.L
+    for s in range(s0, s1):
+        send = torch.stack(
+            [
+                fused_halo_step_ref(x_loc[d], halo_step(sched, plan, s, d), semiring, row_update)
+                for d in range(plan.D)
+            ]
+        )
+        if halo_dtype != "f32":
+            send, ef[:, s] = quantize_halo(send, ef[:, s], halo_dtype)
+        recv = (plan.recv_idx[s].long() + offs).reshape(-1)
+        halo_exchange(x_loc, send.to(x_loc.dtype), recv)
+    return x_loc, ef
 
 
 def spmv_ell_ref(x_ext, idx, val, semiring: str) -> torch.Tensor:

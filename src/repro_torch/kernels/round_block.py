@@ -1,4 +1,4 @@
-"""K1 and K2 wrappers: the round kernel and the halo commit-step kernel.
+"""K1 and K2 wrappers: the round kernel and the halo round kernel.
 
 K1 (:func:`fused_round_cuda`) is the counterpart of
 ``repro.kernels.round_block.fused_round_fn_q``.  Its kernel
@@ -8,12 +8,15 @@ stages a tile of rows' edges and folds each row in edge order, so it
 computes exactly what :func:`repro_torch.core.engine.round_fn` computes, bit
 for bit.
 
-K2 (:func:`fused_halo_step_cuda`) is the counterpart of
-``repro.kernels.round_block.fused_halo_step_fn``: one shard's commit step of
-the owner-computes halo round, on the shard's local ``(L,)`` frontier, plus
-the selection of the ``(H,)`` boundary rows it ships.  It is a second entry
-point of the same source, shares K1's epilogues and sums each row in K1's
-order (one thread a row).
+K2 (:func:`fused_halo_round_cuda`) is the counterpart of
+``repro.kernels.round_block.fused_halo_step_fn`` together with the exchange
+that ``repro.dist.engine_sharded.frontier_pallas_round_fn`` runs between its
+calls: a range of commit steps of the owner-computes halo round, for all D
+shards of the stacked ``(D, L)`` frontier, in one cooperative launch, with
+the boundary rows' exchange (and, for an int8/fp8 wire, their quantization
+with error feedback) between grid barriers.  It is a second entry point of
+the same source and walks each step's tiles with K1's code, so an f32 halo
+round equals K1's round bit for bit.
 
 Pallas evaluated any traced ``row_update`` inside the kernel.  The CUDA kernel
 takes a fixed set instead: an :class:`Epilogue` names the row update with a
@@ -29,13 +32,14 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.kernels.ref import HALO_QUANT
+
 __all__ = [
     "ADD_CONST",
     "ADD_TABLE",
     "MIN_OLD",
     "Epilogue",
-    "HaloStep",
-    "fused_halo_step_cuda",
+    "fused_halo_round_cuda",
     "fused_round_cuda",
 ]
 
@@ -47,6 +51,10 @@ MIN_OLD = "min_old"  # min(old, reduced)          (sssp, cc)
 TAG_CODES = {ADD_CONST: 0, ADD_TABLE: 1, MIN_OLD: 2}
 _KERNEL_TAGS = {torch.float32: (ADD_CONST, ADD_TABLE), torch.int32: (MIN_OLD,)}
 _DTYPE_CODES = {torch.float32: 0, torch.int32: 1}
+# Halo wire codes of csrc/round_block.cu (halo_round_launch), and the most
+# shards one launch takes (kMaxShards).
+_WIRE_CODES = {"f32": 0, "int8": 1, "fp8": 2}
+MAX_SHARDS = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,14 +90,17 @@ class Epilogue:
         return torch.minimum(old, reduced)
 
 
+def _check_cuda(x) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"the CUDA kernels need CUDA tensors, got {x.device}")
+
+
 def _check_epilogue(x, semiring, epilogue) -> None:
     if not isinstance(epilogue, Epilogue):
         raise TypeError(
             "the CUDA kernels take only an Epilogue row update "
             f"({', '.join(TAG_CODES)}); got {type(epilogue).__name__}"
         )
-    if x.device.type != "cuda":
-        raise ValueError(f"the CUDA kernels need CUDA tensors, got {x.device}")
     if x.dtype != semiring.torch_dtype:
         raise ValueError(f"x is {x.dtype}, semiring wants {semiring.dtype}")
     if epilogue.tag not in _KERNEL_TAGS.get(x.dtype, ()):
@@ -108,6 +119,7 @@ def _check_tensors(expect: dict, device) -> None:
 def _check_args(x_ext, sched, semiring, epilogue) -> None:
     """Raise on anything K1 does not take (runs before any launch)."""
     _check_epilogue(x_ext, semiring, epilogue)
+    _check_cuda(x_ext)
     S, P, M, delta = sched.S, sched.P, sched.M, sched.delta
     expect = {
         "x_ext": (x_ext, (sched.n_slots,), x_ext.dtype),
@@ -133,10 +145,10 @@ def _library():
             [i32] + [ptr] * 7 + [ctypes.c_double] + [i32] * 6 + [ptr]
         )
         lib.round_block_launch.restype = i32
-        lib.halo_step_launch.argtypes = (
-            [i32] + [ptr] * 10 + [ctypes.c_double] + [i32] * 6 + [ptr]
+        lib.halo_round_launch.argtypes = (
+            [i32] * 2 + [ptr] * 12 + [ctypes.c_double] * 2 + [i32] * 10 + [ptr]
         )
-        lib.halo_step_launch.restype = i32
+        lib.halo_round_launch.restype = i32
         lib.round_block_error_string.argtypes = [i32]
         lib.round_block_error_string.restype = ctypes.c_char_p
     return lib
@@ -184,79 +196,99 @@ def fused_round_cuda(x_ext, sched, semiring, epilogue) -> torch.Tensor:
 fused_round_cuda.launches = 0  # kernel launches, for showing a path used K1
 
 
-@dataclasses.dataclass(frozen=True)
-class HaloStep:
-    """One shard's inputs to one halo commit step (views into the schedule
-    and the plan, never copies).
-
-    ``src`` holds the shard's local frontier slots (owned, then halo; dump
-    ``L - 1``) in the schedule's ``(P_loc, M)`` edge order, so the
-    schedule's ``dst_local`` and ``row_ptr`` for the shard's workers still
-    give each row its edges.  ``rows_g`` are the global row ids the row
-    update sees (dump ``n``), ``rows_loc`` the local slots it reads ``old``
-    from and publishes to (dump ``L - 1``), ``send_idx`` the ``(H,)``
-    positions of the boundary rows in the flat ``(P_loc·δ,)`` chunk.
-    """
-
-    n: int
-    src: torch.Tensor  # (P_loc, M) int32
-    val: torch.Tensor  # (P_loc, M)
-    dst_local: torch.Tensor  # (P_loc, M) int32
-    row_ptr: torch.Tensor  # (P_loc, delta + 1) int32
-    rows_g: torch.Tensor  # (P_loc, delta) int32
-    rows_loc: torch.Tensor  # (P_loc, delta) int32
-    send_idx: torch.Tensor  # (H,) int32
 
 
-def fused_halo_step_cuda(x_loc, step: HaloStep, semiring, epilogue) -> torch.Tensor:
-    """One halo commit step on the card, in place on the shard's ``(L,)``
-    frontier ``x_loc``; returns the ``(H,)`` boundary rows it commits.
-    Launches on the current stream and does not synchronise.  The dump
-    slot ``L - 1`` is never written."""
+def _check_halo_args(x_loc, ef, sched, plan, semiring, epilogue, halo_dtype, steps):
+    """Raise on anything K2 does not take; returns the step range.  The
+    shapes are checked before the device, so a CPU call with wrong shapes
+    says what is wrong with them."""
     _check_epilogue(x_loc, semiring, epilogue)
-    P_loc, M = step.src.shape
-    delta, H = step.rows_loc.shape[1], step.send_idx.shape[0]
+    if halo_dtype not in _WIRE_CODES:
+        raise ValueError(f"halo_dtype must be one of {tuple(_WIRE_CODES)}, got {halo_dtype!r}")
+    if halo_dtype != "f32" and x_loc.dtype != torch.float32:
+        raise ValueError(f"a {halo_dtype} wire needs a float32 frontier, got {x_loc.dtype}")
+    S, P, M, delta = sched.S, sched.P, sched.M, sched.delta
+    D, P_loc, L, H = plan.D, plan.P_loc, plan.L, plan.H
+    if (plan.S, plan.delta, D * P_loc) != (S, delta, P):
+        raise ValueError("plan built for another schedule")
+    if not 1 <= D <= MAX_SHARDS:
+        raise ValueError(f"K2 takes 1 to {MAX_SHARDS} shards, got {D}")
+    s0, s1 = (0, S) if steps is None else (int(steps[0]), int(steps[1]))
+    if not 0 <= s0 <= s1 <= S:
+        raise ValueError(f"steps must satisfy 0 <= s0 <= s1 <= S={S}, got {(s0, s1)}")
     expect = {
-        "x_loc": (x_loc, tuple(x_loc.shape[:1]), x_loc.dtype),
-        "src": (step.src, (P_loc, M), torch.int32),
-        "val": (step.val, (P_loc, M), x_loc.dtype),
-        "row_ptr": (step.row_ptr, (P_loc, delta + 1), torch.int32),
-        "rows_g": (step.rows_g, (P_loc, delta), torch.int32),
-        "rows_loc": (step.rows_loc, (P_loc, delta), torch.int32),
-        "send_idx": (step.send_idx, (H,), torch.int32),
+        "x_loc": (x_loc, (D, L), x_loc.dtype),
+        "src_loc": (plan.src_loc, (D, S, P_loc, M), torch.int32),
+        "val": (sched.val, (S, P, M), x_loc.dtype),
+        "row_ptr": (sched.row_ptr, (S, P, delta + 1), torch.int32),
+        "rows": (sched.rows, (S, P, delta), torch.int32),
+        "rows_loc": (plan.rows_loc, (D, S, P_loc, delta), torch.int32),
+        "send_idx": (plan.send_idx, (S, D, H), torch.int32),
+        "recv_idx": (plan.recv_idx, (S, D, D * H), torch.int32),
     }
+    if halo_dtype != "f32":
+        expect["ef"] = (ef, (D, S, H), torch.float32)
     if epilogue.table is not None:
-        expect["table"] = (epilogue.table, (step.n + 1,), x_loc.dtype)
+        expect["table"] = (epilogue.table, (sched.n_slots,), x_loc.dtype)
     _check_tensors(expect, x_loc.device)
+    if max(D * L, P * delta, D * D * H) >= 2**31:
+        raise ValueError("the halo frontier and its indices must stay below 2**31 entries")
+    _check_cuda(x_loc)
+    return s0, s1
+
+
+def fused_halo_round_cuda(
+    x_loc, ef, sched, plan, semiring, epilogue, halo_dtype: str = "f32", steps=None
+):
+    """The commit steps ``steps = (s0, s1)`` (default: all ``S``) of one halo
+    round on the card, in one launch, in place on the stacked ``(D, L)``
+    frontier ``x_loc`` and, for an int8/fp8 wire, the ``(D, S, H)``
+    residuals ``ef`` (``ef`` is not read for f32).  Returns ``(x_loc, ef)``.
+    Launches on the current stream and does not synchronise; an empty range
+    launches nothing.  The dump slots ``L - 1`` are never written."""
+    s0, s1 = _check_halo_args(x_loc, ef, sched, plan, semiring, epilogue, halo_dtype, steps)
+    if s0 == s1:
+        return x_loc, ef
     lib = _library()
-    scratch = torch.empty(P_loc * delta, dtype=x_loc.dtype, device=x_loc.device)
-    send = torch.empty(H, dtype=x_loc.dtype, device=x_loc.device)
+    dev = x_loc.device
+    scratch = torch.empty(sched.P * sched.delta, dtype=x_loc.dtype, device=dev)
+    quant = halo_dtype != "f32"
+    amax = torch.zeros((s1 - s0, plan.D), dtype=torch.int32, device=dev) if quant else None
+    inv_qmax = float(np.float32(1 / HALO_QUANT[halo_dtype][1])) if quant else 0.0
     table = epilogue.table.data_ptr() if epilogue.table is not None else None
-    with torch.cuda.device(x_loc.device):
-        err = lib.halo_step_launch(
+    with torch.cuda.device(dev):
+        err = lib.halo_round_launch(
             _DTYPE_CODES[x_loc.dtype],
+            _WIRE_CODES[halo_dtype],
             x_loc.data_ptr(),
+            ef.data_ptr() if quant else None,
             scratch.data_ptr(),
-            send.data_ptr(),
-            step.src.data_ptr(),
-            step.val.data_ptr(),
-            step.row_ptr.data_ptr(),
-            step.rows_g.data_ptr(),
-            step.rows_loc.data_ptr(),
-            step.send_idx.data_ptr(),
+            amax.data_ptr() if quant else None,
+            plan.src_loc.data_ptr(),
+            sched.val.data_ptr(),
+            sched.row_ptr.data_ptr(),
+            sched.rows.data_ptr(),
+            plan.rows_loc.data_ptr(),
+            plan.send_idx.data_ptr(),
+            plan.recv_idx.data_ptr(),
             table,
             float(epilogue.const),
+            inv_qmax,
             TAG_CODES[epilogue.tag],
-            x_loc.shape[0],
-            P_loc,
-            M,
-            delta,
-            H,
-            torch.cuda.current_stream(x_loc.device).cuda_stream,
+            s0,
+            s1,
+            sched.S,
+            plan.D,
+            plan.P_loc,
+            sched.M,
+            sched.delta,
+            plan.L,
+            plan.H,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
-    _raise_on(lib, err, "halo_step")
-    fused_halo_step_cuda.launches += 1
-    return send
+    _raise_on(lib, err, "halo_round")
+    fused_halo_round_cuda.launches += 1
+    return x_loc, ef
 
 
-fused_halo_step_cuda.launches = 0  # kernel launches, for showing a path used K2
+fused_halo_round_cuda.launches = 0  # kernel launches, for showing a path used K2

@@ -14,9 +14,10 @@ the CPU; ``backend="torch"`` runs the plain round on either, for comparison.
 
 ``frontier="halo"`` runs the owner-computes sharded frontier
 (:mod:`repro_torch.dist.engine_sharded`) over ``n_shards`` shards, all on the
-solver's device: each shard's commit step is one launch of the halo-step
-kernel K2 (``backend="kernel"``) or its plain version (``backend="torch"``),
-and only boundary rows cross between shards.  ``halo_dtype`` ∈ ``{"f32",
+solver's device: each round is one launch of the halo-round kernel K2, all
+shards' commit steps and the exchanges between them (``backend="kernel"``),
+or the plain halo round (``backend="torch"``), and only boundary rows cross
+between shards.  ``halo_dtype`` ∈ ``{"f32",
 "int8", "fp8"}`` quantizes those rows with error feedback (``backend=
 "kernel"`` only; f32 gives the replicated solve's answer bit for bit).
 Both backends run both frontiers.

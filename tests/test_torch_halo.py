@@ -4,18 +4,21 @@ The same numpy inputs go through both packages:
 
 * the owner-computes plans equal ``repro.dist.engine_sharded``'s, array for
   array, over shard counts, disciplines and graph families;
-* the plain halo step (K2's plain version) equals the reference's Pallas
-  ``fused_halo_step_fn`` in interpret mode, bit for bit, for every shard and
-  step and all three epilogues;
+* the plain halo step equals the reference's Pallas ``fused_halo_step_fn``
+  in interpret mode, bit for bit, for every shard and step and all three
+  epilogues;
 * the halo rounds equal ``repro.core.engine.round_fn`` (D = 2, 4) and the
   reference's fused halo round (D = 1 here; D = 4 in a subprocess with four
-  fake CPU devices), quantized rounds and their residuals included;
+  fake CPU devices), quantized rounds and their residuals included, and K2's
+  plain version run over a split step range equals it run over the whole
+  round;
 * ``Solver(frontier="halo")`` equals ``repro.Solver(backend="jit")``.
 
 Only ``x[:-1]`` and the local frontier's non-dump slots are compared: dump
 values are unspecified.
 """
 
+import dataclasses
 import functools
 import os
 import subprocess
@@ -52,7 +55,7 @@ from repro_torch.kernels.round_block import (  # noqa: E402
     ADD_TABLE,
     MIN_OLD,
     Epilogue,
-    fused_halo_step_cuda,
+    fused_halo_round_cuda,
 )
 
 REPO = Path(__file__).resolve().parents[1]
@@ -169,7 +172,6 @@ def test_plain_halo_step_equals_pallas_step(tag, disc):
             jsr, j_update, P_loc=jp.P_loc, M=js.M, delta=js.delta, L=jp.L, H=jp.H, interpret=True
         )
     )
-    args = t_sharded.frontier_plan_args(ts, tp)
     q = jnp.zeros((), jnp.int32)
     P_loc = jp.P_loc
     for s in range(ts.S):
@@ -181,29 +183,106 @@ def test_plain_halo_step_equals_pallas_step(tag, disc):
                 jnp.array(x), jp.src_loc[d, s], js.val[s, w], js.dst_local[s, w],
                 js.rows[s, w], jp.rows_loc[d, s], jp.send_idx[s, d], q,
             )
-            tsend = ref.fused_halo_step_ref(tx, args.steps[s][d], tsr, t_update)
+            st = ref.halo_step(ts, tp, s, d)
+            tsend = ref.fused_halo_step_ref(tx, st, tsr, t_update)
             np.testing.assert_array_equal(tx.numpy()[:-1], np.asarray(jx)[:-1])
-            real = args.steps[s][d].rows_g.reshape(-1)[args.steps[s][d].send_idx] < ts.n
+            real = st.rows_g.reshape(-1)[st.send_idx] < ts.n
             np.testing.assert_array_equal(tsend.numpy()[real.numpy()], np.asarray(jsend)[real.numpy()])
 
 
-def test_halo_step_dispatch_and_cuda_wrapper_checks():
+def _dispatch_case():
     js, ts = _schedules("twitter", "pagerank", "24")
     tp = t_sharded.make_frontier_plan(ts, 2)
-    st = t_sharded.frontier_plan_args(ts, tp).steps[1][1]
     ep = Epilogue(ADD_CONST, const=0.01)
-    x = torch.as_tensor(_random_x(PLUS_TIMES, (tp.L,), np.random.default_rng(2)))
-    x2 = x.clone()
-    launches = fused_halo_step_cuda.launches
-    assert torch.equal(ops.fused_halo_step(x, st, PLUS_TIMES, ep), ref.fused_halo_step_ref(x2, st, PLUS_TIMES, ep))
-    assert torch.equal(x, x2)
+    rng = np.random.default_rng(2)
+    x = torch.as_tensor(_random_x(PLUS_TIMES, (tp.D, tp.L), rng))
+    ef = torch.as_tensor(rng.standard_normal((tp.D, tp.S, tp.H)).astype(np.float32) * 1e-3)
+    return ts, tp, ep, x, ef
+
+
+def test_halo_step_dispatch_and_cuda_wrapper_checks():
+    """``ops.fused_halo_round`` sends a CPU tensor to the plain round; the
+    CUDA wrapper refuses it."""
+    ts, tp, ep, x, ef = _dispatch_case()
+    x2, ef2 = x.clone(), ef.clone()
+    launches = fused_halo_round_cuda.launches
+    got = ops.fused_halo_round(x, ef, ts, tp, PLUS_TIMES, ep, "int8")
+    want = ref.fused_halo_round_ref(x2, ef2, ts, tp, PLUS_TIMES, ep, "int8")
+    assert got[0] is x and got[1] is ef  # in place
+    assert torch.equal(x, want[0]) and torch.equal(ef, want[1])
     with pytest.raises(ValueError, match="CUDA tensors"):
-        fused_halo_step_cuda(x, st, PLUS_TIMES, ep)
+        fused_halo_round_cuda(x, ef, ts, tp, PLUS_TIMES, ep)
     with pytest.raises(TypeError, match="Epilogue"):
-        fused_halo_step_cuda(x, st, PLUS_TIMES, lambda o, r, w: r)
-    with pytest.raises(ValueError, match="no halo step"):
-        ops.fused_halo_step(x.to("meta"), st, PLUS_TIMES, ep)
-    assert fused_halo_step_cuda.launches == launches
+        fused_halo_round_cuda(x, ef, ts, tp, PLUS_TIMES, lambda o, r, w: r)
+    with pytest.raises(ValueError, match="no halo round"):
+        ops.fused_halo_round(x.to("meta"), ef, ts, tp, PLUS_TIMES, ep)
+    assert fused_halo_round_cuda.launches == launches
+
+
+@pytest.mark.parametrize(
+    "change,err",
+    [
+        ("x_loc", r"x_loc: want torch.float32 \(2, "),
+        ("x_loc_strided", "x_loc must be contiguous"),
+        ("ef", r"ef: want torch.float32 \(2, "),
+        ("recv_idx", r"recv_idx: want torch.int32 \("),
+        ("table", r"table: want torch.float32 \("),
+        ("steps", "steps must satisfy"),
+        ("halo_dtype", "halo_dtype must be one of"),
+        ("plan", "plan built for another schedule"),
+    ],
+)
+def test_halo_round_wrapper_rejects_wrong_shapes_without_launching(change, err):
+    """Shapes are checked before the device, so each of these raises on the
+    CPU with its own message, and no launch is counted."""
+    ts, tp, ep, x, ef = _dispatch_case()
+    kw = {"halo_dtype": "int8", "steps": None}
+    if change == "x_loc":
+        x = x[:, :-1].contiguous()
+    elif change == "x_loc_strided":
+        x = torch.empty((tp.D, 2 * tp.L), dtype=x.dtype)[:, ::2]
+    elif change == "ef":
+        ef = ef[:, :, :-1].contiguous()
+    elif change == "recv_idx":
+        tp = dataclasses.replace(tp, recv_idx=tp.recv_idx[:, :, :-1].contiguous())
+    elif change == "table":
+        ep = Epilogue(ADD_TABLE, table=torch.zeros(ts.n))
+    elif change == "steps":
+        kw["steps"] = (1, ts.S + 1)
+    elif change == "halo_dtype":
+        kw["halo_dtype"] = "bf16"
+    else:
+        tp = dataclasses.replace(tp, S=tp.S + 1)
+    launches = fused_halo_round_cuda.launches
+    with pytest.raises(ValueError, match=err):
+        fused_halo_round_cuda(x, ef, ts, tp, PLUS_TIMES, ep, **kw)
+    assert fused_halo_round_cuda.launches == launches
+
+
+@pytest.mark.parametrize("disc", ["sync", "24"])
+@pytest.mark.parametrize("D", [1, 2, 4])
+@pytest.mark.parametrize("halo_dtype", ["f32", "int8", "fp8"])
+def test_halo_round_over_split_steps_equals_the_whole_round(halo_dtype, D, disc):
+    """``[0, k)`` then ``[k, S)`` is the round ``[0, S)``: the kernel's step
+    range (the unit a cross-card exchange would launch) carries nothing
+    else from step to step."""
+    js, ts = _schedules("twitter", "pagerank", disc)
+    tp = t_sharded.make_frontier_plan(ts, D)
+    n = ts.n
+    ep = Epilogue(ADD_CONST, const=float(np.float32(0.15 / n)))
+    rng = np.random.default_rng(5)
+    x0 = torch.as_tensor(rng.random((tp.D, tp.L)).astype(np.float32) / n)
+    ef0 = torch.as_tensor(rng.standard_normal((tp.D, tp.S, tp.H)).astype(np.float32) * 1e-5)
+    x_all, ef_all = x0.clone(), ef0.clone()
+    ops.fused_halo_round(x_all, ef_all, ts, tp, PLUS_TIMES, ep, halo_dtype)
+    k = ts.S // 2
+    assert k > 0 or disc == "sync"
+    x_split, ef_split = x0.clone(), ef0.clone()
+    for steps in ((0, k), (k, ts.S)):
+        ops.fused_halo_round(x_split, ef_split, ts, tp, PLUS_TIMES, ep, halo_dtype, steps)
+    np.testing.assert_array_equal(x_split.numpy()[:, :-1], x_all.numpy()[:, :-1])
+    np.testing.assert_array_equal(ef_split.numpy(), ef_all.numpy())
+    assert torch.equal(ef_all, ef0) == (halo_dtype == "f32")
 
 
 # --------------------------------------------------------------------------- #
@@ -300,13 +379,12 @@ _REFERENCE_D4 = textwrap.dedent(
 )
 
 
-def test_halo_rounds_equal_reference_fused_round_on_four_shards(tmp_path):
-    """The reference's fused halo round on a 4-wide mesh of fake CPU devices
-    (its own process: the device count is fixed when jax starts), held bit
-    for bit against the port's rounds, residuals included.  The quantizer
-    is the same f32 arithmetic in both (max-abs, one division, round-half-
-    even or an RNE fp8 cast, one product), so no tolerance is needed."""
-    out = tmp_path / "reference.npz"
+@pytest.fixture(scope="module")
+def reference_d4(tmp_path_factory):
+    """The reference's fused halo round on a 4-wide mesh of fake CPU devices,
+    in its own process (the device count is fixed when jax starts): x and ef
+    after each of three rounds, for every wire."""
+    out = tmp_path_factory.mktemp("reference_d4") / "reference.npz"
     env = dict(
         os.environ,
         PYTHONPATH=str(REPO / "src"),
@@ -318,7 +396,15 @@ def test_halo_rounds_equal_reference_fused_round_on_four_shards(tmp_path):
         env=env, capture_output=True, text=True, timeout=240,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
-    want = np.load(out)
+    return dict(np.load(out))
+
+
+def test_halo_rounds_equal_reference_fused_round_on_four_shards(reference_d4):
+    """The port's K2 round (its plain version here) held bit for bit against
+    the reference's, residuals included.  The quantizer is the same f32
+    arithmetic in both (max-abs, one division, round-half-even or an RNE fp8
+    cast, one product), so no tolerance is needed."""
+    want = reference_d4
     js, ts, _, t_update, x0 = _quant_case()
     tp = t_sharded.make_frontier_plan(ts, 4)
     for hd in ("f32", "int8", "fp8"):
@@ -329,6 +415,27 @@ def test_halo_rounds_equal_reference_fused_round_on_four_shards(tmp_path):
             np.testing.assert_array_equal(x.numpy()[:-1], want[f"{hd}_x{k}"][:-1], err_msg=hd)
             np.testing.assert_array_equal(ef.numpy(), want[f"{hd}_ef{k}"], err_msg=hd)
         assert ef.any() == (hd != "f32")
+
+
+def test_plain_halo_round_over_step_ranges_equals_reference_on_four_shards(reference_d4):
+    """:func:`ref.fused_halo_round_ref`, called directly on the ``(D, L)``
+    layout one commit step a call (the form a cross-card exchange would
+    take), equals the reference's round in x and ef."""
+    want = reference_d4
+    js, ts, _, t_update, x0 = _quant_case()
+    tp = t_sharded.make_frontier_plan(ts, 4)
+    cuts = tuple(range(ts.S + 1))
+    assert ts.S > 1
+    for hd in ("f32", "int8", "fp8"):
+        x = t_engine.extend_frontier(x0, PLUS_TIMES, "cpu")
+        ef = t_sharded.frontier_ef_init(tp)
+        for k in range(3):
+            x_loc = tp.scatter_x(x)
+            for steps in zip(cuts[:-1], cuts[1:]):
+                ref.fused_halo_round_ref(x_loc, ef, ts, tp, PLUS_TIMES, t_update, hd, steps)
+            x = tp.gather_x(x_loc, dump=x[-1:])
+            np.testing.assert_array_equal(x.numpy()[:-1], want[f"{hd}_x{k}"][:-1], err_msg=hd)
+            np.testing.assert_array_equal(ef.numpy(), want[f"{hd}_ef{k}"], err_msg=hd)
 
 
 # --------------------------------------------------------------------------- #

@@ -25,7 +25,7 @@ from repro_torch.kernels.round_block import (  # noqa: E402
     ADD_TABLE,
     MIN_OLD,
     Epilogue,
-    fused_halo_step_cuda,
+    fused_halo_round_cuda,
     fused_round_cuda,
 )
 from repro_torch.kernels.spmv_ell import spmv_ell_cuda  # noqa: E402
@@ -97,14 +97,14 @@ def test_halo_kernel_round_matches_plain_round(cuda_device, tag, mode, delta):
     kernel = engine_sharded.frontier_kernel_round_ext_fn(dev, plan, sr, ep.to(cuda_device))
     x = engine.extend_frontier(x0, sr, "cpu")
     ef = engine_sharded.frontier_ef_init(plan)
-    launches = fused_halo_step_cuda.launches
+    launches = fused_halo_round_cuda.launches
     for _ in range(3):
         want = plain(x)
         got, ef = kernel(x.to(cuda_device), ef)
         torch.cuda.synchronize()
         assert torch.equal(got.cpu()[:-1], want[:-1])
         x = want
-    assert fused_halo_step_cuda.launches == launches + 3 * dev.S * 4
+    assert fused_halo_round_cuda.launches == launches + 3  # one launch a round
 
 
 @pytest.mark.gpu
@@ -253,7 +253,7 @@ def test_tiled_spmv_matches_plain_version_bit_for_bit(cuda_device, semiring, max
 @pytest.mark.gpu
 def test_halo_solve_without_nvcc_raises_instead_of_running_plain(cuda_device, tmp_path, monkeypatch):
     """No fallback: with no built library and no nvcc, the kernel backend's
-    halo solve raises and never runs the plain step."""
+    halo solve raises and never runs the plain round."""
     from repro_torch.kernels import build
 
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
@@ -261,7 +261,7 @@ def test_halo_solve_without_nvcc_raises_instead_of_running_plain(cuda_device, tm
     monkeypatch.setenv("PATH", str(tmp_path))
     build.load.cache_clear()
     calls = []
-    monkeypatch.setattr(ref, "fused_halo_step_ref", lambda *a: calls.append(a))
+    monkeypatch.setattr(ref, "fused_halo_round_ref", lambda *a: calls.append(a))
     try:
         g = make_graph("twitter", scale=9, efactor=8, kind="pagerank")
         solver = Solver(g, pagerank_problem(), n_workers=8, delta=64, min_chunk=32,
@@ -271,3 +271,91 @@ def test_halo_solve_without_nvcc_raises_instead_of_running_plain(cuda_device, tm
         assert not calls
     finally:
         build.load.cache_clear()
+
+
+# K2: the halo round kernel against its plain round, x_loc (dump slots
+# masked) and ef bit for bit.
+WIRES = {ADD_CONST: ("f32", "int8", "fp8"), ADD_TABLE: ("f32", "int8", "fp8"), MIN_OLD: ("f32",)}
+
+
+def _halo_inputs(sched, plan, sr, x0, rng, device):
+    """The stacked (D, L) frontier and random residuals, on the CPU and on
+    ``device`` (each run in place)."""
+    x_loc = plan.scatter_x(engine.extend_frontier(x0, sr, "cpu"))
+    ef = torch.as_tensor(rng.standard_normal((plan.D, plan.S, plan.H)).astype(np.float32))
+    ef *= float(x_loc.float().abs().mean()) * 1e-2
+    return (x_loc, ef), (x_loc.to(device), ef.to(device))
+
+
+def _assert_halo_equal(got, want):
+    (gx, gef), (wx, wef) = got, want
+    torch.cuda.synchronize()
+    assert _bits_equal(gx.cpu()[:, :-1], wx[:, :-1])
+    assert _bits_equal(gef.cpu(), wef)
+
+
+def _halo_case(g, sr, ep, mode, delta, D, wire, device, rounds=2, min_chunk=32):
+    rng = np.random.default_rng(D)
+    P = max(8, D)
+    cpu = engine.make_schedule(g, P, delta, sr, mode=mode, min_chunk=min_chunk)
+    dev = engine.make_schedule(g, P, delta, sr, mode=mode, min_chunk=min_chunk, device=device)
+    plan_cpu = engine_sharded.make_frontier_plan(cpu, D)
+    plan = engine_sharded.make_frontier_plan(dev, D)
+    x0 = rng.random(g.n).astype(np.float32) if sr is PLUS_TIMES else rng.integers(0, 1000, g.n).astype(np.int32)
+    want, got = _halo_inputs(cpu, plan_cpu, sr, x0, rng, device)
+    ep_dev = ep.to(device)
+    launches = fused_halo_round_cuda.launches
+    for _ in range(rounds):
+        ref.fused_halo_round_ref(*want, cpu, plan_cpu, sr, ep, wire)
+        ops.fused_halo_round(*got, dev, plan, sr, ep_dev, wire)
+        _assert_halo_equal(got, want)
+    assert fused_halo_round_cuda.launches == launches + rounds
+    return cpu, dev, plan_cpu, plan
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [1, 2, 4, 8])
+@pytest.mark.parametrize("mode,delta", [("sync", None), ("delayed", 1), ("delayed", 7), ("delayed", 96), ("delayed", 3001)])
+@pytest.mark.parametrize("tag,wire", [(t, w) for t, ws in WIRES.items() for w in ws])
+def test_halo_round_kernel_matches_plain_round(cuda_device, tag, wire, mode, delta, D):
+    """One launch a round over all D shards, with the exchange and (int8,
+    fp8) the quantizer inside; two rounds from the same x_loc and ef."""
+    g, sr, _, ep = _inputs(tag, cuda_device)
+    _halo_case(g, sr, ep, mode, delta, D, wire, cuda_device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [2, 4])
+@pytest.mark.parametrize("mode,delta", [("sync", None), ("delayed", 301), ("delayed", 3001)])
+@pytest.mark.parametrize("tag,wire", [(t, w) for t, ws in WIRES.items() for w in ws])
+def test_halo_round_sums_hub_rows_in_edge_order(cuda_device, tag, wire, mode, delta, D):
+    """K1's tile walk inside K2: a row of 25,000 in-edges (24 chunks),
+    empty rows and wide-range values, every shard count's split of it."""
+    rng = np.random.default_rng(13)
+    g = _hub_graph("sssp" if tag == MIN_OLD else "pagerank", 30_001, 25_000)
+    if tag == MIN_OLD:
+        sr, ep = MIN_PLUS, Epilogue(MIN_OLD)
+    else:
+        sr = PLUS_TIMES
+        ep = Epilogue(ADD_CONST, const=float(np.float32(0.15 / g.n)))
+        if tag == ADD_TABLE:
+            ep = Epilogue(ADD_TABLE, table=torch.as_tensor(_wide_range(rng, g.n + 1)))
+    _halo_case(g, sr, ep, mode, delta, D, wire, cuda_device, min_chunk=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wire", ["f32", "int8", "fp8"])
+def test_halo_round_kernel_over_split_steps(cuda_device, wire):
+    """``[0, k)``, ``[k, k + 1)`` and ``[k + 1, S)`` on the card (three
+    launches) equal the plain round ``[0, S)``."""
+    g, sr, _, ep = _inputs(ADD_CONST, cuda_device)
+    cpu, dev, plan_cpu, plan = _halo_case(g, sr, ep, "delayed", 7, 4, wire, cuda_device, rounds=1)
+    rng = np.random.default_rng(3)
+    x0 = rng.random(g.n).astype(np.float32)
+    want, got = _halo_inputs(cpu, plan_cpu, sr, x0, rng, cuda_device)
+    ref.fused_halo_round_ref(*want, cpu, plan_cpu, sr, ep, wire)
+    k = dev.S // 2
+    assert 0 < k < dev.S - 1
+    for steps in ((0, k), (k, k + 1), (k + 1, dev.S)):
+        ops.fused_halo_round(*got, dev, plan, sr, ep.to(cuda_device), wire, steps)
+    _assert_halo_equal(got, want)
