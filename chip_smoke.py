@@ -21,7 +21,12 @@ exit and no result line:
    ``ef``, bit for bit, after one f32 round and after three int8 and three
    fp8 rounds (pagerank and ppr; sssp is f32 only), at scale 16 at δ = sync,
    128 and 1024; and at scale 14 the halo kernel solves (f32, int8, fp8)
-   must equal the CPU plain halo solves.
+   must equal the CPU plain halo solves.  K1 and K2 at F = 4 (matrix
+   frontiers ``(n + 1, 4)``, K2 on ``(D, L, 4)`` with ``(D, S, H, 4)``
+   residuals) likewise, for rwr (``add_table`` over its ``(n + 1, 4)``
+   restart table) and labelprop (its anchors, unit edges) on twitter at
+   scale 16 at δ = sync and 128, and after phase 3 at scale 22 at sync and
+   each problem's δ*.
 3. the main path, ``Solver(...).solve()`` with ``backend="kernel"`` at sync,
    async, 1024 and auto (twice: cold, then warm): PageRank on ``twitter``
    scale 22 (4.2 M vertices, 64.3 M edges) and SSSP on the same topology
@@ -36,6 +41,15 @@ exit and no result line:
    flush_bytes exactly; PageRank also runs with int8 and fp8 halos, which
    must converge.  Then K2 against its plain round at full size, at sync
    and δ*, as in phase 2.
+   Then the matrix path, with both launch counts reset before and read
+   after: rwr embeddings (F = 4) and label propagation (F = 4, on the same
+   topology with unit edges) on twitter scale 22, each
+   replicated (one K1 launch a round) and halo (one K2 launch a round) at
+   sync and its own δ* (``delta="auto"``, probed before the count): rwr
+   must converge, labelprop runs at most LABELPROP_ROUNDS rounds, both give
+   finite ``(n, 4)`` values, and the halo solve must equal the replicated one in
+   x, rounds, flushes and flush_bytes.  At scale 14 their kernel solves
+   (replicated and halo, async) must equal the CPU plain solves.
 4. K1's time per round at the full-size shapes, at sync, 128, 1024 and
    auto's δ* (CUDA events), beside its byte bound, the same round with no
    edges to walk (barriers, epilogues and publishes alone), the plain round's
@@ -54,10 +68,22 @@ exit and no result line:
    bounds (padded ELL and real edges) and ``torch.sparse.mm``: plus-times at
    F = 1 and 4 and min-plus on the reference's layout (``lane_pad = 128``),
    and plus-times F = 1 on a ``lane_pad = 8`` layout of the same graph,
-   which must give the same bits.
+   which must give the same bits.  K1 and K2 at F = 4 for rwr and
+   labelprop at sync and δ*: K1's round and K2's round (f32, and int8)
+   beside their bounds (``round_bound``, ``halo_round_bound`` with F), the
+   plain rounds on the card, and ``torch.sparse.mm`` of the CSR by the
+   ``(n, 4)`` frontier (at δ*, one call a commit step).
 5. the ``kernels`` line, the card's name and power limit, and the result line.
 
 It imports neither jax nor the JAX package ``repro``.
+
+    python3 chip_smoke.py --ab OTHER_CHECKOUT
+
+times only the vector kernels (K1 and K2 for PageRank at sync and δ* =
+16,384, K3 plus-times F = 1) of this checkout and of another one (the
+parent commit's, unpacked with ``git archive`` into a directory that
+``.gitignore`` lists), in turns (other, this, this, other), each in its own
+process on the same twitter graph: a comparison of two versions on one card.
 """
 
 from __future__ import annotations
@@ -90,6 +116,11 @@ DELTAS = ("sync", 128, 1024)
 # above it.
 QUANT_TOL = 2e-2
 FLOOR_ROUNDS = 40
+# labelprop's stopping test (tol 1e-3 on the L1 change summed over all n·F
+# values) is not met within its 2,000 rounds on twitter graphs of scale 11
+# to 16 (at scale 22 it is, in a few rounds: four anchors move a small share
+# of 4.2 M rows), so the smoke caps its solves at this many rounds.
+LABELPROP_ROUNDS = 200
 
 
 def log(msg: str) -> None:
@@ -163,7 +194,7 @@ def ulp_gap(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((ia - ib).abs().max().item()) if a.numel() else 0
 
 
-def time_ms(fn, budget_s: float = 0.4, max_iters: int = 50) -> float:
+def time_ms(fn, budget_s: float = 0.4, max_iters: int = 50, min_iters: int = 3) -> float:
     """Mean milliseconds per call, CUDA events around a run of calls."""
     fn()
     torch.cuda.synchronize()
@@ -173,7 +204,7 @@ def time_ms(fn, budget_s: float = 0.4, max_iters: int = 50) -> float:
     end.record()
     end.synchronize()
     est = max(start.elapsed_time(end), 1e-3)
-    iters = int(min(max_iters, max(3, math.ceil(budget_s * 1e3 / est))))
+    iters = int(min(max_iters, max(min_iters, math.ceil(budget_s * 1e3 / est))))
     start.record()
     for _ in range(iters):
         fn()
@@ -189,28 +220,29 @@ def bound_ms(bytes_: float, ops: float, is_f32: bool) -> tuple[float, str]:
     return (max(byte_s, op_s) * 1e3, "bytes" if byte_s >= op_s else "operations")
 
 
-def round_bound(sched, table) -> tuple[float, str]:
+def round_bound(sched, table, F: int = 1) -> tuple[float, str]:
     """Least time for one round: each real edge's index and value read once,
-    the frontier (and an epilogue table) read once and written once."""
-    itemsize = 4
-    frontier = sched.n_slots * itemsize * 2
-    bytes_ = sched.edges * 8 + frontier + (sched.n_slots * itemsize if table else 0)
-    ops = 2 * sched.edges + sched.n  # ⊗ and ⊕ per edge, one epilogue per row
+    the frontier (F values a row; and an epilogue table of F values a row)
+    read once and written once."""
+    row = 4 * F
+    bytes_ = sched.edges * 8 + sched.n_slots * row * (3 if table else 2)
+    ops = (2 * sched.edges + sched.n) * F  # ⊗ and ⊕ per edge and feature, an epilogue per value
     return bound_ms(bytes_, ops, sched.val.dtype == torch.float32)
 
 
-def halo_round_bound(sched, plan, tag: str, wire: str) -> tuple[float, str]:
+def halo_round_bound(sched, plan, tag: str, wire: str, F: int = 1) -> tuple[float, str]:
     """Least time for one K2 launch over a whole halo round, summed over its
     commit steps and shards.  Per (step, shard): the real edges (local source
     slot and value, 8 B each); each distinct local slot they gather (and,
-    for ``min_old``, each real row's ``old`` slot) read once; per chunk row
-    its edge range and local slot read once (8 B) and, for ``add_table``,
-    its global id and table entry (8 B more); each real row (not the dump)
-    written once.  The exchange, per step: ``send_idx`` (D·H) and
-    ``recv_idx`` (D·D·H) read once, each real halo slot (a ``recv_idx``
-    entry other than the dump) written once, and for an int8/fp8 wire
-    ``ef`` (D·H) read and written once.  Operations: ⊗ and ⊕ per real edge
-    and one epilogue per chunk row."""
+    for ``min_old`` and ``labelprop``, each real row's ``old`` slot) read
+    once, F values each; per chunk row its edge range and local slot read
+    once (8 B) and, for ``add_table`` and ``labelprop``, its global id (4 B)
+    and table row (4F B); each real row (not the dump) written once.  The
+    exchange, per step: ``send_idx`` (D·H) and ``recv_idx`` (D·D·H) read
+    once, each real halo slot (a ``recv_idx`` entry other than the dump)
+    written once, and for an int8/fp8 wire ``ef`` (D·H·F) read and written
+    once.  Operations: ⊗ and ⊕ per real edge and feature and one epilogue
+    per chunk row and feature."""
     D, L, H, P_loc, S, M = plan.D, plan.L, plan.H, plan.P_loc, sched.S, sched.M
     dev = plan.src_loc.device
     real = sched.row_ptr[:, :, -1].reshape(S, D, P_loc).permute(1, 0, 2)  # (D, S, P_loc)
@@ -218,27 +250,103 @@ def halo_round_bound(sched, plan, tag: str, wire: str) -> tuple[float, str]:
     base = (torch.arange(D * S, device=dev, dtype=torch.int64) * L).view(D, S, 1, 1)
     keys = (base + plan.src_loc)[torch.arange(M, device=dev) < real[..., None]]
     live = plan.rows_loc != L - 1
-    if tag == "min_old":
+    if tag in ("min_old", "labelprop"):
         keys = torch.cat([keys, (base + plan.rows_loc)[live]])
     distinct = int(torch.unique(keys).numel())
     del keys
     rows = sched.P * sched.delta * S
-    per_row = 16 if tag == "add_table" else 8
+    per_row = 12 + 4 * F if tag in ("add_table", "labelprop") else 8
     halo_writes = int((plan.recv_idx != L - 1).sum())
-    exchange = S * D * H * 4 + S * D * D * H * 4 + halo_writes * 4
+    exchange = S * D * H * 4 + S * D * D * H * 4 + halo_writes * 4 * F
     if wire != "f32":
-        exchange += S * D * H * 8
-    bytes_ = edges * 8 + distinct * 4 + rows * per_row + int(live.sum()) * 4 + exchange
-    return bound_ms(bytes_, 2 * edges + rows, sched.val.dtype == torch.float32)
+        exchange += S * D * H * 8 * F
+    bytes_ = edges * 8 + distinct * 4 * F + rows * per_row + int(live.sum()) * 4 * F + exchange
+    return bound_ms(bytes_, (2 * edges + rows) * F, sched.val.dtype == torch.float32)
+
+
+AB_DELTAS = ("sync", 16384)  # δ* of PageRank on twitter scale 22
+
+
+def time_vector(graph_npz: str, root: str) -> int:
+    """The vector kernels of the checkout at ``root``, timed on the graph in
+    ``graph_npz``: K1 and K2 (D = SHARDS) for PageRank at AB_DELTAS, and K3
+    plus-times F = 1; prints one JSON object."""
+    sys.path.insert(0, str(Path(root).resolve() / "src"))
+    from repro_torch.core import engine
+    from repro_torch.core.semiring import PLUS_TIMES
+    from repro_torch.dist import engine_sharded
+    from repro_torch.graphs.formats import CSRGraph
+    from repro_torch.kernels import build, ops
+    from repro_torch.solve import pagerank_problem
+
+    build.build()
+    a = np.load(graph_npz)
+    g = CSRGraph(int(a["n"]), a["indptr"], a["indices"], a["values"], name="ab")
+    dev = torch.device("cuda", 0)
+    ep = pagerank_problem().make_row_update(g, None, dev)
+    x = engine.extend_frontier(np.full(g.n, 1.0 / g.n, np.float32), PLUS_TIMES, dev)
+    row = {"root": root}
+    for d in AB_DELTAS:
+        sched = engine.make_schedule(
+            g, P, None if d == "sync" else d, PLUS_TIMES, mode="sync" if d == "sync" else "delayed", device=dev
+        )
+        row[f"k1_{d}_ms"] = time_ms(lambda: ops.fused_round(x, sched, PLUS_TIMES, ep))
+        plan = engine_sharded.make_frontier_plan(sched, SHARDS)
+        x_loc = plan.scatter_x(x)
+        row[f"k2_{d}_ms"] = time_ms(lambda: ops.fused_halo_round(x_loc, None, sched, plan, PLUS_TIMES, ep))
+        del sched, plan, x_loc
+    idx, val = (torch.from_numpy(v).to(dev) for v in ops.ell_from_csr(g))
+    row["k3_ms"] = time_ms(lambda: ops.spmv(x, idx, val, "plus_times"))
+    print(json.dumps(row), flush=True)
+    return 0
+
+
+def ab(other: str, scale: int) -> int:
+    """The vector kernels of this checkout and of ``other`` (another
+    checkout, such as the parent commit's) on one card, in turns: other,
+    this, this, other, each in its own process on one twitter graph."""
+    import tempfile
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.graphs.generators import make_graph
+
+    log(f"[ab] card: {card_line()}")
+    t0 = time.perf_counter()
+    g = make_graph("twitter", scale=scale, efactor=EFACTOR, kind="pagerank")
+    log(f"[ab] twitter s{scale}: n={g.n} nnz={g.nnz}; generated in {time.perf_counter() - t0:.1f} s")
+    here = str(Path(__file__).resolve().parent)
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = str(Path(tmp) / "graph.npz")
+        np.savez(npz, n=g.n, indptr=g.indptr, indices=g.indices, values=g.values)
+        del g
+        for label, root in (("other", other), ("this", here), ("this", here), ("other", other)):
+            out = subprocess.run(
+                [sys.executable, str(Path(__file__).resolve()), "--time-vector", npz, root],
+                capture_output=True, text=True, timeout=900,
+            )
+            if out.returncode != 0:
+                log(out.stderr[-3000:])
+                return 1
+            row = json.loads(out.stdout.strip().splitlines()[-1])
+            log(f"[ab] {label} {json.dumps(row)}")
+    log(card_line())
+    return 0
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=SCALE, help="full-size graph scale")
-    scale = ap.parse_args().scale
+    ap.add_argument("--ab", metavar="CHECKOUT", help="only time the vector kernels against another checkout's")
+    ap.add_argument("--time-vector", nargs=2, metavar=("GRAPH_NPZ", "CHECKOUT"), help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    scale = args.scale
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.time_vector:
+        return time_vector(*args.time_vector)
+    if args.ab:
+        return ab(args.ab, scale)
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.core import engine
     from repro_torch.dist import engine_sharded
@@ -248,9 +356,11 @@ def main() -> int:
     from repro_torch.kernels.spmv_ell import spmv_ell_cuda
     from repro_torch.solve import (
         Solver,
+        label_propagation_problem,
         pagerank_problem,
         ppr_problem,
         ppr_teleport,
+        rwr_embedding_problem,
         sssp_problem,
     )
 
@@ -280,6 +390,17 @@ def main() -> int:
             "sssp": sssp_problem(source=hub),
         }, ppr_teleport(g_pr, [hub])[0]
 
+    def matrix_solvers(g):
+        """rwr and labelprop at F = 4 (the factories' default) on the twitter
+        graph ``g``: labelprop on its topology with unit edges (its
+        ``edge_values``), LABELPROP_ROUNDS rounds.  (A web graph of scale 22
+        takes over two minutes to generate on the card's host.)"""
+        lp = label_propagation_problem(max_rounds=LABELPROP_ROUNDS)
+        return {
+            "rwr": Solver(g, rwr_embedding_problem(), n_workers=P, n_shards=SHARDS),
+            "labelprop": Solver(g, lp, n_workers=P, n_shards=SHARDS),
+        }
+
     # ---------------------------------------------------------------- 2 ---
     max_abs_err = 0.0
     compare_launches = 0
@@ -300,6 +421,7 @@ def main() -> int:
         log(f"[2] {label}: S={sched.S} M={sched.M} max_abs_err={err} max_ulp={gap}")
         if not torch.equal(a, b):
             raise AssertionError(f"K1 disagrees with its plain version: {label}")
+        return err
 
     def compare_all(tag, solvers, q, rng, deltas):
         """K1 vs plain for every epilogue; ``deltas[name]`` lists the δ of each
@@ -324,6 +446,7 @@ def main() -> int:
         bit; one f32 round, and for plus-times three int8 and three fp8
         rounds, each wire from the same x and zero residuals."""
         nonlocal halo_err, compare_launches
+        worst = 0.0
         sr = solver.problem.semiring
         plan = solver.frontier_plan(sched)
         is_f32 = x_cpu.dtype == torch.float32
@@ -331,8 +454,9 @@ def main() -> int:
         p_dev = "cpu" if is_f32 else dev
         p_sched, p_plan, p_ep = on(sched, p_dev), on(plan, p_dev), epilogue.to(p_dev)
         for wire in engine_sharded.HALO_DTYPES if is_f32 else ("f32",):
-            want = (p_plan.scatter_x(x_cpu.to(p_dev)), engine_sharded.frontier_ef_init(p_plan))
-            got = (plan.scatter_x(x_cpu.to(dev)), engine_sharded.frontier_ef_init(plan))
+            feat = tuple(x_cpu.shape[1:])
+            want = (p_plan.scatter_x(x_cpu.to(p_dev)), engine_sharded.frontier_ef_init(p_plan, feat))
+            got = (plan.scatter_x(x_cpu.to(dev)), engine_sharded.frontier_ef_init(plan, feat))
             for k in range(1 if wire == "f32" else 3):
                 ref.fused_halo_round_ref(*want, p_sched, p_plan, sr, p_ep, wire)
                 fused_halo_round_cuda(*got, sched, plan, sr, epilogue.to(dev), wire)
@@ -343,12 +467,35 @@ def main() -> int:
                 err = max(err, float((ea.double() - eb.double()).abs().max().item()))
                 gap = ulp_gap(a, b) if is_f32 else 0
                 halo_err = max(halo_err, err)
+                worst = max(worst, err)
                 log(
                     f"[2] K2 {label} {wire} round {k + 1}: S={sched.S} D={plan.D} L={plan.L} "
                     f"H={plan.H} max_abs_err={err} max_ulp={gap} ef_max_ulp={ulp_gap(ea, eb)}"
                 )
                 if not (torch.equal(a, b) and torch.equal(ea, eb)):
                     raise AssertionError(f"K2 disagrees with its plain round: {label} {wire} round {k + 1}")
+        return worst
+
+    matrix_err = {"round_block": 0.0, "halo_round": 0.0}
+
+    def compare_matrix(tag, solvers, rng, deltas):
+        """K1, and K2 on the (D, L, F) layout (one f32 round, three int8 and
+        three fp8), at F = 4 against their plain versions, for each matrix
+        problem's own row update (rwr: add_table over its (n + 1, 4)
+        restart table; labelprop: its anchors) and schedule."""
+        for name, solver in solvers.items():
+            ep, sr = solver.row_update(), solver.problem.semiring
+            for d in deltas:
+                sched = solver.schedule(d)
+                x = rng.random((solver.graph.n + 1, solver.problem.feature_dim)).astype(np.float32)
+                if name == "labelprop":  # rows of zeros: totals of 0 keep old
+                    x[rng.random(x.shape[0]) < 0.2] = 0.0
+                x = torch.tensor(x)
+                label = f"{tag} {name} {ep.tag} F={x.shape[1]} δ={sched.delta}"
+                err = compare(label, sched, sr, ep, x)
+                matrix_err["round_block"] = max(matrix_err["round_block"], err)
+                err = compare_halo(label, solver, sched, ep, x)
+                matrix_err["halo_round"] = max(matrix_err["halo_round"], err)
 
     def compare_halo_all(tag, solvers, q, rng, deltas):
         pr, ss = solvers["pagerank"], solvers["sssp"]
@@ -381,8 +528,9 @@ def main() -> int:
         "sssp": Solver(hg_ss, h_probs["sssp"], n_workers=P, n_shards=SHARDS),
     }
     compare_halo_all(f"s{HALO_SCALE}", mid, h_q, rng, DELTAS)
+    compare_matrix(f"s{HALO_SCALE}", matrix_solvers(hg_pr), rng, ("sync", 128))
     del mid
-    log(f"[2] K2 at s{HALO_SCALE} done in {time.perf_counter() - t0:.1f} s")
+    log(f"[2] K2, and K1 and K2 at F = 4, at s{HALO_SCALE} done in {time.perf_counter() - t0:.1f} s")
 
     # the quantized halo's rounding must not depend on the device
     t0 = time.perf_counter()
@@ -580,6 +728,91 @@ def main() -> int:
             compare_halo(f"s{scale} sssp min_old δ={sp.delta}", solver, sp, solver.row_update(), x_i)
     log(f"[3] K2 vs plain at full size done in {time.perf_counter() - t0:.1f} s")
 
+    # the matrix path: rwr and labelprop (F = 4) on the same topology (labelprop
+    # with unit edges), replicated (K1) and halo (K2) at sync and δ*
+    t0 = time.perf_counter()
+    mfull = matrix_solvers(g_pr)
+    mstar = {}
+    for name, solver in mfull.items():  # set-up: the auto probe, schedules, plans
+        t1 = time.perf_counter()
+        mstar[name] = solver.resolve_delta("auto")
+        for d in ("sync", mstar[name]):
+            solver.frontier_plan(solver.schedule(d))
+        log(f"[3] matrix {name}: δ*={mstar[name]}, probes and plans in {time.perf_counter() - t1:.1f} s")
+    fused_round_cuda.launches = 0
+    fused_halo_round_cuda.launches = 0
+    matrix_rows = []
+    for name, solver in mfull.items():
+        for d in ("sync", mstar[name]):
+            rep = None
+            for frontier in ("replicated", "halo"):
+                before = (fused_round_cuda.launches, fused_halo_round_cuda.launches)
+                t1 = time.perf_counter()
+                r = solver.solve(delta=d, frontier=frontier)
+                secs = time.perf_counter() - t1
+                k1 = fused_round_cuda.launches - before[0]
+                k2 = fused_halo_round_cuda.launches - before[1]
+                row = {
+                    "problem": name,
+                    "F": int(r.x.shape[1]),
+                    "frontier": frontier,
+                    "delta": r.delta,
+                    "S": r.flushes // r.rounds,
+                    "rounds": r.rounds,
+                    "converged": r.converged,
+                    "flushes": r.flushes,
+                    "flush_bytes": r.flush_bytes,
+                    "total_s": secs,
+                    "rounds_s": r.total_time_s,
+                    "ms_per_round": r.total_time_s / r.rounds * 1e3,
+                    "last_residual": r.residuals[-1],
+                    "k1_launches": k1,
+                    "k2_launches": k2,
+                }
+                if frontier == "replicated":
+                    rep = r
+                else:
+                    row["equals_replicated"] = (
+                        (r.rounds, r.flushes, r.flush_bytes) == (rep.rounds, rep.flushes, rep.flush_bytes)
+                        and np.array_equal(r.x, rep.x)
+                    )
+                matrix_rows.append(row)
+                log(f"[3] matrix solve {json.dumps(row)}")
+                want = (r.rounds, 0) if frontier == "replicated" else (0, r.rounds)
+                if (k1, k2) != want:
+                    raise AssertionError(f"the matrix solve did not launch its kernel once a round: {row}")
+                if not (r.x.shape == (solver.graph.n, 4) and np.isfinite(r.x).all()):
+                    raise AssertionError(f"matrix solve did not give finite (n, 4) values: {row}")
+                if name == "rwr" and not r.converged:
+                    raise AssertionError(f"the rwr solve did not converge: {row}")
+                if frontier == "halo" and not row["equals_replicated"]:
+                    raise AssertionError(f"the f32 halo matrix solve differs from the replicated one: {row}")
+    matrix_launches = {"round_block": fused_round_cuda.launches, "halo_round": fused_halo_round_cuda.launches}
+    if min(matrix_launches.values()) == 0:
+        raise AssertionError(f"the matrix path missed a kernel: {matrix_launches}")
+    log(f"[3] matrix path: {matrix_launches} launches; done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    compare_matrix(f"s{scale}", mfull, rng, ("sync",))
+    for name, solver in mfull.items():
+        compare_matrix(f"s{scale}", {name: solver}, rng, (mstar[name],))
+    s_mat = matrix_solvers(sg_pr)
+    for name, solver in s_mat.items():
+        plain = Solver(solver.graph, solver.problem, n_workers=P, n_shards=SHARDS, device="cpu")
+        for frontier in ("replicated", "halo"):
+            card_r = solver.solve(delta="async", frontier=frontier)
+            cpu_r = plain.solve(delta="async", frontier=frontier)
+            same = (card_r.rounds, card_r.flush_bytes) == (cpu_r.rounds, cpu_r.flush_bytes) and np.array_equal(
+                card_r.x, cpu_r.x
+            )
+            log(
+                f"[3] s{SMALL_SCALE} {name} {frontier} kernel vs plain (cpu): "
+                f"rounds {card_r.rounds}/{cpu_r.rounds} same={same}"
+            )
+            if not same:
+                raise AssertionError(f"matrix kernel solve differs from the plain solve: {name} {frontier}")
+    log(f"[3] F = 4 kernels vs plain at full size, small parity: done in {time.perf_counter() - t0:.1f} s")
+
     # ---------------------------------------------------------------- 4 ---
     t0 = time.perf_counter()
     timings = []
@@ -594,7 +827,7 @@ def main() -> int:
             no_edges = dataclasses.replace(sched, row_ptr=torch.zeros_like(sched.row_ptr))
             e_ms = time_ms(lambda: ops.fused_round(x, no_edges, sr, ep))
             plain = engine.round_fn(sched, sr, ep)
-            p_ms = time_ms(lambda: plain(x), budget_s=0.2, max_iters=5)
+            p_ms = time_ms(lambda: plain(x), budget_s=0.2, max_iters=5, min_iters=1)
             b_ms, b_by = round_bound(sched, None)
             lib_ms = None
             if name == "pagerank" and d == "auto":  # S library calls, one a step
@@ -671,7 +904,7 @@ def main() -> int:
                 ef = engine_sharded.frontier_ef_init(plan)
                 wire_ms[wire] = time_ms(lambda: k2(wire=wire, ef=ef))
         x_plain = plan.scatter_x(x)
-        p_ms = time_ms(lambda: ref.fused_halo_round_ref(x_plain, None, sched, plan, sr, ep), 0.2, 5)
+        p_ms = time_ms(lambda: ref.fused_halo_round_ref(x_plain, None, sched, plan, sr, ep), 0.2, 5, 1)
         del x_plain
         b_ms, b_by = halo_round_bound(sched, plan, ep.tag, "f32")
         rnd = engine_sharded.frontier_kernel_round_ext_fn(sched, plan, sr, ep)
@@ -706,6 +939,74 @@ def main() -> int:
         del x_loc, rnd, ef0
     torch.cuda.synchronize()
     log(f"[4] K2 done in {time.perf_counter() - t0:.1f} s")
+
+    # K1 and K2 at F = 4: rwr and labelprop at sync and δ*
+    t0 = time.perf_counter()
+    matrix_timings = []
+    for name, solver in mfull.items():
+        sr, ep = solver.problem.semiring, solver.row_update()
+        edge_values = solver.problem.edge_values  # the graph the schedules are built from
+        g = solver.graph.with_values(edge_values(solver.graph)) if edge_values else solver.graph
+        x = engine.extend_frontier(solver.problem.x0(solver.graph), sr, dev)
+        F = x.shape[1]
+        X = x[:-1].contiguous()
+        for d in ("sync", mstar[name]):
+            sched = solver.schedule(d)
+            k1_ms = time_ms(lambda: ops.fused_round(x, sched, sr, ep))
+            plain = engine.round_fn(sched, sr, ep)
+            p1_ms = time_ms(lambda: plain(x), budget_s=0.2, max_iters=3)
+            b1_ms, b1_by = round_bound(sched, True, F)
+            if d == "sync":  # one library call over the whole CSR
+                A = torch.sparse_csr_tensor(
+                    torch.tensor(g.indptr, device=dev),
+                    torch.tensor(g.indices.astype(np.int64), device=dev),
+                    torch.tensor(g.values, device=dev),
+                    size=(g.n, g.n),
+                )
+                lib_ms = time_ms(lambda: torch.sparse.mm(A, X))
+                del A
+            else:  # S library calls, one a commit step's rows
+                mats = step_blocks(g, sched, dev)
+                lib_ms = time_ms(lambda: [torch.sparse.mm(A, X) for A in mats])
+                del mats
+            plan = solver.frontier_plan(sched)
+            x_loc = plan.scatter_x(x)
+            k2_ms = time_ms(lambda: ops.fused_halo_round(x_loc, None, sched, plan, sr, ep))
+            rnd = engine_sharded.frontier_kernel_round_ext_fn(sched, plan, sr, ep)
+            ef0 = engine_sharded.frontier_ef_init(plan, (F,))
+            halo_ms = time_ms(lambda: rnd(x, ef0))
+            del rnd, ef0
+            ef = engine_sharded.frontier_ef_init(plan, (F,))
+            int8_ms = time_ms(lambda: ops.fused_halo_round(x_loc, ef, sched, plan, sr, ep, "int8"))
+            x_plain = plan.scatter_x(x)
+            p2_ms = time_ms(lambda: ref.fused_halo_round_ref(x_plain, None, sched, plan, sr, ep), 0.2, 3)
+            b2_ms, b2_by = halo_round_bound(sched, plan, ep.tag, "f32", F)
+            del x_loc, x_plain, ef
+            row = {
+                "problem": name,
+                "tag": ep.tag,
+                "F": F,
+                "delta": sched.delta,
+                "S": sched.S,
+                "k1_ms": k1_ms,
+                "k1_plain_ms": p1_ms,
+                "k1_bound_ms": b1_ms,
+                "k1_bound_by": b1_by,
+                "k1_share_of_bound": b1_ms / k1_ms,
+                "library_ms": lib_ms,
+                "k2_ms": k2_ms,
+                "k2_int8_ms": int8_ms,
+                "k2_plain_ms": p2_ms,
+                "k2_bound_ms": b2_ms,
+                "k2_bound_by": b2_by,
+                "k2_share_of_bound": b2_ms / k2_ms,
+                "k2_over_k1": k2_ms / k1_ms,
+                "halo_round_ms": halo_ms,
+            }
+            matrix_timings.append(row)
+            log(f"[4] F=4 timing {json.dumps(row)}")
+    torch.cuda.synchronize()
+    log(f"[4] K1 and K2 at F = 4 done in {time.perf_counter() - t0:.1f} s")
 
     # K3: the ELL SpMV through its entry point, on the full-size graph's ELL
     t0 = time.perf_counter()
@@ -814,6 +1115,32 @@ def main() -> int:
                 "bound_ms": halo_timings[0]["bound_ms"],
                 "bound_by": halo_timings[0]["bound_by"],
                 "library_ms": halo_timings[0]["library_ms"],
+            },
+            {
+                "name": "round_block_f4",
+                "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/round_block.cu",
+                "replaces": "src/repro/kernels/round_block.py:114",
+                "launches": matrix_launches["round_block"],
+                "max_abs_err": matrix_err["round_block"],
+                "ms": matrix_timings[0]["k1_ms"],
+                "plain_ms": matrix_timings[0]["k1_plain_ms"],
+                "bound_ms": matrix_timings[0]["k1_bound_ms"],
+                "bound_by": matrix_timings[0]["k1_bound_by"],
+                "library_ms": matrix_timings[0]["library_ms"],
+            },
+            {
+                "name": "halo_round_f4",
+                "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/round_block.cu",
+                "replaces": "src/repro/kernels/round_block.py:204",
+                "launches": matrix_launches["halo_round"],
+                "max_abs_err": matrix_err["halo_round"],
+                "ms": matrix_timings[0]["k2_ms"],
+                "plain_ms": matrix_timings[0]["k2_plain_ms"],
+                "bound_ms": matrix_timings[0]["k2_bound_ms"],
+                "bound_by": matrix_timings[0]["k2_bound_by"],
+                "library_ms": matrix_timings[0]["library_ms"],
             },
             {
                 "name": "spmv_ell",

@@ -11,8 +11,10 @@ from repro_torch.solve import (
     Solver,
     cc_problem,
     jacobi_problem,
+    label_propagation_problem,
     pagerank_problem,
     ppr_problem,
+    rwr_embedding_problem,
     sssp_problem,
 )
 
@@ -21,7 +23,9 @@ __all__ = [
     "Solver",
     "cc_problem",
     "jacobi_problem",
+    "label_propagation_problem",
     "pagerank_problem",
     "ppr_problem",
+    "rwr_embedding_problem",
     "sssp_problem",
 ]

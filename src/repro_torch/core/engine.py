@@ -12,7 +12,10 @@ This is a deterministic block Gauss–Seidel schedule with commit period δ:
 
 :func:`round_fn` is the plain PyTorch round; the CUDA kernel
 (:mod:`repro_torch.kernels.round_block`) computes the same round in one
-launch.  Every function takes its tensors on an explicit device.
+launch.  Every function takes its tensors on an explicit device.  The
+frontier is a vector ``(n+1,)`` or a matrix ``(n+1, F)`` (F independent
+columns sharing the schedule); for a vector every feature-axis reshape here
+is the identity, so the vector round is unchanged.
 """
 
 from __future__ import annotations
@@ -45,9 +48,11 @@ MIN_CHUNK = 128
 
 
 def extend_frontier(x0, semiring: Semiring, device) -> torch.Tensor:
-    """Append the padding-dump slot: ``(n,) → (n+1,)``, dump = ⊕-identity."""
+    """Append the padding-dump slot: ``(n,)+feat → (n+1,)+feat``, the dump
+    row filled with the ⊕-identity.  The frontier is a vector ``(n,)`` or a
+    matrix ``(n, F)``."""
     x0 = torch.tensor(np.asarray(x0, dtype=semiring.dtype), device=device)
-    pad = torch.full((1,), semiring.zero.item(), dtype=x0.dtype, device=device)
+    pad = torch.full((1,) + x0.shape[1:], semiring.zero.item(), dtype=x0.dtype, device=device)
     return torch.cat([x0, pad])
 
 
@@ -186,18 +191,22 @@ def make_schedule(
 
 
 def chunk_reduce(x, src_s, val_s, dst_s, delta: int, semiring: Semiring):
-    """``(P, δ)``: each worker's chunk of one commit step, ⊕ over its edges.
+    """``(P, δ)+feat``: each worker's chunk of one commit step, ⊕ over its edges.
 
-    Gathers ``x[src_s]``, applies ⊗ with ``val_s`` and runs a per-worker
-    segment-⊕ into ``δ + 1`` slots (the last is the padding dump, dropped).
+    Gathers ``x[src_s]``, applies ⊗ with ``val_s`` (one weight per edge,
+    broadcast over the feature axis of a matrix frontier) and runs a
+    per-worker segment-⊕ into ``δ + 1`` slots (the last is the padding dump,
+    dropped).
     """
     P = src_s.shape[0]
-    contrib = semiring.mul(x[src_s], val_s)  # (P, M)
+    feat = tuple(x.shape[1:])  # () for a vector frontier, (F,) for a matrix
+    val_b = val_s.reshape(tuple(val_s.shape) + (1,) * len(feat))
+    contrib = semiring.mul(x[src_s], val_b)  # (P, M)+feat
     offs = torch.arange(P, dtype=torch.int32, device=x.device) * (delta + 1)
     seg = dst_s + offs[:, None]
     return semiring.segment_reduce(
-        contrib.reshape(-1), seg.reshape(-1), P * (delta + 1)
-    ).reshape(P, delta + 1)[:, :delta]
+        contrib.reshape((-1,) + feat), seg.reshape(-1), P * (delta + 1)
+    ).reshape((P, delta + 1) + feat)[:, :delta]
 
 
 def _commit_step(s: int, x_ext, sched: DeviceSchedule, semiring: Semiring, row_update):
@@ -213,7 +222,7 @@ def _commit_step(s: int, x_ext, sched: DeviceSchedule, semiring: Semiring, row_u
     new = row_update(x_ext[rows_s], reduced, rows_s)
     # Publish: the flush.  Padding rows all land on the dump slot (index n),
     # whose value is unspecified.
-    x_ext[rows_s.reshape(-1)] = new.reshape(-1).to(x_ext.dtype)
+    x_ext[rows_s.reshape(-1)] = new.reshape((-1,) + tuple(x_ext.shape[1:])).to(x_ext.dtype)
 
 
 def round_fn(sched: DeviceSchedule, semiring: Semiring, row_update) -> Callable:
@@ -234,7 +243,7 @@ def round_fn(sched: DeviceSchedule, semiring: Semiring, row_update) -> Callable:
 
 @dataclasses.dataclass
 class EngineResult:
-    x: np.ndarray  # (n,) converged vertex values
+    x: np.ndarray  # (n,)+feat converged vertex values
     rounds: int
     converged: bool
     flushes: int  # total commit steps executed
@@ -263,9 +272,10 @@ class EngineResult:
         """Single authority for the counters, as in the reference.
 
         ``flushes`` counts commit steps executed, ``rounds·S``, including the
-        round that detected convergence; every flush publishes ``P·δ`` rows.
+        round that detected convergence; every flush publishes ``P·δ`` rows
+        of ``F`` values each (``F = 1`` for a vector frontier).
         """
-        bytes_per = np.dtype(semiring.dtype).itemsize
+        bytes_per = np.dtype(semiring.dtype).itemsize * int(np.prod(tuple(x_ext.shape[1:])))
         flushes = rounds * sched.S
         if total_time_s is None:
             total_time_s = float(np.sum(round_times_s)) if round_times_s else 0.0

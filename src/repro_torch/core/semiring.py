@@ -45,15 +45,23 @@ class Semiring:
 
 
 def _segment_sum(vals, seg_ids, num):
-    """Leading-axis segment-⊕ for plus-times; empty segments read 0."""
+    """Leading-axis segment-⊕ for plus-times; empty segments read 0.
+    Trailing feature axes ride along: an ``(m, F)`` input is summed one
+    column at a time (a vector ``index_add_`` runs a tight loop on the CPU,
+    a matrix one a tensor op per index), in the same index order."""
+    if vals.dim() == 2:
+        cols = [_segment_sum(vals[:, f].contiguous(), seg_ids, num) for f in range(vals.shape[1])]
+        return torch.stack(cols, dim=1)
     out = torch.zeros((num,) + vals.shape[1:], dtype=vals.dtype, device=vals.device)
     return out.index_add_(0, seg_ids, vals)
 
 
 def _segment_min(vals, seg_ids, num):
-    """Leading-axis segment-⊕ for min-plus; empty segments read int32 max."""
-    out = torch.full((num,), int(INT32_MAX), dtype=vals.dtype, device=vals.device)
-    return out.scatter_reduce_(0, seg_ids.long(), vals, "amin", include_self=True)
+    """Leading-axis segment-⊕ for min-plus; empty segments read int32 max.
+    Trailing feature axes ride along, as in :func:`_segment_sum`."""
+    out = torch.full((num,) + vals.shape[1:], int(INT32_MAX), dtype=vals.dtype, device=vals.device)
+    idx = seg_ids.long().reshape((-1,) + (1,) * (vals.dim() - 1)).expand_as(vals)
+    return out.scatter_reduce_(0, idx, vals, "amin", include_self=True)
 
 
 PLUS_TIMES = Semiring(

@@ -11,8 +11,10 @@ halo copy of (:class:`FrontierPlan`).  A halo copy always holds its owner's
 last committed value, which is what the replicated round reads, so an f32
 halo round equals :func:`repro_torch.core.engine.round_fn` bit for bit.
 
-All ``D`` shards live on the solver's one device, stacked as ``(D, L)``, as
-the reference's tests put ``D`` fake devices on one CPU.  The exchange
+All ``D`` shards live on the solver's one device, stacked as ``(D, L)``
+(``(D, L, F)`` for a matrix frontier, whose quantized wire keeps one scale
+per feature column), as the reference's tests put ``D`` fake devices on one
+CPU.  The exchange
 between commit steps is, in the plain round, one function,
 :func:`halo_exchange` (the counterpart of ``jax.lax.all_gather(...,
 tiled=True)`` followed by each shard's scatter into its halo slots); the
@@ -115,6 +117,10 @@ class FrontierPlan:
     recv_idx: torch.Tensor  # (S, D, D·H) int32 into the local frontier
     gather_index: torch.Tensor  # (D, L) int32 — global slot of each local slot
     owned_flat: torch.Tensor  # (n,) int32 — flat (D·L) slot owning each vertex
+    # (S, D) int32 — per (step, receiving shard) the last recv_idx entry that
+    # lands in the dump slot (-1: none): the value a sequential exchange
+    # leaves there, which K2's quantized wire writes
+    dump_last: torch.Tensor
 
     def halo_bytes_per_round(self, bytes_per_elem: int = 4) -> int:
         """Bytes each shard receives a round from the halo exchanges."""
@@ -125,17 +131,40 @@ class FrontierPlan:
         return self.S * self.D * self.P_loc * self.delta * bytes_per_elem
 
     def scatter_x(self, x_ext) -> torch.Tensor:
-        """Replicated ``(n + 1,)`` frontier → stacked ``(D, L)`` local view."""
-        return x_ext[self.gather_index]
+        """Replicated ``(n + 1,)+feat`` frontier → stacked ``(D, L)+feat``
+        local view."""
+        return _take_rows(x_ext, self.gather_index)
 
     def gather_x(self, x_loc, dump=None) -> torch.Tensor:
-        """Stacked ``(D, L)`` local view → ``(n + 1,)`` global frontier.
+        """Stacked ``(D, L)+feat`` local view → ``(n + 1,)+feat`` global
+        frontier.
 
-        The dump slot is ``dump`` if given, else the last local slot."""
-        flat = x_loc.reshape(-1)
+        The dump row is ``dump`` if given, else the last local slot's."""
+        flat = x_loc.reshape((-1,) + tuple(x_loc.shape[2:]))
         if dump is None:
             dump = flat[-1:]
-        return torch.cat([flat[self.owned_flat], dump])
+        return torch.cat([_take_rows(flat, self.owned_flat), dump])
+
+
+# One element of these dtypes holds a whole 4-, 8- or 16-byte row.
+_ROW_DTYPES = {4: torch.int32, 8: torch.int64, 16: torch.complex128}
+
+
+def _take_rows(x, idx) -> torch.Tensor:
+    """``x[idx]`` for the rows of ``x`` (``(m,)+feat``): ``idx.shape+feat``.
+
+    A matrix row of 4, 8 or 16 bytes (F = 4 float32 values: 16) is gathered
+    as one element of a dtype that wide, a bit-exact copy: indexing the rows
+    of an ``(m, F)`` tensor, or ``index_select`` on it, runs tens of times
+    slower on the card than indexing a vector of as many bytes, and made a
+    matrix halo round's scatter and gather several times its kernel.
+    """
+    feat = tuple(x.shape[1:])
+    wide = _ROW_DTYPES.get(x.element_size() * int(np.prod(feat)))
+    if not feat or wide is None or not x.is_contiguous():
+        return x[idx]
+    rows = x.reshape(x.shape[0], -1).view(wide)[:, 0]
+    return rows[idx].view(x.dtype).reshape(tuple(idx.shape) + feat)
 
 
 def plan_shard_bounds(sched: DeviceSchedule, n_shards: int) -> np.ndarray:
@@ -249,6 +278,10 @@ def assemble_frontier_plan(
         hit = (hit_slot >= 0) & (d_i != e)
         recv_idx[s_i[hit], e, d_i[hit] * H + k[hit]] = hit_slot[hit]
 
+    at_dump = recv_idx == dump
+    m = np.arange(D * H, dtype=np.int32)
+    dump_last = np.where(at_dump, m, -1).max(axis=2)
+
     gather_index = np.full((D, L), n, dtype=np.int32)  # unused slots → dump
     owned_flat = np.zeros(n, dtype=np.int32)
     for d in range(D):
@@ -276,6 +309,7 @@ def assemble_frontier_plan(
         recv_idx=t(recv_idx),
         gather_index=t(gather_index),
         owned_flat=t(owned_flat),
+        dump_last=t(dump_last.astype(np.int32)),
     )
 
 
@@ -299,7 +333,7 @@ def frontier_sharded_round_fn(
     sched: DeviceSchedule, plan: FrontierPlan, semiring: Semiring, row_update
 ) -> Callable:
     """The plain owner-computes round ``x_loc -> x_loc`` over the stacked
-    ``(D, L)`` frontier, in place.  ``row_update(old, reduced, rows)`` sees
+    ``(D, L)+feat`` frontier, in place.  ``row_update(old, reduced, rows)`` sees
     global rows."""
     _check_plan(sched, plan)
     return lambda x_loc: ref.fused_halo_round_ref(x_loc, None, sched, plan, semiring, row_update)[0]
@@ -344,7 +378,8 @@ def frontier_kernel_round_ext_fn(
     halo_dtype: str = "f32",
 ) -> Callable:
     """Global-frontier view of the K2 round: ``(x_ext, ef) -> (x_ext, ef)``,
-    out of place, with the error-feedback residuals threaded through."""
+    out of place, with the error-feedback residuals threaded through (``ef``
+    from :func:`frontier_ef_init` with the frontier's ``feat``)."""
     rnd = frontier_kernel_round_fn(sched, plan, semiring, row_update, halo_dtype)
 
     def fn(x_ext, ef):

@@ -19,12 +19,44 @@
 // so step s reads every commit of the steps before it and none of its own:
 // the block Gauss-Seidel order of src/repro/core/engine.py::_commit_step.
 //
+// The frontier is a vector (n+1,) or a matrix (n+1, F), row-major: a
+// vertex's F values are one row, and acc, the epilogue and the publish work
+// on rows.  Every feature's sum is the vector kernel's sum of that column
+// (edge order, one edge weight for all F).  Which code an F reaches:
+//   F = 1        the vector kernel's code (kF = 1): 4-B gathers;
+//   F = 2, 4, 8  kF = F: one 8-B (F = 2) or 16-B (F = 4; two for F = 8)
+//                load a gathered row, the edges staged once for all F,
+//                F accumulators in registers;
+//   any other F  kF = 0: a loop over blocks of kFeatBlock = 4 columns; each
+//                block walks the tile's edges again with scalar gathers and
+//                leaves its raw sums in scratch, and the epilogue then runs
+//                over the whole row from scratch.  Labelprop at F = 1 runs
+//                here too, so the vector build carries no labelprop code.
+// The wrapper checks that an F = 2/4/8 frontier (and table) starts at a
+// multiple of the vector width; rows then stay aligned.
+//
+// Epilogues (tags as in repro_torch/kernels/round_block.py::TAG_CODES):
+// add_const c + acc, add_table table[row] + acc, min_old min(old, acc), and
+// labelprop, label propagation's row update:
+//   total = ((acc_0 + acc_1) + acc_2) + ...   (left to right, __fadd_rn)
+//   prop_f = total > 0 ? fma(mix, acc_f / total, (1 - mix) * old_f) : old_f
+//   new_f  = sum of the anchor row > 0 ? anchor_f : prop_f
+// The reference writes mix * (reduced / safe) + (1 - mix) * old; XLA
+// contracts that into one FMA (fma(mix, q, fl((1 - mix) * old))), and
+// jnp.sum adds F columns left to right, so the finish does the same: an
+// IEEE division (__fdiv_rn), the product rounded (__fmul_rn), and one
+// __fmaf_rn.  mix and 1 - mix arrive as float32 values rounded from the
+// Python doubles.  The build passes --fmad=false, so nothing else fuses.
+//
 // Bound on the H100: bytes.  A round must read each real edge's src index and
-// value once (8 B an edge) and read and write the frontier once: for twitter
-// scale 22 (64.3 M edges, 4.2 M rows) about 0.55 GB, 0.16 ms at 3.35 TB/s.
-// At fine delta the fixed cost of a commit step dominates instead: the 2*S
-// grid barriers (8,198 a round at delta = 128) and one step's latency chain
-// (PERF.md).  That is this card's form of the paper's commit-cost trade-off.
+// value once (8 B an edge) and read and write the frontier once (F values a
+// row, and an add_table/labelprop table of F values a row once): for twitter
+// scale 22 (64.3 M edges, 4.2 M rows) about 0.55 GB at F = 1, 0.16 ms at
+// 3.35 TB/s, and 0.65 GB at F = 4 (0.19 ms; 0.72 GB and 0.21 ms with a
+// table).  At fine delta the fixed cost of a commit step dominates instead:
+// the 2*S grid barriers (8,198 a round at delta = 128) and one step's
+// latency chain (PERF.md).  That is this card's form of the paper's
+// commit-cost trade-off.
 //
 // Design: tiles, staged edges, rows folded in order.  The schedule keeps a
 // cell's edges grouped by local row with the padding last
@@ -34,25 +66,26 @@
 // (stage_fold, which K2 shares):
 //   stage  every thread loads 4 of the chunk's src and val (neighbouring
 //          threads on neighbouring edges, streamed past L1 with
-//          ld.global.cs so they leave it to x), gathers their x (4
+//          ld.global.cs so they leave it to x), gathers their x rows (4
 //          independent loads in flight a thread, not one dependent chain a
-//          row), and writes the products to shared memory;
+//          row), and writes the products (F a row) to shared memory;
 //   fold   the thread that owns row r adds the chunk's products of its row
-//          in edge order from shared memory, carrying the sum from chunk to
-//          chunk.
+//          in edge order from shared memory, one sum a feature, carrying
+//          the sums from chunk to chunk.
 // The sum is thus the plain round's (edge order from the (+)-identity, no
 // float atomics) bit for bit: plus-times starts at 0.0f with
 // __fmul_rn/__fadd_rn (the build passes --fmad=false); min-plus starts at
 // int32 max (what an empty jax segment_min reads) and computes
 // min(x + val, INT_INF) with a wrapping int32 add.  Each row's epilogue
-// operand (the table entry, or min-plus's old value) is loaded beside its
-// edge range, before the walk, not after it.  The price of the order is the
-// fold: one thread adds a row's products serially, so a row longer than a
-// chunk (a hub's in-edges, on a skewed graph) is folded by one thread over
-// many chunks while the block's other threads wait at the barrier; on
-// twitter scale 22 no row has more than 38 edges, and the fold is a few
-// percent of the walk (PERF.md).  What is left bounds the walk: the random
-// 4-B gathers of x, each an L2 sector of 32 B where L1 misses.
+// operands (the table row, or the old row) are loaded beside its edge range,
+// before the walk, not after it.  The price of the order is the fold: one
+// thread adds a row's products serially, so a row longer than a chunk (a
+// hub's in-edges, on a skewed graph) is folded by one thread over many
+// chunks while the block's other threads wait at the barrier; on twitter
+// scale 22 no row has more than 38 edges, and the fold is a few percent of
+// the walk (PERF.md).  What is left bounds the walk: the random gathers of
+// x, each an L2 sector of 32 B where L1 misses (a 4-B value at F = 1, a
+// 16-B row at F = 4).
 //
 // Tile size by delta: a step has P*delta rows.  R is that over the blocks
 // that fit on the card at once (clamped to [8, 256] rows), so at delta = 128
@@ -60,7 +93,8 @@
 // sync and delta* a tile is about one per resident block and step.  The grid
 // is at most what is co-resident, which a cooperative launch needs; the
 // occupancy query runs once per kernel and device.  The staging buffer is
-// static shared memory, which that query counts itself (no dynamic size).
+// static shared memory (kChunk rows of F products), which that query counts
+// itself (no dynamic size).
 //
 // Loads of x go through L1 (ld.global.ca), where the hot sources
 // (out-degree up to 2.67 M) stay within a step.  Other blocks write x
@@ -88,23 +122,129 @@ constexpr int32_t kIntInf = (1 << 30) - 1;
 constexpr int32_t kInt32Max = 0x7fffffff;
 
 // Epilogue tags (must match repro_torch/kernels/round_block.py::TAG_CODES).
-constexpr int kAddConst = 0;  // c + acc            (pagerank)
-constexpr int kAddTable = 1;  // table[row] + acc   (ppr's q, jacobi's b/diag)
-constexpr int kMinOld = 2;    // min(old, acc)      (sssp, cc)
+constexpr int kAddConst = 0;   // c + acc              (pagerank)
+constexpr int kAddTable = 1;   // table[row] + acc     (ppr's q, jacobi's b/diag, rwr)
+constexpr int kMinOld = 2;     // min(old, acc)        (sssp, cc)
+constexpr int kLabelprop = 3;  // the blend above      (label propagation)
 
-// The epilogue is split: its operand is loaded beside the row's edge range,
-// before the row is summed, and finish() applies it to the sum.
+// Columns a pass of the walk takes: kF, or kFeatBlock for any other F.
+constexpr int kFeatBlock = 4;
+template <int kF>
+constexpr int kPassCols = kF > 0 ? kF : kFeatBlock;
+
+// Vector types of a row's load or store (float and int32 rows alike).
+template <class T> struct Vec;
+template <> struct Vec<float> { using v2 = float2; using v4 = float4; };
+template <> struct Vec<int32_t> { using v2 = int2; using v4 = int4; };
+
+// How a row is read: through L1 (gathers of x), through L2 only (min-plus's
+// old, which this step's publish will overwrite), or plainly (tables).
+enum Via { kCa, kCg, kPlain };
+
+template <Via kVia, class V>
+__device__ __forceinline__ V ld(const V* p) {
+  if constexpr (kVia == kCa) return __ldca(p);
+  else if constexpr (kVia == kCg) return __ldcg(p);
+  else return *p;
+}
+
+// Loads N values of a row at p: as vectors when kVec (N = F = 2, 4 or 8,
+// p aligned to the vector), else the first fn of them one by one (the rest
+// read as zero).
+template <int N, bool kVec, Via kVia, class T>
+__device__ __forceinline__ void load_row(const T* p, T (&out)[N], int fn) {
+  if constexpr (kVec && N == 2) {
+    const auto v = ld<kVia>(reinterpret_cast<const typename Vec<T>::v2*>(p));
+    out[0] = v.x;
+    out[1] = v.y;
+  } else if constexpr (kVec && N % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < N; j += 4) {
+      const auto v = ld<kVia>(reinterpret_cast<const typename Vec<T>::v4*>(p + j));
+      out[j] = v.x;
+      out[j + 1] = v.y;
+      out[j + 2] = v.z;
+      out[j + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < N; ++j) out[j] = (kVec || j < fn) ? ld<kVia>(p + j) : T();
+  }
+}
+
+// Stores the first fn of N values of a row at p (all N, as vectors, when kVec).
+template <int N, bool kVec, class T>
+__device__ __forceinline__ void store_row(T* p, const T (&v)[N], int fn) {
+  if constexpr (kVec && N == 2) {
+    typename Vec<T>::v2 w;
+    w.x = v[0];
+    w.y = v[1];
+    *reinterpret_cast<typename Vec<T>::v2*>(p) = w;
+  } else if constexpr (kVec && N % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < N; j += 4) {
+      typename Vec<T>::v4 w;
+      w.x = v[j];
+      w.y = v[j + 1];
+      w.z = v[j + 2];
+      w.w = v[j + 3];
+      *reinterpret_cast<typename Vec<T>::v4*>(p + j) = w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      if (kVec || j < fn) p[j] = v[j];
+    }
+  }
+}
+
+// Copies a row of F values (kF of them as vectors; F one by one when kF = 0).
+template <int kF, class T>
+__device__ __forceinline__ void copy_row(T* dst, const T* src, int F) {
+  if constexpr (kF > 0) {
+    T v[kF];
+    load_row<kF, true, kPlain>(src, v, kF);
+    store_row<kF, true>(dst, v, kF);
+  } else {
+    for (int f = 0; f < F; ++f) dst[f] = src[f];
+  }
+}
+
+// The epilogue is split: its operands (the table row, the old row) are
+// loaded beside the row's edge range, before the row is summed, and finish()
+// applies them to the sums.  finish() takes a row of `cols` values: N when
+// N > 0 (registers), else fn (a row in memory; out may be acc).
 struct PlusTimes {
   using T = float;
   __device__ static T zero() { return 0.0f; }
   __device__ static T mul(T x, T a) { return __fmul_rn(x, a); }
   __device__ static T add(T acc, T v) { return __fadd_rn(acc, v); }
-  // at: the global row id (the table's index)
-  __device__ static T operand(int tag, const T*, int at, const T* table) {
-    return tag == kAddTable ? table[at] : 0.0f;
-  }
-  __device__ static T finish(int tag, T operand, T acc, T c) {
-    return tag == kAddConst ? __fadd_rn(c, acc) : __fadd_rn(operand, acc);
+  __device__ static bool wants_table(int tag) { return tag == kAddTable || tag == kLabelprop; }
+  __device__ static bool wants_old(int tag) { return tag == kLabelprop; }
+  template <int N>
+  __device__ static void finish(int tag, const T* acc, const T* tab, const T* old, T c,
+                                float mix, float one_minus_mix, int fn, T* out) {
+    const int cols = N > 0 ? N : fn;
+    // the vector build (N = 1) leaves labelprop out: an (n+1, 1) labelprop
+    // frontier runs the feature-block build (round_block_launch)
+    if (N != 1 && tag == kLabelprop) {
+      T total = acc[0], mass = tab[0];
+#pragma unroll
+      for (int j = 1; j < cols; ++j) {
+        total = __fadd_rn(total, acc[j]);
+        mass = __fadd_rn(mass, tab[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < cols; ++j) {
+        const T prop = total > 0.0f
+                           ? __fmaf_rn(mix, __fdiv_rn(acc[j], total), __fmul_rn(one_minus_mix, old[j]))
+                           : old[j];
+        out[j] = mass > 0.0f ? tab[j] : prop;
+      }
+      return;
+    }
+#pragma unroll
+    for (int j = 0; j < cols; ++j) out[j] = tag == kAddConst ? __fadd_rn(c, acc[j]) : __fadd_rn(tab[j], acc[j]);
   }
 };
 
@@ -116,17 +256,22 @@ struct MinPlus {
     return s < kIntInf ? s : kIntInf;
   }
   __device__ static T add(T acc, T v) { return v < acc ? v : acc; }
-  // at: the row's slot in x (old)
-  __device__ static T operand(int, const T* x, int at, const T*) {
-    return __ldcg(x + at);
+  __device__ static bool wants_table(int) { return false; }
+  __device__ static bool wants_old(int) { return true; }
+  template <int N>
+  __device__ static void finish(int, const T* acc, const T*, const T* old, T, float, float,
+                                int fn, T* out) {
+    const int cols = N > 0 ? N : fn;
+#pragma unroll
+    for (int j = 0; j < cols; ++j) out[j] = acc[j] < old[j] ? acc[j] : old[j];
   }
-  __device__ static T finish(int, T old, T acc, T) { return acc < old ? acc : old; }
 };
 
 constexpr int kChunk = 1024;  // edges a tile stages at once (4 a thread)
 constexpr int kMinTileRows = 8;
 constexpr int kMaxDevices = 64;
-constexpr int kMaxShards = 64;  // D of a halo launch (a block keeps D maxima)
+constexpr int kMaxShards = 64;   // D of a halo launch
+constexpr int kMaxScales = 512;  // D * F of a quantized halo launch (a block keeps D*F maxima)
 // K2 asks for K1's occupancy: at 76 registers (its f32 build's own choice)
 // 3 blocks fit an SM, at 64 four, and the round is faster (PERF.md).
 constexpr int kHaloBlocksPerSm = 4;
@@ -138,27 +283,32 @@ __device__ __forceinline__ float clamp_nan(float v, float lo, float hi) {
 
 // The tile walk of K1 and K2: the block's tile is the edge run [t0, t1) of
 // src and val, grouped by row; this thread's row (if it owns one) is the
-// part [e0, e1).  The run is staged kChunk edges at a time: every thread
-// loads 4 of the chunk's src and val (streamed), gathers their x through L1
-// and writes the products to prod; then the thread that owns a row adds the
-// chunk's products of its row in edge order, carrying the sum from chunk to
-// chunk.  Returns that sum (the (+)-identity for an empty range).  Every
-// thread of the block must call it with the same t0 and t1.
-template <class Sr>
-__device__ __forceinline__ typename Sr::T stage_fold(
+// part [e0, e1).  It sums columns [f0, f0 + N) of the gathered rows of x
+// (row stride F; N = F when kVec).  The run is staged kChunk edges at a
+// time: every thread loads 4 of the chunk's src and val (streamed), gathers
+// their x rows through L1 and writes the products to prod (N a row); then
+// the thread that owns a row adds the chunk's products of its row in edge
+// order, one sum a column, carrying the sums from chunk to chunk.  Leaves
+// the sums in acc (the (+)-identity for an empty range).  Every thread of
+// the block must call it with the same t0 and t1.
+template <class Sr, int N, bool kVec>
+__device__ __forceinline__ void stage_fold(
     const typename Sr::T* x, const int32_t* __restrict__ src,
     const typename Sr::T* __restrict__ val, int t0, int t1, int e0, int e1,
-    typename Sr::T* prod) {
+    int F, int f0, typename Sr::T* prod, typename Sr::T (&acc)[N]) {
   using T = typename Sr::T;
   constexpr int kPer = kChunk / kThreads;
   const int tid = threadIdx.x;
-  T acc = Sr::zero();
+  const int stride = kVec ? N : F;
+  const int fn = kVec ? N : min(N, F - f0);
+#pragma unroll
+  for (int j = 0; j < N; ++j) acc[j] = Sr::zero();
   for (int cs = t0; cs < t1; cs += kChunk) {
     const int cn = min(kChunk, t1 - cs);
     const int32_t* sp = src + cs + tid;
     const T* vp = val + cs + tid;
     int32_t sv[kPer];
-    T vv[kPer], xv[kPer];
+    T vv[kPer], xv[kPer][N];
 #pragma unroll
     for (int k = 0; k < kPer; ++k) {
       if (k * kThreads + tid < cn) {
@@ -168,22 +318,66 @@ __device__ __forceinline__ typename Sr::T stage_fold(
     }
 #pragma unroll
     for (int k = 0; k < kPer; ++k) {
-      if (k * kThreads + tid < cn) xv[k] = __ldca(x + sv[k]);
+      if (k * kThreads + tid < cn) load_row<N, kVec, kCa>(x + sv[k] * stride + f0, xv[k], fn);
     }
 #pragma unroll
     for (int k = 0; k < kPer; ++k) {
-      if (k * kThreads + tid < cn) prod[k * kThreads + tid] = Sr::mul(xv[k], vv[k]);
+      if (k * kThreads + tid < cn) {
+        T* pp = prod + (k * kThreads + tid) * N;
+#pragma unroll
+        for (int j = 0; j < N; ++j) pp[j] = Sr::mul(xv[k][j], vv[k]);
+      }
     }
     __syncthreads();
     const int lo = max(e0, cs);
     const int hi = min(e1, cs + cn);
-    for (int e = lo; e < hi; ++e) acc = Sr::add(acc, prod[e - cs]);
+    for (int e = lo; e < hi; ++e) {
+      const T* pp = prod + (e - cs) * N;
+#pragma unroll
+      for (int j = 0; j < N; ++j) acc[j] = Sr::add(acc[j], pp[j]);
+    }
     __syncthreads();
   }
-  return acc;
 }
 
-template <class Sr>
+// One tile's rows of one commit step, for K1 and K2's phase A: sums the
+// rows' edges over every column and writes each owned row's new value to
+// out_row = scratch + (its chunk index) * F.  xg is the frontier the
+// gathers read (K2: the shard's); old_row and tab_row are the row's
+// operands in x and the table (null where the tag reads none).  kF > 0:
+// one pass with kF sums in registers; kF = 0: a pass per block of
+// kFeatBlock columns, raw sums through out_row, then the finish over it.
+template <class Sr, int kF>
+__device__ __forceinline__ void tile_rows(
+    const typename Sr::T* xg, const int32_t* __restrict__ src,
+    const typename Sr::T* __restrict__ val, int t0, int t1, bool own, int e0,
+    int e1, const typename Sr::T* old_row, const typename Sr::T* tab_row,
+    typename Sr::T* out_row, int tag, typename Sr::T c, float mix,
+    float one_minus_mix, int F, typename Sr::T* prod) {
+  using T = typename Sr::T;
+  if constexpr (kF > 0) {
+    T old[kF], tab[kF], acc[kF];
+    if (own) {
+      if (Sr::wants_old(tag)) load_row<kF, true, kCg>(old_row, old, kF);
+      if (Sr::wants_table(tag)) load_row<kF, true, kPlain>(tab_row, tab, kF);
+    }
+    stage_fold<Sr, kF, true>(xg, src, val, t0, t1, e0, e1, kF, 0, prod, acc);
+    if (own) {
+      T out[kF];
+      Sr::template finish<kF>(tag, acc, tab, old, c, mix, one_minus_mix, kF, out);
+      store_row<kF, true>(out_row, out, kF);
+    }
+  } else {
+    for (int f0 = 0; f0 < F; f0 += kFeatBlock) {
+      T acc[kFeatBlock];
+      stage_fold<Sr, kFeatBlock, false>(xg, src, val, t0, t1, e0, e1, F, f0, prod, acc);
+      if (own) store_row<kFeatBlock, false>(out_row + f0, acc, min(kFeatBlock, F - f0));
+    }
+    if (own) Sr::template finish<0>(tag, out_row, tab_row, old_row, c, mix, one_minus_mix, F, out_row);
+  }
+}
+
+template <class Sr, int kF>
 __global__ void __launch_bounds__(kThreads)
     round_kernel(typename Sr::T* x, typename Sr::T* scratch,
                  const int32_t* __restrict__ src,
@@ -191,10 +385,12 @@ __global__ void __launch_bounds__(kThreads)
                  const int32_t* __restrict__ row_ptr,
                  const int32_t* __restrict__ rows,
                  const typename Sr::T* __restrict__ table, typename Sr::T c,
-                 int tag, int n, int S, int P, int M, int delta, int R) {
+                 float mix, float one_minus_mix, int tag, int n, int S, int P,
+                 int M, int delta, int R, int F_in) {
   using T = typename Sr::T;
-  __shared__ T prod[kChunk];
+  __shared__ __align__(16) T prod[kChunk * kPassCols<kF>];
   cg::grid_group grid = cg::this_grid();
+  const int F = kF > 0 ? kF : F_in;
   const int tid = threadIdx.x;
   const int tiles_per_cell = (delta + R - 1) / R;
   const long long tiles = static_cast<long long>(P) * tiles_per_cell;
@@ -212,22 +408,22 @@ __global__ void __launch_bounds__(kThreads)
       const int t0 = ptr[0];
       const int t1 = ptr[rn];
       const bool own = tid < rn;
-      // this thread's row: its edge range and its epilogue's operand
+      // this thread's row: its edge range and its epilogue's operands
       const long long i = static_cast<long long>(w) * delta + r0 + tid;
       int e0 = 0, e1 = 0;
-      T operand = T();
+      long long at = 0;
       if (own) {
         e0 = ptr[tid];
         e1 = ptr[tid + 1];
-        operand = Sr::operand(tag, x, rows[step_cell * delta + i], table);
+        at = static_cast<long long>(rows[step_cell * delta + i]) * F;
       }
-      const T acc = stage_fold<Sr>(x, src + cell * M, val + cell * M, t0, t1, e0, e1, prod);
-      if (own) scratch[i] = Sr::finish(tag, operand, acc, c);
+      tile_rows<Sr, kF>(x, src + cell * M, val + cell * M, t0, t1, own, e0, e1, x + at,
+                        table + at, scratch + i * F, tag, c, mix, one_minus_mix, F, prod);
     }
     grid.sync();
     for (long long i = first; i < cells; i += stride) {
       const int row = rows[step_cell * delta + i];
-      if (row < n) x[row] = scratch[i];
+      if (row < n) copy_row<kF>(x + static_cast<long long>(row) * F, scratch + i * F, F);
     }
     grid.sync();
   }
@@ -271,10 +467,11 @@ void tile_grid(int P, int delta, int resident, int* R, int* blocks) {
   *blocks = b < 1 ? 1 : static_cast<int>(b);
 }
 
-template <class Sr>
+template <class Sr, int kF>
 cudaError_t launch(void* x, void* scratch, const void* src, const void* val,
                    const void* row_ptr, const void* rows, const void* table,
-                   double c_in, int tag, int n, int S, int P, int M, int delta,
+                   double c_in, double mix_in, double one_minus_mix_in, int tag,
+                   int n, int S, int P, int M, int delta, int F,
                    cudaStream_t stream) {
   using T = typename Sr::T;
   T* x_p = static_cast<T*>(x);
@@ -285,14 +482,17 @@ cudaError_t launch(void* x, void* scratch, const void* src, const void* val,
   const int32_t* rows_p = static_cast<const int32_t*>(rows);
   const T* table_p = static_cast<const T*>(table);
   T c = static_cast<T>(c_in);
+  float mix = static_cast<float>(mix_in);
+  float one_minus_mix = static_cast<float>(one_minus_mix_in);
   static int cache[kMaxDevices] = {};
-  const void* kernel = reinterpret_cast<const void*>(&round_kernel<Sr>);
+  const void* kernel = reinterpret_cast<const void*>(&round_kernel<Sr, kF>);
   int resident = 0, R = 0, blocks = 0;
   cudaError_t err = resident_blocks(kernel, cache, &resident);
   if (err != cudaSuccess) return err;
   tile_grid(P, delta, resident, &R, &blocks);
-  void* args[] = {&x_p, &scratch_p, &src_p, &val_p, &ptr_p, &rows_p, &table_p, &c,
-                  &tag, &n,         &S,     &P,     &M,     &delta,  &R};
+  void* args[] = {&x_p, &scratch_p, &src_p, &val_p, &ptr_p, &rows_p,
+                  &table_p, &c, &mix, &one_minus_mix, &tag, &n,
+                  &S, &P, &M, &delta, &R, &F};
   err = cudaLaunchCooperativeKernel(kernel, dim3(static_cast<unsigned>(blocks)),
                                     dim3(kThreads), args, 0, stream);
   if (err != cudaSuccess) return err;
@@ -303,38 +503,54 @@ cudaError_t launch(void* x, void* scratch, const void* src, const void* val,
 // shards, in one cooperative launch.
 //
 // Replaces the TPU kernel src/repro/kernels/round_block.py::fused_halo_step_fn
-// (a one-step pallas_call per shard with the shard's (L,) frontier aliased
-// in VMEM and its (H,) boundary rows as a second output) together with what
-// src/repro/dist/engine_sharded.py::frontier_pallas_round_fn runs between
-// those calls: the all-gather of the boundary rows and, for an int8 or fp8
-// wire, their quantization with error feedback.  On the TPU each shard is a
-// device, so the exchange has to leave the kernel and an all-S grid per
-// shard cannot keep the reference's order.  Here all D shards are stacked
-// (D, L) on one card, and a grid barrier orders shard e's step-s reads after
-// shard d's step-(s-1) commits exactly as the all-gather does; so one launch
-// runs the whole round (the engine asks for [0, S)).
+// (a one-step pallas_call per shard with the shard's (L,)+feat frontier
+// aliased in VMEM and its (H,)+feat boundary rows as a second output)
+// together with what src/repro/dist/engine_sharded.py::frontier_pallas_round_fn
+// runs between those calls: the all-gather of the boundary rows and, for an
+// int8 or fp8 wire, their quantization with error feedback.  On the TPU each
+// shard is a device, so the exchange has to leave the kernel and an all-S
+// grid per shard cannot keep the reference's order.  Here all D shards are
+// stacked (D, L) (a matrix frontier (D, L, F), rows of F values) on one
+// card, and a grid barrier orders shard e's step-s reads after shard d's
+// step-(s-1) commits exactly as the all-gather does; so one launch runs the
+// whole round (the engine asks for [0, S)).
 //
 //   for s in s0..s1-1:
 //     A  every tile of step s over all P = D * P_loc workers (worker w is
-//        shard d = w / P_loc's), K1's tile walk (stage_fold) with
+//        shard d = w / P_loc's), K1's tile walk (tile_rows) with
 //          src    the shard's local slots, src_loc[d, s, w - d * P_loc]
 //          gather x_loc[d, slot]
-//          operand  table[rows[s, w, r]] (add_table) or
-//                   x_loc[d, rows_loc[d, s, w - d * P_loc, r]] (min_old)
-//        into scratch (P * delta,), shard d's chunk at d * P_loc * delta
+//          operands  table[rows[s, w, r]] (add_table, labelprop) and
+//                    x_loc[d, rows_loc[d, s, w - d * P_loc, r]] (min_old,
+//                    labelprop)
+//        into scratch (P * delta rows), shard d's chunk at d * P_loc * delta
 //     grid.sync()
 //     B  publish scratch into each shard's owned slots through rows_loc
 //        (the dump slot L - 1 is skipped);
-//        f32: for every (d, k), v = scratch[d's chunk + send_idx[s, d, k]]
+//        f32: for every (d, k), the row v = scratch[d's chunk + send_idx[s, d, k]]
 //             goes to x_loc[e, recv_idx[s, e, d*H + k]] for every e (dump
 //             slots skipped): one gather of v, D independent index loads
-//        int8/fp8: want = scratch[...] + ef[d, s, k] for every (d, k), and
-//             |want| folded into amax[s - s0, d] (atomicMax on the bits of a
-//             non-negative float; the wrapper zeroes amax)
+//        int8/fp8: want = scratch[...] + ef[d, s, k] for every (d, k) and
+//             feature f, and |want| folded into amax[s - s0, d, f]
+//             (atomicMax on the bits of a non-negative float; the wrapper
+//             zeroes amax): one max-abs scale per shard, step and feature,
+//             the reference's per-column scale of an (H, F) block
 //     grid.sync()
-//     C  (int8/fp8) scale, q, the dequantized value and the new ef[d, s, k]
-//        for every (d, k), the dequantized value written into every
-//        receiving shard's halo slot; grid.sync()
+//     C  (int8/fp8) scale, q, the dequantized value and the new
+//        ef[d, s, k, f] for every (d, k, f), the dequantized value written
+//        into every receiving shard's halo slot, and into its dump slot
+//        where (d, k) is dump_last[s, e], the last entry the plain exchange
+//        leaves there; grid.sync()
+//
+// The dump slot: a padded row (rows == n) publishes to it and a padded
+// send_idx entry ships a padded row, so its value reaches a real row only
+// through a quantized wire's scale, and only for an epilogue that reads old
+// (labelprop: a padded row's total is 0, so it keeps old, the dump's value).
+// The plain exchange leaves each dump the last entry sent to it, in (d, k)
+// order, as the reference's sequential scatter does; phase C writes that
+// entry, so a quantized labelprop round equals its plain version.  The f32
+// wire and the publish never write a dump: there its value only ever
+// reaches other dumps.
 //
 // Publishes write owned slots and the exchange writes halo slots, so phase
 // B's writes never meet.  The quantizer rounds as the plain version
@@ -352,22 +568,22 @@ cudaError_t launch(void* x, void* scratch, const void* src, const void* val,
 //
 // Bound on the H100: bytes.  A round reads each real edge's local source
 // slot and value once (8 B), each distinct local slot its gathers reach
-// (and, for min_old, each real row's old slot) once, per chunk row its edge
-// range and local slot (and, for add_table, its global id and table entry),
-// writes each real row once, and for the exchange reads send_idx
-// (S * D * H) and recv_idx (S * D * D * H) once and writes each real halo
-// slot once; an int8/fp8 wire also reads and writes ef once
-// (chip_smoke.py::halo_round_bound).  The halo copies and the exchange's
-// indices put it above K1's round bound: on twitter scale 22 at D = 4 and
-// sync, recv_idx alone is 53 MB beside the edges' 514 MB.  At fine delta a
-// step's fixed cost dominates as in K1: two grid barriers a step
-// (three with a quantized wire) and the tile prologue, so at delta = 128
-// (S = 4,099) a round holds 8,198 (12,297) barriers.
+// (and, for min_old and labelprop, each real row's old slot) once (F values
+// each), per chunk row its edge range and local slot (and, for add_table and
+// labelprop, its global id and table row), writes each real row once, and
+// for the exchange reads send_idx (S * D * H) and recv_idx (S * D * D * H)
+// once and writes each real halo slot once; an int8/fp8 wire also reads and
+// writes ef once (chip_smoke.py::halo_round_bound).  The halo copies and
+// the exchange's indices put it above K1's round bound: on twitter scale 22
+// at D = 4 and sync, recv_idx alone is 53 MB beside the edges' 514 MB.  At
+// fine delta a step's fixed cost dominates as in K1: two grid barriers a
+// step (three with a quantized wire) and the tile prologue, so at delta =
+// 128 (S = 4,099) a round holds 8,198 (12,297) barriers.
 //
 // A cross-card exchange (NCCL, one process per card) would run the same
 // kernel one step at a time, s1 = s0 + 1, with the exchange restricted to
 // the card's own shards and the all-gather between launches.
-template <class Sr, int kWire>
+template <class Sr, int kWire, int kF>
 __global__ void __launch_bounds__(kThreads, kHaloBlocksPerSm)
     halo_round_kernel(typename Sr::T* x, float* ef, typename Sr::T* scratch,
                       uint32_t* amax, const int32_t* __restrict__ src_loc,
@@ -377,13 +593,16 @@ __global__ void __launch_bounds__(kThreads, kHaloBlocksPerSm)
                       const int32_t* __restrict__ rows_loc,
                       const int32_t* __restrict__ send_idx,
                       const int32_t* __restrict__ recv_idx,
+                      const int32_t* __restrict__ dump_last,
                       const typename Sr::T* __restrict__ table, typename Sr::T c,
-                      int tag, int s0, int s1, int S, int D, int P_loc, int M,
-                      int delta, int L, int H, int R, float inv_qmax) {
+                      float mix, float one_minus_mix, int tag, int s0, int s1,
+                      int S, int D, int P_loc, int M, int delta, int L, int H,
+                      int R, float inv_qmax, int F_in) {
   using T = typename Sr::T;
-  __shared__ T prod[kChunk];
-  __shared__ uint32_t block_max[kWire ? kMaxShards : 1];
+  __shared__ __align__(16) T prod[kChunk * kPassCols<kF>];
+  __shared__ uint32_t block_max[kWire ? kMaxScales : 1];
   cg::grid_group grid = cg::this_grid();
+  const int F = kF > 0 ? kF : F_in;
   const int tid = threadIdx.x;
   const int P = D * P_loc;
   const int dump = L - 1;
@@ -392,6 +611,7 @@ __global__ void __launch_bounds__(kThreads, kHaloBlocksPerSm)
   const long long chunk = static_cast<long long>(P_loc) * delta;  // a shard's rows a step
   const long long cells = D * chunk;
   const long long sends = static_cast<long long>(D) * H;  // (d, k)
+  const long long shard = static_cast<long long>(L) * F;  // a shard's values
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + tid;
   for (int s = s0; s < s1; ++s) {
@@ -406,78 +626,97 @@ __global__ void __launch_bounds__(kThreads, kHaloBlocksPerSm)
       const int d = w / P_loc;
       const long long cell = step_cell + w;  // (s, w) of the schedule
       const long long lcell = (static_cast<long long>(d) * S + s) * P_loc + (w - d * P_loc);
-      const T* xd = x + static_cast<long long>(d) * L;
+      const T* xd = x + d * shard;
       const int32_t* ptr = row_ptr + cell * (delta + 1) + r0;
       const int t0 = ptr[0];
       const int t1 = ptr[rn];
       const bool own = tid < rn;
       const int r = r0 + tid;
       int e0 = 0, e1 = 0;
-      T operand = T();
+      long long at_old = 0, at_tab = 0;
       if (own) {
         e0 = ptr[tid];
         e1 = ptr[tid + 1];
-        if (tag == kMinOld) {
-          operand = Sr::operand(tag, xd, rows_loc[lcell * delta + r], table);
-        } else if (tag == kAddTable) {
-          operand = Sr::operand(tag, xd, rows[cell * delta + r], table);
-        }
+        if (Sr::wants_old(tag)) at_old = static_cast<long long>(rows_loc[lcell * delta + r]) * F;
+        if (Sr::wants_table(tag)) at_tab = static_cast<long long>(rows[cell * delta + r]) * F;
       }
-      const T acc = stage_fold<Sr>(xd, src_loc + lcell * M, val + cell * M, t0, t1, e0, e1, prod);
-      if (own) scratch[static_cast<long long>(w) * delta + r] = Sr::finish(tag, operand, acc, c);
+      tile_rows<Sr, kF>(xd, src_loc + lcell * M, val + cell * M, t0, t1, own, e0, e1,
+                        xd + at_old, table + at_tab,
+                        scratch + (static_cast<long long>(w) * delta + r) * F, tag, c, mix,
+                        one_minus_mix, F, prod);
     }
     grid.sync();
     // --- B: publish, then the exchange (f32) or the scales' maxima
     for (long long i = first; i < cells; i += stride) {
       const int d = static_cast<int>(i / chunk);
       const int slot = rows_loc[(static_cast<long long>(d) * S + s) * chunk + (i - d * chunk)];
-      if (slot < dump) x[static_cast<long long>(d) * L + slot] = scratch[i];
+      if (slot < dump) copy_row<kF>(x + d * shard + static_cast<long long>(slot) * F, scratch + i * F, F);
     }
     if constexpr (kWire == 0) {
       for (long long m = first; m < sends; m += stride) {  // (d, k), to every e
         const int d = static_cast<int>(m / H);
-        const T v = scratch[d * chunk + snd[m]];
-        for (int e = 0; e < D; ++e) {
-          const int slot = rcv[e * sends + m];
-          if (slot < dump) x[static_cast<long long>(e) * L + slot] = v;
+        const T* v = scratch + (d * chunk + snd[m]) * F;
+        if constexpr (kF > 0) {  // the row once into registers, then D stores
+          T row[kF];
+          load_row<kF, true, kPlain>(v, row, kF);
+          for (int e = 0; e < D; ++e) {
+            const int slot = rcv[e * sends + m];
+            if (slot < dump) store_row<kF, true>(x + e * shard + static_cast<long long>(slot) * F, row, kF);
+          }
+        } else {
+          for (int e = 0; e < D; ++e) {
+            const int slot = rcv[e * sends + m];
+            if (slot < dump) copy_row<kF>(x + e * shard + static_cast<long long>(slot) * F, v, F);
+          }
         }
       }
       grid.sync();
     } else {
-      for (int d = tid; d < D; d += kThreads) block_max[d] = 0;
+      const int scales = D * F;  // (d, f) of this step
+      for (int j = tid; j < scales; j += kThreads) block_max[j] = 0;
       __syncthreads();
       for (long long m = first; m < sends; m += stride) {  // (d, k)
         const int d = static_cast<int>(m / H);
-        const float want = __fadd_rn(scratch[d * chunk + snd[m]],
-                                     ef[(static_cast<long long>(d) * S + s) * H + (m - d * H)]);
-        atomicMax(block_max + d, __float_as_uint(fabsf(want)));
+        const T* v = scratch + (d * chunk + snd[m]) * F;
+        const float* efp = ef + ((static_cast<long long>(d) * S + s) * H + (m - d * H)) * F;
+#pragma unroll
+        for (int f = 0; f < (kF > 0 ? kF : F); ++f) {
+          const float want = __fadd_rn(v[f], efp[f]);
+          atomicMax(block_max + d * F + f, __float_as_uint(fabsf(want)));
+        }
       }
       __syncthreads();
-      for (int d = tid; d < D; d += kThreads) {
-        if (block_max[d]) atomicMax(amax + static_cast<long long>(s - s0) * D + d, block_max[d]);
+      uint32_t* step_max = amax + static_cast<long long>(s - s0) * scales;
+      for (int j = tid; j < scales; j += kThreads) {
+        if (block_max[j]) atomicMax(step_max + j, block_max[j]);
       }
       grid.sync();
       // --- C: quantize, keep the residual, ship the dequantized value
       constexpr float kQmax = kWire == 1 ? 127.0f : 448.0f;
+      const int32_t* last = dump_last + static_cast<long long>(s) * D;  // (D,)
       for (long long m = first; m < sends; m += stride) {
         const int d = static_cast<int>(m / H);
-        float* efp = ef + (static_cast<long long>(d) * S + s) * H + (m - d * H);
-        const float want = __fadd_rn(scratch[d * chunk + snd[m]], *efp);
-        const float a = __uint_as_float(__ldcg(amax + static_cast<long long>(s - s0) * D + d));
-        const float scale = __fmul_rn(a < 1e-30f ? 1e-30f : a, inv_qmax);
-        float q = __fdiv_rn(want, scale);
-        if constexpr (kWire == 1) {  // through an integer, as the int8 cast: -0 becomes 0
-          q = static_cast<float>(static_cast<int>(clamp_nan(rintf(q), -kQmax, kQmax)));
-        } else {
-          const __nv_fp8_storage_t b =
-              __nv_cvt_float_to_fp8(clamp_nan(q, -kQmax, kQmax), __NV_SATFINITE, __NV_E4M3);
-          q = __half2float(__half(__nv_cvt_fp8_to_halfraw(b, __NV_E4M3)));
-        }
-        *efp = __fmaf_rn(-q, scale, want);
-        const float wire = __fmul_rn(q, scale);
-        for (int e = 0; e < D; ++e) {
-          const int slot = rcv[e * sends + m];
-          if (slot < dump) x[static_cast<long long>(e) * L + slot] = wire;
+        const T* v = scratch + (d * chunk + snd[m]) * F;
+        float* efp = ef + ((static_cast<long long>(d) * S + s) * H + (m - d * H)) * F;
+#pragma unroll
+        for (int f = 0; f < (kF > 0 ? kF : F); ++f) {
+          const float want = __fadd_rn(v[f], efp[f]);
+          const float a = __uint_as_float(__ldcg(step_max + d * F + f));
+          const float scale = __fmul_rn(a < 1e-30f ? 1e-30f : a, inv_qmax);
+          float q = __fdiv_rn(want, scale);
+          if constexpr (kWire == 1) {  // through an integer, as the int8 cast: -0 becomes 0
+            q = static_cast<float>(static_cast<int>(clamp_nan(rintf(q), -kQmax, kQmax)));
+          } else {
+            const __nv_fp8_storage_t b =
+                __nv_cvt_float_to_fp8(clamp_nan(q, -kQmax, kQmax), __NV_SATFINITE, __NV_E4M3);
+            q = __half2float(__half(__nv_cvt_fp8_to_halfraw(b, __NV_E4M3)));
+          }
+          efp[f] = __fmaf_rn(-q, scale, want);
+          const float wire = __fmul_rn(q, scale);
+          for (int e = 0; e < D; ++e) {
+            const int slot = rcv[e * sends + m];
+            if (slot < dump || m == last[e]) x[e * shard + static_cast<long long>(slot) * F + f] = wire;
+          }
         }
       }
       grid.sync();
@@ -485,15 +724,17 @@ __global__ void __launch_bounds__(kThreads, kHaloBlocksPerSm)
   }
 }
 
-template <class Sr, int kWire>
+template <class Sr, int kWire, int kF>
 cudaError_t launch_halo_round(void* x, void* ef, void* scratch, void* amax,
                               const void* src_loc, const void* val,
                               const void* row_ptr, const void* rows,
                               const void* rows_loc, const void* send_idx,
-                              const void* recv_idx, const void* table,
-                              double c_in, double inv_qmax_in, int tag, int s0,
-                              int s1, int S, int D, int P_loc, int M, int delta,
-                              int L, int H, cudaStream_t stream) {
+                              const void* recv_idx, const void* dump_last,
+                              const void* table, double c_in, double mix_in,
+                              double one_minus_mix_in,
+                              double inv_qmax_in, int tag, int s0, int s1, int S,
+                              int D, int P_loc, int M, int delta, int L, int H,
+                              int F, cudaStream_t stream) {
   using T = typename Sr::T;
   T* x_p = static_cast<T*>(x);
   float* ef_p = static_cast<float*>(ef);
@@ -506,68 +747,111 @@ cudaError_t launch_halo_round(void* x, void* ef, void* scratch, void* amax,
   const int32_t* rl_p = static_cast<const int32_t*>(rows_loc);
   const int32_t* snd_p = static_cast<const int32_t*>(send_idx);
   const int32_t* rcv_p = static_cast<const int32_t*>(recv_idx);
+  const int32_t* last_p = static_cast<const int32_t*>(dump_last);
   const T* table_p = static_cast<const T*>(table);
   T c = static_cast<T>(c_in);
+  float mix = static_cast<float>(mix_in);
+  float one_minus_mix = static_cast<float>(one_minus_mix_in);
   float inv_qmax = static_cast<float>(inv_qmax_in);
   static int cache[kMaxDevices] = {};
-  const void* kernel = reinterpret_cast<const void*>(&halo_round_kernel<Sr, kWire>);
+  const void* kernel = reinterpret_cast<const void*>(&halo_round_kernel<Sr, kWire, kF>);
   int resident = 0, R = 0, blocks = 0;
   cudaError_t err = resident_blocks(kernel, cache, &resident);
   if (err != cudaSuccess) return err;
   tile_grid(D * P_loc, delta, resident, &R, &blocks);
-  void* args[] = {&x_p,   &ef_p,  &scratch_p, &amax_p, &src_p, &val_p, &ptr_p,
-                  &rows_p, &rl_p, &snd_p,     &rcv_p,  &table_p, &c,   &tag,
-                  &s0,    &s1,    &S,         &D,      &P_loc, &M,     &delta,
-                  &L,     &H,     &R,         &inv_qmax};
+  void* args[] = {&x_p,     &ef_p, &scratch_p, &amax_p, &src_p, &val_p,
+                  &ptr_p,   &rows_p, &rl_p,    &snd_p,  &rcv_p, &last_p,
+                  &table_p, &c,    &mix,       &one_minus_mix,  &tag,  &s0,
+                  &s1,      &S,    &D,         &P_loc,  &M,     &delta,
+                  &L,       &H,    &R,         &inv_qmax, &F};
   err = cudaLaunchCooperativeKernel(kernel, dim3(static_cast<unsigned>(blocks)),
                                     dim3(kThreads), args, 0, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
+// The kF instantiation that runs a frontier of F values a row with
+// epilogue `tag`: kF = F for 1, 2, 4 and 8, the feature-block build
+// otherwise, and for labelprop at F = 1 (the vector build leaves it out).
+#define DISPATCH_F(F, TAG, CALL)                          \
+  switch ((F) == 1 && (TAG) == kLabelprop ? 0 : (F)) {    \
+    case 1: CALL(1);                                      \
+    case 2: CALL(2);                                      \
+    case 4: CALL(4);                                      \
+    case 8: CALL(8);                                      \
+    default: CALL(0);                                     \
+  }
+
+bool takes(int dtype, int tag, const void* table) {
+  if (dtype == 0) return tag == kAddConst || ((tag == kAddTable || tag == kLabelprop) && table != nullptr);
+  return dtype == 1 && tag == kMinOld;
+}
+
 }  // namespace
 
-// dtype: 0 = float32 plus-times, 1 = int32 min-plus.  Returns a cudaError_t.
+// dtype: 0 = float32 plus-times, 1 = int32 min-plus; F: the frontier's
+// values a row (1 for a vector).  Returns a cudaError_t.
 extern "C" int round_block_launch(int dtype, void* x, void* scratch,
                                   const void* src, const void* val,
                                   const void* row_ptr, const void* rows,
-                                  const void* table, double c, int tag, int n,
-                                  int S, int P, int M, int delta, void* stream) {
+                                  const void* table, double c, double mix,
+                                  double one_minus_mix, int tag, int n, int S,
+                                  int P, int M, int delta, int F, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && (tag == kAddConst || (tag == kAddTable && table != nullptr))) {
-    return launch<PlusTimes>(x, scratch, src, val, row_ptr, rows, table, c, tag,
-                             n, S, P, M, delta, st);
-  }
-  if (dtype == 1 && tag == kMinOld) {
-    return launch<MinPlus>(x, scratch, src, val, row_ptr, rows, table, c, tag, n,
-                           S, P, M, delta, st);
-  }
+  if (F < 1 || !takes(dtype, tag, table)) return cudaErrorInvalidValue;
+#define K1_ARGS x, scratch, src, val, row_ptr, rows, table, c, mix, one_minus_mix, tag, n, S, P, M, delta, F, st
+#define K1_PLUS(KF) return launch<PlusTimes, KF>(K1_ARGS)
+#define K1_MIN(KF) return launch<MinPlus, KF>(K1_ARGS)
+  if (dtype == 0) DISPATCH_F(F, tag, K1_PLUS)
+  DISPATCH_F(F, tag, K1_MIN)
+#undef K1_MIN
+#undef K1_PLUS
+#undef K1_ARGS
   return cudaErrorInvalidValue;
 }
 
-// K2.  dtype and tag as for round_block_launch; wire: 0 = f32, 1 = int8,
-// 2 = fp8 (float32 plus-times only; ef and amax are read only then).
-// Returns a cudaError_t.
+// K2.  dtype, tag and F as for round_block_launch; wire: 0 = f32, 1 = int8,
+// 2 = fp8 (float32 plus-times only, D * F <= 512 scales a step; ef and amax
+// are read only then).  Returns a cudaError_t.
 extern "C" int halo_round_launch(int dtype, int wire, void* x, void* ef,
                                  void* scratch, void* amax, const void* src_loc,
                                  const void* val, const void* row_ptr,
                                  const void* rows, const void* rows_loc,
                                  const void* send_idx, const void* recv_idx,
-                                 const void* table, double c, double inv_qmax,
-                                 int tag, int s0, int s1, int S, int D, int P_loc,
-                                 int M, int delta, int L, int H, void* stream) {
+                                 const void* dump_last, const void* table,
+                                 double c, double mix,
+                                 double one_minus_mix, double inv_qmax, int tag,
+                                 int s0, int s1, int S, int D, int P_loc, int M,
+                                 int delta, int L, int H, int F, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D < 1 || D > kMaxShards || s0 < 0 || s1 > S || s0 >= s1) return cudaErrorInvalidValue;
-#define HALO_ARGS                                                                  \
-  x, ef, scratch, amax, src_loc, val, row_ptr, rows, rows_loc, send_idx, recv_idx, \
-      table, c, inv_qmax, tag, s0, s1, S, D, P_loc, M, delta, L, H, st
-  if (dtype == 0 && (tag == kAddConst || (tag == kAddTable && table != nullptr))) {
-    if (wire == 0) return launch_halo_round<PlusTimes, 0>(HALO_ARGS);
-    if (wire == 1 && ef != nullptr && amax != nullptr) return launch_halo_round<PlusTimes, 1>(HALO_ARGS);
-    if (wire == 2 && ef != nullptr && amax != nullptr) return launch_halo_round<PlusTimes, 2>(HALO_ARGS);
+  if (D < 1 || D > kMaxShards || F < 1 || s0 < 0 || s1 > S || s0 >= s1) return cudaErrorInvalidValue;
+  if (!takes(dtype, tag, table)) return cudaErrorInvalidValue;
+  if (wire != 0 && (dtype != 0 || ef == nullptr || amax == nullptr || dump_last == nullptr ||
+                    D * F > kMaxScales)) {
+    return cudaErrorInvalidValue;
   }
-  if (dtype == 1 && tag == kMinOld && wire == 0) return launch_halo_round<MinPlus, 0>(HALO_ARGS);
-#undef HALO_ARGS
+#define K2_ARGS                                                                    \
+  x, ef, scratch, amax, src_loc, val, row_ptr, rows, rows_loc, send_idx, recv_idx, \
+      dump_last, table, c, mix, one_minus_mix, inv_qmax, tag, s0, s1, S, D, P_loc, M, \
+      delta, L, H, F, st
+#define K2_F32(KF) return launch_halo_round<PlusTimes, 0, KF>(K2_ARGS)
+#define K2_INT8(KF) return launch_halo_round<PlusTimes, 1, KF>(K2_ARGS)
+#define K2_FP8(KF) return launch_halo_round<PlusTimes, 2, KF>(K2_ARGS)
+#define K2_MIN(KF) return launch_halo_round<MinPlus, 0, KF>(K2_ARGS)
+  if (dtype == 1) {
+    if (wire == 0) DISPATCH_F(F, tag, K2_MIN)
+  } else if (wire == 0) {
+    DISPATCH_F(F, tag, K2_F32)
+  } else if (wire == 1) {
+    DISPATCH_F(F, tag, K2_INT8)
+  } else if (wire == 2) {
+    DISPATCH_F(F, tag, K2_FP8)
+  }
+#undef K2_MIN
+#undef K2_FP8
+#undef K2_INT8
+#undef K2_F32
+#undef K2_ARGS
   return cudaErrorInvalidValue;
 }
 

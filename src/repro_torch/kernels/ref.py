@@ -86,33 +86,51 @@ def fused_halo_step_ref(x_loc, step, semiring, row_update) -> torch.Tensor:
     """One shard's commit step of the halo round (the reference's
     ``fused_halo_step_fn``).
 
-    One commit step of one shard, in place on its ``(L,)`` frontier: the
-    gather reads local slots, ``row_update`` sees the global rows
+    One commit step of one shard, in place on its ``(L,)+feat`` frontier:
+    the gather reads local slots, ``row_update`` sees the global rows
     ``step.rows_g`` and ``old`` from the local slots ``step.rows_loc``,
     the publish writes the local slots (padded rows land in the dump slot
-    ``L - 1``).  Returns the ``(H,)`` committed boundary rows
+    ``L - 1``).  Returns the ``(H,)+feat`` committed boundary rows
     ``chunk[step.send_idx]``.
     """
     delta = step.rows_loc.shape[1]
     reduced = chunk_reduce(x_loc, step.src, step.val, step.dst_local, delta, semiring)
     new = row_update(x_loc[step.rows_loc], reduced, step.rows_g)
-    chunk = new.reshape(-1).to(x_loc.dtype)
+    chunk = new.reshape((-1,) + tuple(x_loc.shape[1:])).to(x_loc.dtype)
     x_loc[step.rows_loc.reshape(-1)] = chunk
     return chunk[step.send_idx]
 
 
 def halo_exchange(x_loc, send, recv_s) -> None:
-    """All-gather the ``(D, H)`` boundary rows and scatter them into every
-    shard's halo slots, in place on the stacked ``(D, L)`` frontier.
-    ``recv_s`` indexes the flat ``(D·L,)`` frontier: ``(D·D·H,)``, shard
-    ``e``'s copy of the gathered buffer at ``e·D·H``."""
-    D = x_loc.shape[0]
-    x_loc.view(-1)[recv_s] = send.reshape(-1).repeat(D)
+    """All-gather the ``(D, H)+feat`` boundary rows and scatter them into
+    every shard's halo slots, in place on the stacked ``(D, L)+feat``
+    frontier.  ``recv_s`` indexes the ``D·L`` rows of the flattened frontier:
+    ``(D·D·H,)``, shard ``e``'s copy of the gathered buffer at ``e·D·H``.
+
+    Only dump slots are written twice.  Each takes the last entry sent to it
+    in ``(d, k)`` order, as the reference's sequential scatter leaves it
+    (torch's ``index_put_`` leaves duplicates in no fixed order): a padded
+    row that reads ``old`` (``labelprop``) ships the dump's value, and an
+    int8/fp8 wire's scale sees it."""
+    D, L = x_loc.shape[:2]
+    feat = tuple(x_loc.shape[2:])
+    flat = x_loc.view((D * L,) + feat)
+    rows = send.reshape((-1,) + feat).repeat((D,) + (1,) * len(feat))
+    dump = (recv_s + 1) % L == 0
+    flat[recv_s[~dump]] = rows[~dump]
+    pos = torch.nonzero(dump).reshape(-1)
+    if pos.numel():
+        shard = recv_s[pos] // L
+        last = torch.full((D,), -1, dtype=pos.dtype, device=pos.device)
+        last.scatter_reduce_(0, shard, pos, "amax")
+        last = last[last >= 0]
+        flat[recv_s[last]] = rows[last]
 
 
 def quantize_halo(send, ef_s, halo_dtype: str):
-    """Quantize the ``(D, H)`` boundary rows per shard against a max-abs
-    scale (floored at 1e-30), with error feedback.
+    """Quantize the ``(D, H)+feat`` boundary rows per shard (and per feature
+    column of a matrix frontier) against a max-abs scale over the H rows
+    (floored at 1e-30), with error feedback.
 
     Returns ``(dequantized rows, new residuals)``; ``want = send + ef_s`` is
     rounded then clipped (int8) or clipped then cast (fp8), as the
@@ -139,8 +157,9 @@ def fused_halo_round_ref(
     """Plain version of :func:`repro_torch.kernels.round_block.fused_halo_round_cuda`.
 
     The commit steps ``steps = (s0, s1)`` (default: all ``S``) of the halo
-    round, in place on the stacked ``(D, L)`` frontier ``x_loc`` and, for an
-    int8/fp8 wire, on the ``(D, S, H)`` residuals ``ef``: per step, every
+    round, in place on the stacked ``(D, L)+feat`` frontier ``x_loc`` and,
+    for an int8/fp8 wire, on the ``(D, S, H)+feat`` residuals ``ef``: per
+    step, every
     shard's :func:`fused_halo_step_ref`, then :func:`quantize_halo` (unless
     f32) and :func:`halo_exchange`.  Returns ``(x_loc, ef)``.
     """

@@ -18,6 +18,10 @@ with error feedback) between grid barriers.  It is a second entry point of
 the same source and walks each step's tiles with K1's code, so an f32 halo
 round equals K1's round bit for bit.
 
+Both take a vector frontier ``(n+1,)`` or a matrix frontier ``(n+1, F)``
+(``(D, L)`` or ``(D, L, F)`` stacked for K2), row-major, so a vertex's F
+values are one contiguous row.
+
 Pallas evaluated any traced ``row_update`` inside the kernel.  The CUDA kernel
 takes a fixed set instead: an :class:`Epilogue` names the row update with a
 tag the kernel understands.  An ``Epilogue`` is also an ordinary
@@ -37,49 +41,121 @@ from repro_torch.kernels.ref import HALO_QUANT
 __all__ = [
     "ADD_CONST",
     "ADD_TABLE",
+    "LABELPROP",
     "MIN_OLD",
     "Epilogue",
+    "fma_f32",
     "fused_halo_round_cuda",
     "fused_round_cuda",
 ]
 
 ADD_CONST = "add_const"  # c + reduced            (pagerank)
-ADD_TABLE = "add_table"  # table[row] + reduced   (ppr's q, jacobi's b/diag)
+ADD_TABLE = "add_table"  # table[row] + reduced   (ppr's q, jacobi's b/diag, rwr's restart)
 MIN_OLD = "min_old"  # min(old, reduced)          (sssp, cc)
+LABELPROP = "labelprop"  # row-normalised blend, anchored rows clamped (labelprop)
 
 # Tag codes of csrc/round_block.cu, and the tags the kernel takes per dtype.
-TAG_CODES = {ADD_CONST: 0, ADD_TABLE: 1, MIN_OLD: 2}
-_KERNEL_TAGS = {torch.float32: (ADD_CONST, ADD_TABLE), torch.int32: (MIN_OLD,)}
+TAG_CODES = {ADD_CONST: 0, ADD_TABLE: 1, MIN_OLD: 2, LABELPROP: 3}
+_KERNEL_TAGS = {torch.float32: (ADD_CONST, ADD_TABLE, LABELPROP), torch.int32: (MIN_OLD,)}
+_TABLE_TAGS = (ADD_TABLE, LABELPROP)
 _DTYPE_CODES = {torch.float32: 0, torch.int32: 1}
-# Halo wire codes of csrc/round_block.cu (halo_round_launch), and the most
-# shards one launch takes (kMaxShards).
+# Halo wire codes of csrc/round_block.cu (halo_round_launch), the most
+# shards one launch takes (kMaxShards), and the most (shard, feature) scales
+# a quantized step keeps (kMaxScales).
 _WIRE_CODES = {"f32": 0, "int8": 1, "fp8": 2}
 MAX_SHARDS = 64
+MAX_SCALES = 512
+# Feature widths whose rows the kernels load as 8- or 16-byte vectors
+# (csrc/round_block.cu); such a frontier's rows must start 4·min(F, 4)-byte
+# aligned.  Any other F runs the kernels' loop over feature blocks.
+VECTOR_F = (2, 4, 8)
+
+
+def _row_sum(v):
+    """``v``'s sum over its last axis, left to right, keeping the axis: the
+    order XLA's ``jnp.sum(v, -1)`` adds an ``(…, F)`` row on the CPU, and
+    the kernels' (``((v0 + v1) + v2) + …``)."""
+    acc = v[..., :1]
+    for f in range(1, v.shape[-1]):
+        acc = acc + v[..., f : f + 1]
+    return acc
+
+
+def fma_f32(a, b, c):
+    """``a·b + c`` rounded once to float32, as a fused multiply-add does.
+
+    The f32 product is exact in float64 and ``s = fl64(a·b + c)`` keeps its
+    error ``e`` (TwoSum); ``s`` rounded to odd (moved one ulp towards ``e``
+    when inexact and even) has 29 bits beyond float32's, so rounding it to
+    float32 is the exact sum's correctly rounded value.  Rounding ``s``
+    itself would round twice, and does differ where ``a·b + c`` lies just
+    beside a float32 midpoint (``0.9f · 0.75 + 1e-31``).
+    """
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bv = s - p
+    e = (p - (s - bv)) + (c - bv)
+    inexact = (e != 0) & torch.isfinite(e) & ((s.view(torch.int64) & 1) == 0)
+    towards = torch.where(e > 0, torch.inf, -torch.inf).to(s.dtype)
+    return torch.where(inexact, torch.nextafter(s, towards), s).to(torch.float32)
 
 
 @dataclasses.dataclass(frozen=True)
 class Epilogue:
     """A row update ``(old, reduced, rows) -> new`` that K1 evaluates itself.
 
-    ``table`` (``add_table`` only) holds one value per frontier slot, the
-    dump row included: ``(n + 1,)``, so ``table[rows]`` never reads past the
-    end where padded rows point at the dump slot ``n``.
+    ``table`` (``add_table``: the added values; ``labelprop``: the anchors)
+    holds one row per frontier slot, the dump row included, so
+    ``table[rows]`` never reads past the end where padded rows point at the
+    dump slot ``n``: ``(n + 1,)`` or, for a matrix frontier, ``(n + 1, F)``.
+    ``labelprop`` carries ``mix`` and ``one_minus_mix`` as float32 values,
+    each rounded from the Python double (:meth:`labelprop`).
     """
 
     tag: str
     const: float = 0.0
     table: torch.Tensor | None = None
+    mix: np.float32 = np.float32(1.0)
+    one_minus_mix: np.float32 = np.float32(0.0)
 
     def __post_init__(self):
         if self.tag not in TAG_CODES:
             raise ValueError(f"unknown epilogue tag {self.tag!r}")
-        if (self.tag == ADD_TABLE) != (self.table is not None):
-            raise ValueError("an add_table epilogue needs a table; no other does")
+        if (self.tag in _TABLE_TAGS) != (self.table is not None):
+            raise ValueError("an add_table or labelprop epilogue needs a table; no other does")
+        if self.tag == LABELPROP and self.table.dim() != 2:
+            raise ValueError(f"labelprop's anchors are (n + 1, F), got {tuple(self.table.shape)}")
+
+    @classmethod
+    def labelprop(cls, anchors: torch.Tensor, mix: float) -> "Epilogue":
+        """Label propagation's row update: ``mix·(reduced / total) +
+        (1 − mix)·old`` where the row's total is positive (else ``old``), and
+        the anchor row where the anchors' row has mass.  ``1 − mix`` is taken
+        in the Python double and then rounded, as the reference's weak-typed
+        ``(1 - mix) * old`` is."""
+        return cls(LABELPROP, table=anchors, mix=np.float32(mix), one_minus_mix=np.float32(1 - mix))
 
     def to(self, device) -> "Epilogue":
         if self.table is None:
             return self
         return dataclasses.replace(self, table=self.table.to(device))
+
+    def for_frontier(self, feat: tuple) -> "Epilogue":
+        """This row update for a frontier whose rows have trailing shape
+        ``feat``: a per-row ``(n + 1,)`` table on a matrix frontier repeats
+        over its F columns (the reference broadcasts it, ``_match_features``).
+        Raises on a table that fits neither."""
+        feat = tuple(feat)
+        if self.table is None or tuple(self.table.shape[1:]) == feat:
+            return self
+        if self.tag == ADD_TABLE and self.table.dim() == 1 and len(feat) == 1:
+            wide = self.table[:, None].expand(-1, feat[0]).contiguous()
+            return dataclasses.replace(self, table=wide)
+        raise ValueError(
+            f"a {self.tag} table of shape {tuple(self.table.shape)} does not fit "
+            f"a frontier with rows of shape {feat}"
+        )
 
     def __call__(self, old, reduced, rows):
         if self.tag == ADD_CONST:
@@ -87,7 +163,22 @@ class Epilogue:
             return c + reduced
         if self.tag == ADD_TABLE:
             return self.table[rows] + reduced
+        if self.tag == LABELPROP:
+            return self._labelprop(old, reduced, rows)
         return torch.minimum(old, reduced)
+
+    def _labelprop(self, old, reduced, rows):
+        # The reference's jnp.where(total > 0, mix * (reduced / safe) +
+        # (1 - mix) * old, old) as XLA compiles it: an IEEE division, the
+        # product (1 - mix)·old rounded, then one FMA (fma_f32).
+        total = _row_sum(reduced)
+        live = total > 0
+        safe = torch.where(live, total, torch.ones_like(total))
+        mix = torch.tensor(self.mix, device=reduced.device)
+        rest = torch.tensor(self.one_minus_mix, device=reduced.device) * old
+        prop = torch.where(live, fma_f32(mix, reduced / safe, rest), old)
+        anchor = self.table[rows]
+        return torch.where(_row_sum(anchor) > 0, anchor, prop)
 
 
 def _check_cuda(x) -> None:
@@ -116,23 +207,52 @@ def _check_tensors(expect: dict, device) -> None:
             raise ValueError(f"{name} must be contiguous on {device}")
 
 
-def _check_args(x_ext, sched, semiring, epilogue) -> None:
-    """Raise on anything K1 does not take (runs before any launch)."""
+def _feature_width(x, lead: int) -> tuple:
+    """``(feat, F)`` of a frontier with ``lead`` leading axes: rows of shape
+    ``()`` or ``(F,)``; raises on any other layout the kernels do not take."""
+    feat = tuple(x.shape[lead:])
+    if len(feat) > 1 or (feat and feat[0] < 1):
+        raise ValueError(
+            f"the kernels take frontier rows of shape () or (F,) with F >= 1, got {feat}"
+        )
+    return feat, (feat[0] if feat else 1)
+
+
+def _check_aligned(F: int, named: dict) -> None:
+    """Rows of F in :data:`VECTOR_F` are loaded as vectors: each F-wide
+    tensor must start at a multiple of its row's vector width."""
+    if F not in VECTOR_F:
+        return
+    align = 4 * min(F, 4)
+    for name, t in named.items():
+        if t is not None and t.data_ptr() % align:
+            raise ValueError(f"{name}: F={F} rows must start {align}-byte aligned")
+
+
+def _check_args(x_ext, sched, semiring, epilogue) -> int:
+    """Raise on anything K1 does not take (runs before any launch); returns F.
+    The shapes are checked before the device, so a CPU call with wrong
+    shapes says what is wrong with them."""
     _check_epilogue(x_ext, semiring, epilogue)
-    _check_cuda(x_ext)
+    feat, F = _feature_width(x_ext, 1)
+    if epilogue.tag == LABELPROP and not feat:
+        raise ValueError("a labelprop epilogue needs a matrix frontier (n + 1, F)")
     S, P, M, delta = sched.S, sched.P, sched.M, sched.delta
     expect = {
-        "x_ext": (x_ext, (sched.n_slots,), x_ext.dtype),
+        "x_ext": (x_ext, (sched.n_slots,) + feat, x_ext.dtype),
         "src": (sched.src, (S, P, M), torch.int32),
         "val": (sched.val, (S, P, M), x_ext.dtype),
         "row_ptr": (sched.row_ptr, (S, P, delta + 1), torch.int32),
         "rows": (sched.rows, (S, P, delta), torch.int32),
     }
     if epilogue.table is not None:
-        expect["table"] = (epilogue.table, (sched.n_slots,), x_ext.dtype)
+        expect["table"] = (epilogue.table, (sched.n_slots,) + feat, x_ext.dtype)
     _check_tensors(expect, x_ext.device)
-    if sched.n_slots >= 2**31:
-        raise ValueError("the frontier must have fewer than 2**31 slots")
+    if max(sched.n_slots, P * delta) * F >= 2**31:
+        raise ValueError("the frontier and the step's rows must hold fewer than 2**31 values")
+    _check_aligned(F, {"x_ext": x_ext, "table": epilogue.table})
+    _check_cuda(x_ext)
+    return F
 
 
 def _library():
@@ -141,13 +261,10 @@ def _library():
     lib = load("round_block")
     if lib.round_block_launch.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.round_block_launch.argtypes = (
-            [i32] + [ptr] * 7 + [ctypes.c_double] + [i32] * 6 + [ptr]
-        )
+        f64 = ctypes.c_double
+        lib.round_block_launch.argtypes = [i32] + [ptr] * 7 + [f64] * 3 + [i32] * 7 + [ptr]
         lib.round_block_launch.restype = i32
-        lib.halo_round_launch.argtypes = (
-            [i32] * 2 + [ptr] * 12 + [ctypes.c_double] * 2 + [i32] * 10 + [ptr]
-        )
+        lib.halo_round_launch.argtypes = [i32] * 2 + [ptr] * 13 + [f64] * 4 + [i32] * 11 + [ptr]
         lib.halo_round_launch.restype = i32
         lib.round_block_error_string.argtypes = [i32]
         lib.round_block_error_string.restype = ctypes.c_char_p
@@ -161,13 +278,13 @@ def _raise_on(lib, err: int, what: str) -> None:
 
 
 def fused_round_cuda(x_ext, sched, semiring, epilogue) -> torch.Tensor:
-    """One round on the card: returns a new ``(n+1,)`` frontier (``x_ext`` is
-    left as it was).  Launches on the current stream and does not synchronise.
-    The dump slot's value is unspecified."""
-    _check_args(x_ext, sched, semiring, epilogue)
+    """One round on the card: returns a new ``(n+1,)+feat`` frontier
+    (``x_ext`` is left as it was).  Launches on the current stream and does
+    not synchronise.  The dump row's value is unspecified."""
+    F = _check_args(x_ext, sched, semiring, epilogue)
     lib = _library()
     out = x_ext.clone()
-    scratch = torch.empty(sched.P * sched.delta, dtype=out.dtype, device=out.device)
+    scratch = torch.empty(sched.P * sched.delta * F, dtype=out.dtype, device=out.device)
     table = epilogue.table.data_ptr() if epilogue.table is not None else None
     with torch.cuda.device(out.device):
         err = lib.round_block_launch(
@@ -180,12 +297,15 @@ def fused_round_cuda(x_ext, sched, semiring, epilogue) -> torch.Tensor:
             sched.rows.data_ptr(),
             table,
             float(epilogue.const),
+            float(epilogue.mix),
+            float(epilogue.one_minus_mix),
             TAG_CODES[epilogue.tag],
             sched.n,
             sched.S,
             sched.P,
             sched.M,
             sched.delta,
+            F,
             torch.cuda.current_stream(out.device).cuda_stream,
         )
     _raise_on(lib, err, "round_block")
@@ -196,13 +316,14 @@ def fused_round_cuda(x_ext, sched, semiring, epilogue) -> torch.Tensor:
 fused_round_cuda.launches = 0  # kernel launches, for showing a path used K1
 
 
-
-
 def _check_halo_args(x_loc, ef, sched, plan, semiring, epilogue, halo_dtype, steps):
-    """Raise on anything K2 does not take; returns the step range.  The
-    shapes are checked before the device, so a CPU call with wrong shapes
-    says what is wrong with them."""
+    """Raise on anything K2 does not take; returns the step range and F.
+    The shapes are checked before the device, so a CPU call with wrong
+    shapes says what is wrong with them."""
     _check_epilogue(x_loc, semiring, epilogue)
+    feat, F = _feature_width(x_loc, 2)
+    if epilogue.tag == LABELPROP and not feat:
+        raise ValueError("a labelprop epilogue needs a matrix frontier (D, L, F)")
     if halo_dtype not in _WIRE_CODES:
         raise ValueError(f"halo_dtype must be one of {tuple(_WIRE_CODES)}, got {halo_dtype!r}")
     if halo_dtype != "f32" and x_loc.dtype != torch.float32:
@@ -216,8 +337,10 @@ def _check_halo_args(x_loc, ef, sched, plan, semiring, epilogue, halo_dtype, ste
     s0, s1 = (0, S) if steps is None else (int(steps[0]), int(steps[1]))
     if not 0 <= s0 <= s1 <= S:
         raise ValueError(f"steps must satisfy 0 <= s0 <= s1 <= S={S}, got {(s0, s1)}")
+    if halo_dtype != "f32" and D * F > MAX_SCALES:
+        raise ValueError(f"a {halo_dtype} wire keeps at most {MAX_SCALES} scales a step, D·F = {D * F}")
     expect = {
-        "x_loc": (x_loc, (D, L), x_loc.dtype),
+        "x_loc": (x_loc, (D, L) + feat, x_loc.dtype),
         "src_loc": (plan.src_loc, (D, S, P_loc, M), torch.int32),
         "val": (sched.val, (S, P, M), x_loc.dtype),
         "row_ptr": (sched.row_ptr, (S, P, delta + 1), torch.int32),
@@ -225,35 +348,38 @@ def _check_halo_args(x_loc, ef, sched, plan, semiring, epilogue, halo_dtype, ste
         "rows_loc": (plan.rows_loc, (D, S, P_loc, delta), torch.int32),
         "send_idx": (plan.send_idx, (S, D, H), torch.int32),
         "recv_idx": (plan.recv_idx, (S, D, D * H), torch.int32),
+        "dump_last": (plan.dump_last, (S, D), torch.int32),
     }
     if halo_dtype != "f32":
-        expect["ef"] = (ef, (D, S, H), torch.float32)
+        expect["ef"] = (ef, (D, S, H) + feat, torch.float32)
     if epilogue.table is not None:
-        expect["table"] = (epilogue.table, (sched.n_slots,), x_loc.dtype)
+        expect["table"] = (epilogue.table, (sched.n_slots,) + feat, x_loc.dtype)
     _check_tensors(expect, x_loc.device)
-    if max(D * L, P * delta, D * D * H) >= 2**31:
+    if max(D * L * F, P * delta * F, D * D * H, D * S * H * F) >= 2**31:
         raise ValueError("the halo frontier and its indices must stay below 2**31 entries")
+    _check_aligned(F, {"x_loc": x_loc, "table": epilogue.table})
     _check_cuda(x_loc)
-    return s0, s1
+    return s0, s1, F
 
 
 def fused_halo_round_cuda(
     x_loc, ef, sched, plan, semiring, epilogue, halo_dtype: str = "f32", steps=None
 ):
     """The commit steps ``steps = (s0, s1)`` (default: all ``S``) of one halo
-    round on the card, in one launch, in place on the stacked ``(D, L)``
-    frontier ``x_loc`` and, for an int8/fp8 wire, the ``(D, S, H)``
-    residuals ``ef`` (``ef`` is not read for f32).  Returns ``(x_loc, ef)``.
+    round on the card, in one launch, in place on the stacked ``(D, L)+feat``
+    frontier ``x_loc`` and, for an int8/fp8 wire, the ``(D, S, H)+feat``
+    residuals ``ef`` (``ef`` is not read for f32; a matrix frontier's wire
+    keeps one scale per shard, step and feature).  Returns ``(x_loc, ef)``.
     Launches on the current stream and does not synchronise; an empty range
     launches nothing.  The dump slots ``L - 1`` are never written."""
-    s0, s1 = _check_halo_args(x_loc, ef, sched, plan, semiring, epilogue, halo_dtype, steps)
+    s0, s1, F = _check_halo_args(x_loc, ef, sched, plan, semiring, epilogue, halo_dtype, steps)
     if s0 == s1:
         return x_loc, ef
     lib = _library()
     dev = x_loc.device
-    scratch = torch.empty(sched.P * sched.delta, dtype=x_loc.dtype, device=dev)
+    scratch = torch.empty(sched.P * sched.delta * F, dtype=x_loc.dtype, device=dev)
     quant = halo_dtype != "f32"
-    amax = torch.zeros((s1 - s0, plan.D), dtype=torch.int32, device=dev) if quant else None
+    amax = torch.zeros((s1 - s0, plan.D, F), dtype=torch.int32, device=dev) if quant else None
     inv_qmax = float(np.float32(1 / HALO_QUANT[halo_dtype][1])) if quant else 0.0
     table = epilogue.table.data_ptr() if epilogue.table is not None else None
     with torch.cuda.device(dev):
@@ -271,8 +397,11 @@ def fused_halo_round_cuda(
             plan.rows_loc.data_ptr(),
             plan.send_idx.data_ptr(),
             plan.recv_idx.data_ptr(),
+            plan.dump_last.data_ptr(),
             table,
             float(epilogue.const),
+            float(epilogue.mix),
+            float(epilogue.one_minus_mix),
             inv_qmax,
             TAG_CODES[epilogue.tag],
             s0,
@@ -284,6 +413,7 @@ def fused_halo_round_cuda(
             sched.delta,
             plan.L,
             plan.H,
+            F,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(lib, err, "halo_round")

@@ -3,11 +3,16 @@ from repro_torch.solve.problem import (
     Problem,
     cc_problem,
     count_changed_residual,
+    default_landmarks,
     jacobi_problem,
     l1_residual,
+    label_propagation_problem,
+    labelprop_anchors,
     pagerank_problem,
     ppr_problem,
     ppr_teleport,
+    rwr_embedding_problem,
+    rwr_restart,
     sssp_problem,
 )
 from repro_torch.solve.solver import BACKENDS, Solver
@@ -18,10 +23,15 @@ __all__ = [
     "Solver",
     "cc_problem",
     "count_changed_residual",
+    "default_landmarks",
     "jacobi_problem",
     "l1_residual",
+    "label_propagation_problem",
+    "labelprop_anchors",
     "pagerank_problem",
     "ppr_problem",
     "ppr_teleport",
+    "rwr_embedding_problem",
+    "rwr_restart",
     "sssp_problem",
 ]

@@ -10,11 +10,15 @@ Each factory's row update is an :class:`~repro_torch.kernels.round_block.Epilogu
 whose tag the CUDA round kernel evaluates itself:
 
 * ``add_const`` — pagerank: ``(1-d)/n + reduced``
-* ``add_table`` — ppr (the teleport vector ``q``) and jacobi (``b/diag``),
-  with the table padded to ``n+1`` rows so the dump row reads in bounds
+* ``add_table`` — ppr (the teleport vector ``q``), jacobi (``b/diag``) and
+  rwr (the ``(n, F)`` restart matrix ``q``), with the table padded to
+  ``n+1`` rows so the dump row reads in bounds
 * ``min_old``   — sssp and cc: ``min(old, reduced)``
+* ``labelprop`` — label propagation's row-normalised blend with its
+  anchors ``q`` (``(n, F)``, padded likewise)
 
-Matrix frontiers (rwr, labelprop) are a later slice of the port.
+rwr and labelprop iterate a matrix frontier ``(n, F)``: F columns that share
+one schedule (``Problem.feature_dim``).
 """
 
 from __future__ import annotations
@@ -39,6 +43,11 @@ __all__ = [
     "sssp_problem",
     "cc_problem",
     "jacobi_problem",
+    "default_landmarks",
+    "rwr_restart",
+    "rwr_embedding_problem",
+    "labelprop_anchors",
+    "label_propagation_problem",
 ]
 
 
@@ -53,10 +62,13 @@ class Problem:
       ``takes_query`` problems and ``None`` otherwise.
     * ``residual``        — ``(x_prev, x_new) -> scalar tensor``; converged
       when ``residual ≤ tol``.
-    * ``x0``              — ``graph -> (n,) ndarray`` initial state factory.
+    * ``x0``              — ``graph -> (n,) ndarray`` initial state factory
+      (``(n, F)`` when ``feature_dim = F > 1``).
     * ``edge_values``     — optional ``graph -> (nnz,) ndarray`` override used
       when building the schedule (CC zeroes the weights so ⊗ is a no-op).
     * ``default_query``   — optional ``graph -> q`` for query problems.
+    * ``feature_dim``     — the frontier width F: ``1`` for the vector
+      problems; rwr and labelprop iterate ``(n, F)`` (``x0`` returns it).
     """
 
     name: str
@@ -69,6 +81,7 @@ class Problem:
     edge_values: Callable | None = None
     takes_query: bool = False
     default_query: Callable | None = None
+    feature_dim: int = 1
 
 
 def count_changed_residual(x_prev, x_new):
@@ -82,9 +95,11 @@ def l1_residual(x_prev, x_new):
 
 
 def _row_table(values, device) -> torch.Tensor:
-    """``(n,)`` per-row values → ``(n+1,)`` f32 table with a 0 in the dump row."""
+    """``(n,)+feat`` per-row values → ``(n+1,)+feat`` f32 table with a zero
+    dump row."""
     values = np.asarray(values, dtype=np.float32)
-    return torch.as_tensor(np.append(values, np.float32(0.0)), device=device)
+    pad = np.zeros((1,) + values.shape[1:], dtype=np.float32)
+    return torch.as_tensor(np.concatenate([values, pad]), device=device)
 
 
 def _min_old(graph, q, device):
@@ -200,4 +215,98 @@ def jacobi_problem(
         x0=lambda g: np.zeros(g.n, dtype=np.float32),
         tol=tol,
         max_rounds=max_rounds,
+    )
+
+
+# --------------------------------------------------------------------------- #
+# Matrix-frontier factories: the engine's (n, F) workloads.
+# --------------------------------------------------------------------------- #
+def default_landmarks(n: int, feature_dim: int) -> np.ndarray:
+    """``feature_dim`` evenly spaced landmark vertices on an ``n``-vertex graph."""
+    return (np.arange(int(feature_dim), dtype=np.int64) * int(n)) // int(feature_dim)
+
+
+def rwr_restart(graph: CSRGraph, seeds, damping: float = 0.85) -> np.ndarray:
+    """(n, F) restart-mass matrix for :func:`rwr_embedding_problem`: column
+    ``f`` carries ``(1-d)·e_{seeds[f]}``."""
+    seeds = np.atleast_1d(np.asarray(seeds, dtype=np.int64))
+    r = np.zeros((graph.n, seeds.shape[0]), dtype=np.float32)
+    r[seeds, np.arange(seeds.shape[0])] = np.float32(1.0 - damping)
+    return r
+
+
+def rwr_embedding_problem(
+    feature_dim: int = 4,
+    damping: float = 0.85,
+    tol: float = 1e-4,
+    max_rounds: int = 1000,
+) -> Problem:
+    """Random-walk-with-restart embeddings: F restart columns, one solve.
+
+    Each column of the ``(n, F)`` state solves personalized PageRank toward
+    one landmark (``q`` is the :func:`rwr_restart` matrix), so a vertex's
+    row is its F-dimensional proximity embedding.  Edge values must hold
+    ``d / outdeg(src)`` as for :func:`pagerank_problem`.  With
+    ``feature_dim=1`` and a single-seed restart column this is
+    :func:`ppr_problem`, bit for bit.
+    """
+    F = int(feature_dim)
+
+    def make_row_update(graph, q, device):
+        return Epilogue(ADD_TABLE, table=_row_table(q, device))
+
+    return Problem(
+        name="rwr",
+        semiring=PLUS_TIMES,
+        make_row_update=make_row_update,
+        residual=l1_residual,
+        x0=lambda g: np.full((g.n, F), 1.0 / g.n, dtype=np.float32),
+        tol=tol,
+        max_rounds=max_rounds,
+        takes_query=True,
+        default_query=lambda g: rwr_restart(g, default_landmarks(g.n, F), damping),
+        feature_dim=F,
+    )
+
+
+def labelprop_anchors(graph: CSRGraph, seeds) -> np.ndarray:
+    """(n, F) one-hot anchor matrix: ``seeds[f]`` is clamped to class ``f``."""
+    seeds = np.atleast_1d(np.asarray(seeds, dtype=np.int64))
+    a = np.zeros((graph.n, seeds.shape[0]), dtype=np.float32)
+    a[seeds, np.arange(seeds.shape[0])] = np.float32(1.0)
+    return a
+
+
+def label_propagation_problem(
+    feature_dim: int = 4, mix: float = 0.9, tol: float = 1e-3, max_rounds: int = 2000
+) -> Problem:
+    """F-class semi-supervised label propagation with a row-normalized ⊕.
+
+    The state is an ``(n, F)`` class-membership matrix.  A commit pulls the
+    plus-times ⊕ of neighbour rows over unit edge weights (``edge_values``),
+    then row-normalizes it; rows whose in-edges are all padding keep their
+    value, and anchored rows (``q`` rows with mass, from
+    :func:`labelprop_anchors`) clamp back to their one-hot label.  ``mix``
+    damps the update, ``mix·prop + (1-mix)·old`` (:meth:`Epilogue.labelprop`).
+    """
+    F = int(feature_dim)
+    mix = float(mix)
+    if not 0.0 < mix <= 1.0:
+        raise ValueError(f"mix must be in (0, 1], got {mix}")
+
+    def make_row_update(graph, q, device):
+        return Epilogue.labelprop(_row_table(q, device), mix)
+
+    return Problem(
+        name="labelprop",
+        semiring=PLUS_TIMES,
+        make_row_update=make_row_update,
+        residual=l1_residual,
+        x0=lambda g: np.full((g.n, F), 1.0 / F, dtype=np.float32),
+        tol=tol,
+        max_rounds=max_rounds,
+        edge_values=lambda g: np.ones(g.nnz, dtype=np.float32),
+        takes_query=True,
+        default_query=lambda g: labelprop_anchors(g, default_landmarks(g.n, F)),
+        feature_dim=F,
     )

@@ -12,6 +12,11 @@ counts and asks the δ cost model (:mod:`repro_torch.core.delta_model`) for
 hand-written CUDA kernel K1 on a CUDA device, and as K1's plain version on
 the CPU; ``backend="torch"`` runs the plain round on either, for comparison.
 
+The frontier is a vector ``(n,)`` or a matrix ``(n, F)``: rwr embeddings
+and label propagation (``Problem.feature_dim = F``) iterate F columns over
+one schedule, and any problem takes an ``(n, F)`` ``x0``.  K1 and K2 take
+the feature axis; ``flush_bytes`` counts F values a published row.
+
 ``frontier="halo"`` runs the owner-computes sharded frontier
 (:mod:`repro_torch.dist.engine_sharded`) over ``n_shards`` shards, all on the
 solver's device: each round is one launch of the halo-round kernel K2, all
@@ -47,6 +52,7 @@ from repro_torch.dist import engine_sharded
 from repro_torch.graphs.formats import CSRGraph
 from repro_torch.graphs.partition import balanced_blocks
 from repro_torch.kernels.ops import fused_round
+from repro_torch.kernels.round_block import Epilogue
 from repro_torch.solve.problem import Problem
 
 __all__ = [
@@ -267,18 +273,15 @@ class Solver:
     # inputs
     # ------------------------------------------------------------------ #
     def _x_ext(self, x0) -> torch.Tensor:
-        """Append the dump slot to a vector ``x0`` of shape ``(n,)``."""
+        """Append the dump slot to ``x0``: a vector ``(n,)`` or a matrix
+        ``(n, F)`` (``(n, 1)`` is accepted for any problem, and runs the
+        vector round's arithmetic)."""
         if x0 is None:
             x0 = self.problem.x0(self.graph)
         x0 = np.asarray(x0)
         n = self.graph.n
-        if x0.ndim == 2 and x0.shape[0] == n:
-            raise NotImplementedError(
-                "(n, F) matrix frontiers are a later slice of the port "
-                "(ROADMAP queue A, matrix frontiers)"
-            )
-        if x0.shape != (n,):
-            raise ValueError(f"x0 must have shape ({n},), got {x0.shape}")
+        if not (x0.shape == (n,) or (x0.ndim == 2 and x0.shape[0] == n)):
+            raise ValueError(f"x0 must have shape ({n},) or ({n}, F), got {x0.shape}")
         return extend_frontier(x0, self.problem.semiring, self.device)
 
     def row_update(self, q=None):
@@ -292,14 +295,15 @@ class Solver:
                 raise ValueError(f"problem {self.problem.name!r} needs q=")
             q = self.problem.default_query(self.graph)
         q = np.asarray(q)
-        if q.shape != (self.graph.n,):
-            raise ValueError(f"q must have shape ({self.graph.n},), got {q.shape}")
+        n, F = self.graph.n, self.problem.feature_dim
+        if q.shape not in ((n,), (n, F)):
+            raise ValueError(f"q must have shape ({n},) or ({n}, {F}), got {q.shape}")
         return self.problem.make_row_update(self.graph, q, self.device)
 
     # ------------------------------------------------------------------ #
     # solve
     # ------------------------------------------------------------------ #
-    def _round(self, sched, backend, frontier, halo_dtype, row_update):
+    def _round(self, sched, backend, frontier, halo_dtype, row_update, feat):
         sr = self.problem.semiring
         if frontier == "halo":
             plan = self.frontier_plan(sched)
@@ -310,7 +314,7 @@ class Solver:
             )
             # The error-feedback residuals are loop state of one solve: fresh
             # zeros per solve, carried from round to round.
-            state = {"ef": engine_sharded.frontier_ef_init(plan)}
+            state = {"ef": engine_sharded.frontier_ef_init(plan, feat)}
 
             def rnd(x):
                 x, state["ef"] = fn(x, state["ef"])
@@ -342,7 +346,11 @@ class Solver:
         max_rounds = self.max_rounds if max_rounds is None else max_rounds
         sched = self.schedule(delta)
         x_ext = self._x_ext(x0)
-        rnd = self._round(sched, backend, frontier, halo_dtype, self.row_update(q))
+        feat = tuple(x_ext.shape[1:])
+        row_update = self.row_update(q)
+        if isinstance(row_update, Epilogue):  # fit its table to x's rows
+            row_update = row_update.for_frontier(feat)
+        rnd = self._round(sched, backend, frontier, halo_dtype, row_update, feat)
         build_s = 0.0
         if backend == "kernel" and self.device.type == "cuda":
             from repro_torch.kernels.build import load

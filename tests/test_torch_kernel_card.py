@@ -1,4 +1,5 @@
-"""K1, K2 and K3 on the card against their plain versions, bit for bit.
+"""K1, K2 and K3 on the card against their plain versions, bit for bit,
+on vector frontiers and on (n + 1, F) matrix frontiers.
 
 Imports neither jax nor ``repro``, so it runs on a machine with a CUDA card
 and only the port installed:
@@ -23,13 +24,20 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.round_block import (  # noqa: E402
     ADD_CONST,
     ADD_TABLE,
+    LABELPROP,
     MIN_OLD,
     Epilogue,
     fused_halo_round_cuda,
     fused_round_cuda,
 )
 from repro_torch.kernels.spmv_ell import spmv_ell_cuda  # noqa: E402
-from repro_torch.solve import Solver, pagerank_problem, sssp_problem  # noqa: E402
+from repro_torch.solve import (  # noqa: E402
+    Solver,
+    label_propagation_problem,
+    pagerank_problem,
+    rwr_embedding_problem,
+    sssp_problem,
+)
 
 
 @pytest.fixture
@@ -359,3 +367,155 @@ def test_halo_round_kernel_over_split_steps(cuda_device, wire):
     for steps in ((0, k), (k, k + 1), (k + 1, dev.S)):
         ops.fused_halo_round(*got, dev, plan, sr, ep.to(cuda_device), wire, steps)
     _assert_halo_equal(got, want)
+
+
+# Matrix frontiers (n + 1, F): K1 and K2 against their plain versions by
+# bits.  F = 1 runs the vector code on an (n + 1, 1) frontier, F = 2, 4, 8
+# the vectorized rows, F = 3 the loop over feature blocks
+# (csrc/round_block.cu).
+def _matrix_inputs(tag, F, device, g=None):
+    """Graph, semiring, (n, F) x0 and epilogue: rwr's add_table over an
+    (n + 1, F) table, labelprop's anchors (rows with total 0 and anchored
+    rows included) on unit edges, add_const, and min_old on int32."""
+    rng = np.random.default_rng(F)
+    if tag == MIN_OLD:
+        g = g or make_graph("kron", scale=10, efactor=8, kind="sssp")
+        return g, MIN_PLUS, rng.integers(0, 1000, (g.n, F)).astype(np.int32), Epilogue(MIN_OLD)
+    g = g or make_graph("twitter", scale=10, efactor=8, kind="pagerank")
+    x0 = rng.random((g.n, F)).astype(np.float32)
+    if tag == ADD_CONST:
+        return g, PLUS_TIMES, x0, Epilogue(ADD_CONST, const=float(np.float32(0.15 / g.n)))
+    if tag == ADD_TABLE:
+        return g, PLUS_TIMES, x0, Epilogue(ADD_TABLE, table=torch.as_tensor(_wide_range(rng, (g.n + 1, F))))
+    anchors = np.zeros((g.n + 1, F), np.float32)
+    anchors[rng.choice(g.n, 9, replace=False), rng.integers(0, F, 9)] = 1.0
+    x0[rng.random(g.n) < 0.2] = 0.0
+    g = g.with_values(np.ones(g.nnz, np.float32))
+    return g, PLUS_TIMES, x0, Epilogue.labelprop(torch.as_tensor(anchors), 0.9)
+
+
+MATRIX_K1 = [(1, ADD_TABLE), (1, LABELPROP), (2, MIN_OLD), (2, LABELPROP), (3, ADD_TABLE), (3, LABELPROP),
+             (3, MIN_OLD), (4, ADD_CONST), (4, ADD_TABLE), (4, LABELPROP), (8, ADD_TABLE),
+             (8, LABELPROP)]
+MATRIX_MODES = [("sync", None), ("delayed", 1), ("delayed", 96), ("delayed", 3001)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,delta", MATRIX_MODES)
+@pytest.mark.parametrize("F,tag", MATRIX_K1)
+def test_matrix_round_kernel_matches_plain_round(cuda_device, F, tag, mode, delta):
+    g, sr, x0, ep = _matrix_inputs(tag, F, cuda_device)
+    cpu = engine.make_schedule(g, 4, delta, sr, mode=mode, min_chunk=32)
+    dev = engine.make_schedule(g, 4, delta, sr, mode=mode, min_chunk=32, device=cuda_device)
+    x = engine.extend_frontier(x0, sr, "cpu")
+    launches = fused_round_cuda.launches
+    for _ in range(2):
+        want = ref.fused_round_ref(x, cpu, sr, ep)
+        got = ops.fused_round(x.to(cuda_device), dev, sr, ep.to(cuda_device))
+        torch.cuda.synchronize()
+        assert _bits_equal(got.cpu()[:-1], want[:-1])
+        x = want
+    assert fused_round_cuda.launches == launches + 2
+
+
+def _matrix_halo_case(g, sr, x0, ep, mode, delta, D, wire, device, min_chunk=32):
+    rng = np.random.default_rng(D)
+    cpu = engine.make_schedule(g, 8, delta, sr, mode=mode, min_chunk=min_chunk)
+    dev = engine.make_schedule(g, 8, delta, sr, mode=mode, min_chunk=min_chunk, device=device)
+    plan_cpu = engine_sharded.make_frontier_plan(cpu, D)
+    plan = engine_sharded.make_frontier_plan(dev, D)
+    x_loc = plan_cpu.scatter_x(engine.extend_frontier(x0, sr, "cpu"))
+    ef = torch.as_tensor(rng.standard_normal((D, plan.S, plan.H) + x0.shape[1:]).astype(np.float32))
+    ef *= float(x_loc.float().abs().mean()) * 1e-2
+    want, got = (x_loc, ef), (x_loc.to(device), ef.to(device))
+    launches = fused_halo_round_cuda.launches
+    for _ in range(2):
+        ref.fused_halo_round_ref(*want, cpu, plan_cpu, sr, ep, wire)
+        ops.fused_halo_round(*got, dev, plan, sr, ep.to(device), wire)
+        _assert_halo_equal(got, want)
+    assert fused_halo_round_cuda.launches == launches + 2
+
+
+MATRIX_K2 = [(4, t, w) for t in (ADD_CONST, ADD_TABLE, LABELPROP) for w in ("f32", "int8", "fp8")]
+MATRIX_K2 += [(2, MIN_OLD, "f32")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [2, 4])
+@pytest.mark.parametrize("mode,delta", MATRIX_MODES)
+@pytest.mark.parametrize("F,tag,wire", MATRIX_K2)
+def test_matrix_halo_round_kernel_matches_plain_round(cuda_device, F, tag, wire, mode, delta, D):
+    """(D, L, F) frontiers, (H, F) boundary blocks, one scale a feature: x_loc
+    outside the dump slots and ef, two rounds from the same state."""
+    g, sr, x0, ep = _matrix_inputs(tag, F, cuda_device)
+    _matrix_halo_case(g, sr, x0, ep, mode, delta, D, wire, cuda_device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,delta", [("sync", None), ("delayed", 96)])
+@pytest.mark.parametrize("wire", ["f32", "int8"])
+@pytest.mark.parametrize("F,tag", [(1, ADD_TABLE), (2, LABELPROP), (3, ADD_TABLE), (3, LABELPROP), (8, ADD_TABLE), (8, LABELPROP)])
+def test_matrix_halo_round_other_widths(cuda_device, F, tag, wire, mode, delta):
+    g, sr, x0, ep = _matrix_inputs(tag, F, cuda_device)
+    _matrix_halo_case(g, sr, x0, ep, mode, delta, 4, wire, cuda_device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,delta", [("sync", None), ("delayed", 301), ("delayed", 3001)])
+@pytest.mark.parametrize("tag", [ADD_TABLE, LABELPROP, MIN_OLD])
+def test_matrix_kernels_sum_hub_rows_in_edge_order(cuda_device, tag, mode, delta):
+    """F = 4 on the 25,000-edge hub row (24 chunks): K1, and K2 at D = 2 and
+    4 (f32, and int8 where the semiring is float)."""
+    kind = "sssp" if tag == MIN_OLD else "pagerank"
+    g, sr, x0, ep = _matrix_inputs(tag, 4, cuda_device, g=_hub_graph(kind, 30_001, 25_000))
+    kw = dict(mode=mode, min_chunk=1)
+    cpu = engine.make_schedule(g, 4, delta, sr, **kw)
+    dev = engine.make_schedule(g, 4, delta, sr, device=cuda_device, **kw)
+    x = engine.extend_frontier(x0, sr, "cpu")
+    want = ref.fused_round_ref(x, cpu, sr, ep)
+    got = ops.fused_round(x.to(cuda_device), dev, sr, ep.to(cuda_device))
+    torch.cuda.synchronize()
+    assert _bits_equal(got.cpu()[:-1], want[:-1])
+    for D in (2, 4):
+        for wire in ("f32",) if tag == MIN_OLD else ("f32", "int8"):
+            _matrix_halo_case(g, sr, x0, ep, mode, delta, D, wire, cuda_device, min_chunk=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("frontier", ["replicated", "halo"])
+@pytest.mark.parametrize("name", ["rwr", "labelprop"])
+def test_matrix_solver_on_card_matches_cpu(cuda_device, name, frontier):
+    g = make_graph("twitter", scale=10, efactor=8, kind="pagerank")
+    problem = rwr_embedding_problem() if name == "rwr" else label_propagation_problem()
+    kw = dict(n_workers=8, delta=96, min_chunk=32, frontier=frontier, n_shards=4)
+    on_card = Solver(g, problem, **kw).solve()
+    on_cpu = Solver(g, problem, device="cpu", **kw).solve()
+    assert (on_card.rounds, on_card.flush_bytes) == (on_cpu.rounds, on_cpu.flush_bytes)
+    assert on_card.x.shape == (g.n, 4)
+    np.testing.assert_array_equal(on_card.x, on_cpu.x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("frontier", ["replicated", "halo"])
+def test_matrix_solve_without_nvcc_raises_instead_of_running_plain(cuda_device, tmp_path, monkeypatch, frontier):
+    """No fallback for matrix frontiers either: with no built library and no
+    nvcc, the kernel backend's rwr solve raises and never runs the plain
+    round."""
+    from repro_torch.kernels import build
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    build.load.cache_clear()
+    calls = []
+    monkeypatch.setattr(ref, "fused_round_ref", lambda *a: calls.append(a))
+    monkeypatch.setattr(ref, "fused_halo_round_ref", lambda *a: calls.append(a))
+    try:
+        g = make_graph("twitter", scale=9, efactor=8, kind="pagerank")
+        solver = Solver(g, rwr_embedding_problem(), n_workers=8, delta=64, min_chunk=32,
+                        frontier=frontier, n_shards=4)
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            solver.solve(backend="kernel")
+        assert not calls
+    finally:
+        build.load.cache_clear()

@@ -131,9 +131,9 @@ def test_solver_without_device_needs_cuda():
 @pytest.mark.parametrize(
     "kwargs,solve_kwargs,exc",
     [
-        ({"frontier": "halo"}, {"x0": np.zeros((512, 2), np.float32)}, NotImplementedError),
-        ({}, {"frontier": "halo", "x0": np.zeros((512, 3), np.float32)}, NotImplementedError),
-        ({}, {"x0": np.zeros((512, 2), np.float32)}, NotImplementedError),
+        ({"frontier": "halo"}, {"x0": np.zeros((511, 2), np.float32)}, ValueError),
+        ({}, {"frontier": "halo", "x0": np.zeros((512, 2, 2), np.float32)}, ValueError),
+        ({}, {"x0": np.zeros((2, 512), np.float32)}, ValueError),
         ({}, {"x0": np.zeros(7, np.float32)}, ValueError),
         ({"backend": "pallas"}, {}, ValueError),
         ({"delta": "fast"}, {}, ValueError),
