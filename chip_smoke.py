@@ -25,8 +25,12 @@ exit and no result line:
    frontiers ``(n + 1, 4)``, K2 on ``(D, L, 4)`` with ``(D, S, H, 4)``
    residuals) likewise, for rwr (``add_table`` over its ``(n + 1, 4)``
    restart table) and labelprop (its anchors, unit edges) on twitter at
-   scale 16 at δ = sync and 128, and after phase 3 at scale 22 at sync and
-   each problem's δ*.
+   scale 16 at δ = sync and 128, and after phase 3 at scale 22 at sync.
+   K1's batch entry (one launch a round for a batch frontier
+   ``(n + 1, Q)+feat``) likewise, one round from the same frontier: ppr
+   (``add_table`` over Q = 8 teleports) and multi-source sssp at Q = 8, rwr
+   and labelprop at Q = 2, F = 4, at scale 16 (sync, 128) and, after phase
+   3, at scale 22 (sync, δ*).
 3. the main path, ``Solver(...).solve()`` with ``backend="kernel"`` at sync,
    async, 1024 and auto (twice: cold, then warm): PageRank on ``twitter``
    scale 22 (4.2 M vertices, 64.3 M edges) and SSSP on the same topology
@@ -50,6 +54,19 @@ exit and no result line:
    finite ``(n, 4)`` values, and the halo solve must equal the replicated one in
    x, rounds, flushes and flush_bytes.  At scale 14 their kernel solves
    (replicated and halo, async) must equal the CPU plain solves.
+   Then the batch path, with the batch entry's launch count reset before
+   and read after: ``Solver.solve_batch`` on twitter scale 22 for ppr
+   (Q = 8 teleports, one a seed: the 8 vertices of largest out-degree) and
+   multi-source sssp from the same 8 vertices, at sync and δ*, and ppr at
+   Q = 32 at δ*, each twice (``total_s`` is the second call's wall time,
+   beside the caching allocator's device allocations and retries in it);
+   then a ``BatchStepper`` at scale 16 (capacity 8, 12 ppr queries
+   admitted two a quantum of 4 rounds).  One batch launch a round and no
+   single-query launch; after the count, each batch query's x must equal its
+   own kernel ``solve(tol=-1.0, max_rounds=batch.rounds)`` bit for bit,
+   ``rounds_per_query`` each single solve's rounds (whose wall times are
+   summed beside the batch's), and every retired row of the open batch a
+   fresh one-query ``solve_batch``.
 4. K1's time per round at the full-size shapes, at sync, 128, 1024 and
    auto's δ* (CUDA events), beside its byte bound, the same round with no
    edges to walk (barriers, epilogues and publishes alone), the plain round's
@@ -72,7 +89,11 @@ exit and no result line:
    labelprop at sync and δ*: K1's round and K2's round (f32, and int8)
    beside their bounds (``round_bound``, ``halo_round_bound`` with F), the
    plain rounds on the card, and ``torch.sparse.mm`` of the CSR by the
-   ``(n, 4)`` frontier (at δ*, one call a commit step).
+   ``(n, 4)`` frontier (at δ*, one call a commit step).  K1's batch entry
+   at C = Q·F = 8 (ppr and sssp, Q = 8) and 32 (rwr Q = 8 at F = 4, ppr
+   Q = 32) at sync and δ*, beside its bound (``round_bound`` with C), its
+   plain round on the card, ``torch.sparse.mm`` by the ``(n, C)`` frontier
+   (plus-times) and Q single-query K1 launches.
 5. the ``kernels`` line, the card's name and power limit, and the result line.
 
 It imports neither jax nor the JAX package ``repro``.
@@ -80,7 +101,8 @@ It imports neither jax nor the JAX package ``repro``.
     python3 chip_smoke.py --ab OTHER_CHECKOUT
 
 times only the vector kernels (K1 and K2 for PageRank at sync and δ* =
-16,384, K3 plus-times F = 1) of this checkout and of another one (the
+16,384, K1's batch entry at C = 8 and 32 where both checkouts have it, K3
+plus-times F = 1) of this checkout and of another one (the
 parent commit's, unpacked with ``git archive`` into a directory that
 ``.gitignore`` lists), in turns (other, this, this, other), each in its own
 process on the same twitter graph: a comparison of two versions on one card.
@@ -121,6 +143,12 @@ FLOOR_ROUNDS = 40
 # to 16 (at scale 22 it is, in a few rounds: four anchors move a small share
 # of 4.2 M rows), so the smoke caps its solves at this many rounds.
 LABELPROP_ROUNDS = 200
+# Batches: Q vector queries (ppr, multi-source sssp; the serving default of
+# src/repro/launch/serve_graph.py), a wide batch of Q_WIDE, and Q_MATRIX
+# matrix queries of F = 4 (rwr, labelprop) in phase 2; the open batch's
+# capacity and queries (phase 3, at HALO_SCALE).
+BATCH_Q, BATCH_Q_WIDE, BATCH_Q_MATRIX = 8, 32, 2
+STEPPER_CAPACITY, STEPPER_QUERIES = 8, 12
 
 
 def log(msg: str) -> None:
@@ -145,7 +173,10 @@ def ptxas_summary(nvcc_log: str) -> list[dict]:
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
             mangled = m.group(1)
-            base = next((k for k in ("halo_round_kernel", "round_kernel", "spmv_tiles") if k in mangled), mangled)
+            base = next(
+                (k for k in ("halo_round_kernel", "wide_round_kernel", "round_kernel", "spmv_tiles") if k in mangled),
+                mangled,
+            )
             args = re.findall(r"PlusTimes|MinPlus|(?<=Li)\d+(?=E)", mangled.split(base, 1)[-1])
             cur = {"kernel": f"{base}<{','.join(args)}>"}
             out.append(cur)
@@ -157,6 +188,12 @@ def ptxas_summary(nvcc_log: str) -> list[dict]:
             m = re.search(r"(\d+) bytes smem", ln)
             cur["smem_bytes"] = int(m.group(1)) if m else 0
     return out
+
+
+def top_out_degree(graph, k: int) -> np.ndarray:
+    """The ``k`` vertices of largest out-degree (ties by id): the batches'
+    seeds and sources."""
+    return np.argsort(-graph.out_degree, kind="stable")[:k]
 
 
 def step_blocks(graph, sched, device) -> list:
@@ -269,14 +306,17 @@ AB_DELTAS = ("sync", 16384)  # δ* of PageRank on twitter scale 22
 
 def time_vector(graph_npz: str, root: str) -> int:
     """The vector kernels of the checkout at ``root``, timed on the graph in
-    ``graph_npz``: K1 and K2 (D = SHARDS) for PageRank at AB_DELTAS, and K3
-    plus-times F = 1; prints one JSON object."""
+    ``graph_npz``: K1 and K2 (D = SHARDS) for PageRank at AB_DELTAS, K1's
+    batch entry (where the checkout has one) for an add_table batch of C =
+    8 and 32 columns at AB_DELTAS, and K3 plus-times F = 1; prints one JSON
+    object."""
     sys.path.insert(0, str(Path(root).resolve() / "src"))
     from repro_torch.core import engine
     from repro_torch.core.semiring import PLUS_TIMES
     from repro_torch.dist import engine_sharded
     from repro_torch.graphs.formats import CSRGraph
     from repro_torch.kernels import build, ops
+    from repro_torch.kernels.round_block import ADD_TABLE, Epilogue
     from repro_torch.solve import pagerank_problem
 
     build.build()
@@ -294,6 +334,13 @@ def time_vector(graph_npz: str, root: str) -> int:
         plan = engine_sharded.make_frontier_plan(sched, SHARDS)
         x_loc = plan.scatter_x(x)
         row[f"k2_{d}_ms"] = time_ms(lambda: ops.fused_halo_round(x_loc, None, sched, plan, PLUS_TIMES, ep))
+        for C in (8, 32) if hasattr(ops, "fused_batch_round") else ():
+            X = x[:, None].expand(-1, C).contiguous()
+            table = torch.zeros((g.n + 1, C), device=dev)
+            table[torch.arange(C, device=dev) * (g.n // C), torch.arange(C, device=dev)] = 0.15
+            ep_b = Epilogue(ADD_TABLE, table=table)
+            row[f"kb_c{C}_{d}_ms"] = time_ms(lambda: ops.fused_batch_round(X, sched, PLUS_TIMES, ep_b))
+            del X, table, ep_b
         del sched, plan, x_loc
     idx, val = (torch.from_numpy(v).to(dev) for v in ops.ell_from_csr(g))
     row["k3_ms"] = time_ms(lambda: ops.spmv(x, idx, val, "plus_times"))
@@ -352,15 +399,24 @@ def main() -> int:
     from repro_torch.dist import engine_sharded
     from repro_torch.graphs.generators import make_graph, sssp_values
     from repro_torch.kernels import build, ops, ref
-    from repro_torch.kernels.round_block import fused_halo_round_cuda, fused_round_cuda
+    from repro_torch.kernels.round_block import (
+        Epilogue,
+        fused_batch_round_cuda,
+        fused_halo_round_cuda,
+        fused_round_cuda,
+    )
     from repro_torch.kernels.spmv_ell import spmv_ell_cuda
     from repro_torch.solve import (
+        BatchStepper,
         Solver,
         label_propagation_problem,
+        labelprop_anchors,
+        multi_source_x0,
         pagerank_problem,
         ppr_problem,
         ppr_teleport,
         rwr_embedding_problem,
+        rwr_restart,
         sssp_problem,
     )
 
@@ -402,25 +458,37 @@ def main() -> int:
         }
 
     # ---------------------------------------------------------------- 2 ---
-    max_abs_err = 0.0
+    max_abs_err = batch_err = 0.0
     compare_launches = 0
 
-    def compare(label, sched, sr, epilogue, x_cpu):
-        nonlocal max_abs_err, compare_launches
+    def compare(label, sched, sr, epilogue, x_cpu, batch=False):
+        """K1 (or, with ``batch``, its batch entry on an (n + 1, Q)+feat
+        frontier) against its plain round, one round from the same x, bit for
+        bit."""
+        nonlocal max_abs_err, batch_err, compare_launches
+        plain, kernel = ref.fused_round_ref, fused_round_cuda
+        if batch:
+            plain, kernel = ref.fused_batch_round_ref, fused_batch_round_cuda
         dsched = on(sched, dev)
         if x_cpu.dtype == torch.float32:
-            want = ref.fused_round_ref(x_cpu, on(sched, "cpu"), sr, epilogue.to("cpu"))
+            want = plain(x_cpu, on(sched, "cpu"), sr, epilogue.to("cpu"))
         else:  # int32 min-plus is order-free: the plain round on the card is exact
-            want = ref.fused_round_ref(x_cpu.to(dev), dsched, sr, epilogue.to(dev)).cpu()
-        got = fused_round_cuda(x_cpu.to(dev), dsched, sr, epilogue.to(dev)).cpu()
+            want = plain(x_cpu.to(dev), dsched, sr, epilogue.to(dev)).cpu()
+        got = kernel(x_cpu.to(dev), dsched, sr, epilogue.to(dev)).cpu()
         compare_launches += 1
         a, b = got[:-1], want[:-1]
         err = float((a.double() - b.double()).abs().max().item())
         gap = ulp_gap(a, b) if a.dtype == torch.float32 else 0
-        max_abs_err = max(max_abs_err, err)
-        log(f"[2] {label}: S={sched.S} M={sched.M} max_abs_err={err} max_ulp={gap}")
+        if batch:
+            batch_err = max(batch_err, err)
+        else:
+            max_abs_err = max(max_abs_err, err)
+        log(
+            f"[2] {'batch ' if batch else ''}{label}: x={tuple(x_cpu.shape)} S={sched.S} M={sched.M} "
+            f"max_abs_err={err} max_ulp={gap}"
+        )
         if not torch.equal(a, b):
-            raise AssertionError(f"K1 disagrees with its plain version: {label}")
+            raise AssertionError(f"K1{' (batch entry)' if batch else ''} disagrees with its plain version: {label}")
         return err
 
     def compare_all(tag, solvers, q, rng, deltas):
@@ -509,6 +577,34 @@ def main() -> int:
             compare_halo(f"{tag} ppr add_table δ={d}", pr, sp, ppr_ep, x_f)
             compare_halo(f"{tag} sssp min_old δ={d}", ss, ss.schedule(d), ss.row_update(), x_i)
 
+    def compare_batch_all(tag, pr, ss, mats, deltas):
+        """The batch entry for ppr (Q = BATCH_Q teleports, on pagerank's
+        schedules) and multi-source sssp (Q = BATCH_Q), and rwr and labelprop
+        (Q = BATCH_Q_MATRIX, F = 4); ``deltas[name]`` lists each one's δ."""
+        g = pr.graph
+        ppr_ep = Solver(g, ppr_problem(), n_workers=P).batch_row_update(
+            ppr_teleport(g, top_out_degree(g, BATCH_Q)), BATCH_Q, ()
+        )
+        X = torch.tensor(rng.random((g.n + 1, BATCH_Q)).astype(np.float32))
+        for d in deltas["pagerank"]:
+            compare(f"{tag} ppr add_table Q={BATCH_Q} δ={d}", pr.schedule(d), pr.problem.semiring, ppr_ep, X, True)
+        Xi = torch.tensor(rng.integers(0, 5000, (ss.graph.n + 1, BATCH_Q)).astype(np.int32))
+        Xi[torch.tensor(rng.random(Xi.shape) < 0.3)] = 2**30 - 1
+        for d in deltas["sssp"]:
+            ep = ss.batch_row_update(None, BATCH_Q, ())
+            compare(f"{tag} sssp min_old Q={BATCH_Q} δ={d}", ss.schedule(d), ss.problem.semiring, ep, Xi, True)
+        for name, solver in mats.items():
+            n, F = solver.graph.n, solver.problem.feature_dim
+            make = rwr_restart if name == "rwr" else labelprop_anchors
+            q = np.stack([make(solver.graph, rng.choice(n, F, replace=False)) for _ in range(BATCH_Q_MATRIX)])
+            ep = solver.batch_row_update(q, BATCH_Q_MATRIX, (F,))
+            x = rng.random((n + 1, BATCH_Q_MATRIX, F)).astype(np.float32)
+            if name == "labelprop":  # rows of zeros: totals of 0 keep old
+                x[rng.random(n + 1) < 0.2] = 0.0
+            for d in deltas[name]:
+                label = f"{tag} {name} {ep.tag} Q={BATCH_Q_MATRIX} F={F} δ={d}"
+                compare(label, solver.schedule(d), solver.problem.semiring, ep, torch.tensor(x), True)
+
     t0 = time.perf_counter()
     rng = np.random.default_rng(0)
     sg_pr, sg_ss = graphs(SMALL_SCALE)
@@ -528,9 +624,12 @@ def main() -> int:
         "sssp": Solver(hg_ss, h_probs["sssp"], n_workers=P, n_shards=SHARDS),
     }
     compare_halo_all(f"s{HALO_SCALE}", mid, h_q, rng, DELTAS)
-    compare_matrix(f"s{HALO_SCALE}", matrix_solvers(hg_pr), rng, ("sync", 128))
-    del mid
-    log(f"[2] K2, and K1 and K2 at F = 4, at s{HALO_SCALE} done in {time.perf_counter() - t0:.1f} s")
+    mid_mat = matrix_solvers(hg_pr)
+    compare_matrix(f"s{HALO_SCALE}", mid_mat, rng, ("sync", 128))
+    mid_deltas = dict.fromkeys(("pagerank", "sssp", *mid_mat), ("sync", 128))
+    compare_batch_all(f"s{HALO_SCALE}", mid["pagerank"], mid["sssp"], mid_mat, mid_deltas)
+    del mid, mid_mat
+    log(f"[2] K2, K1 and K2 at F = 4, K1's batch entry, at s{HALO_SCALE} done in {time.perf_counter() - t0:.1f} s")
 
     # the quantized halo's rounding must not depend on the device
     t0 = time.perf_counter()
@@ -794,8 +893,6 @@ def main() -> int:
 
     t0 = time.perf_counter()
     compare_matrix(f"s{scale}", mfull, rng, ("sync",))
-    for name, solver in mfull.items():
-        compare_matrix(f"s{scale}", {name: solver}, rng, (mstar[name],))
     s_mat = matrix_solvers(sg_pr)
     for name, solver in s_mat.items():
         plain = Solver(solver.graph, solver.problem, n_workers=P, n_shards=SHARDS, device="cpu")
@@ -812,6 +909,132 @@ def main() -> int:
             if not same:
                 raise AssertionError(f"matrix kernel solve differs from the plain solve: {name} {frontier}")
     log(f"[3] F = 4 kernels vs plain at full size, small parity: done in {time.perf_counter() - t0:.1f} s")
+
+    # the batch path: Solver.solve_batch (one K1 batch launch a round) for ppr
+    # and multi-source sssp at Q = BATCH_Q from the vertices of largest
+    # out-degree, at sync and δ*, ppr at Q = BATCH_Q_WIDE at δ*, and an open
+    # batch (BatchStepper) at HALO_SCALE
+    t0 = time.perf_counter()
+    ppr = Solver(g_pr, ppr_problem(), n_workers=P)
+
+    def batch_query(name, k):
+        """x0 (k, n) and q for the k vertices of largest out-degree."""
+        seeds = top_out_degree(g_pr, k)
+        if name == "sssp":
+            return multi_source_x0(g_ss, seeds), None
+        return np.full((k, g_pr.n), 1.0 / g_pr.n, np.float32), ppr_teleport(g_pr, seeds)
+
+    batch_solvers = {"ppr": ppr, "sssp": full["sssp"]}
+    batch_cases = [("ppr", BATCH_Q, d) for d in ("sync", dstar["pagerank"])]
+    batch_cases += [("sssp", BATCH_Q, d) for d in ("sync", dstar["sssp"])]
+    batch_cases += [("ppr", BATCH_Q_WIDE, dstar["pagerank"])]
+    for name, _, d in batch_cases:  # set-up: schedules built before the count
+        batch_solvers[name].schedule(d)
+    st_solver = Solver(hg_pr, ppr_problem(), n_workers=P)
+    st_seeds = top_out_degree(hg_pr, STEPPER_QUERIES)
+    st_x0 = np.full(hg_pr.n, 1.0 / hg_pr.n, np.float32)
+    st_solver.schedule("sync")
+    fused_round_cuda.launches = 0
+    fused_batch_round_cuda.launches = 0
+    batch_runs, batch_launches_by_c = [], {}
+    for name, Qn, d in batch_cases:
+        solver = batch_solvers[name]
+        x0, qb = batch_query(name, Qn)
+        walls = []
+        for _ in range(2):  # the second call: every allocation warm
+            before = fused_batch_round_cuda.launches
+            mem = torch.cuda.memory_stats()
+            t1 = time.perf_counter()
+            b = solver.solve_batch(x0, q=qb, delta=d)
+            walls.append(time.perf_counter() - t1)
+            # the caching allocator's calls to the device during the batch
+            allocs = {k: torch.cuda.memory_stats()[k] - mem[k] for k in ("num_device_alloc", "num_alloc_retries")}
+            launches = fused_batch_round_cuda.launches - before
+            if launches != b.rounds:
+                raise AssertionError(f"batch {name} Q={Qn}: {launches} K1 batch launches in {b.rounds} rounds")
+            C = Qn * (b.x.shape[2] if b.x.ndim == 3 else 1)
+            batch_launches_by_c[C] = batch_launches_by_c.get(C, 0) + launches
+        batch_runs.append((name, Qn, d, x0, qb, b, walls, allocs))
+    # the open batch: staggered admissions, two a quantum of 4 rounds
+    st = BatchStepper(st_solver, capacity=STEPPER_CAPACITY, delta="sync")
+    retired, pending = {}, list(range(STEPPER_QUERIES))
+    st_before = fused_batch_round_cuda.launches
+    while pending or st.occupancy:
+        for _ in range(min(2, st.free_slots, len(pending))):
+            i = pending.pop(0)
+            st.admit(st_x0, q=ppr_teleport(hg_pr, st_seeds[i : i + 1])[0], tag=i)
+        retired.update((r.tag, r) for r in st.run(4))
+    st_launches = fused_batch_round_cuda.launches - st_before
+    if st_launches != st.rounds_executed:
+        raise AssertionError(f"the open batch ran {st.rounds_executed} rounds in {st_launches} launches")
+    batch_launches_by_c[STEPPER_CAPACITY] = batch_launches_by_c.get(STEPPER_CAPACITY, 0) + st_launches
+    batch_path_launches = fused_batch_round_cuda.launches
+    if fused_round_cuda.launches != 0 or batch_path_launches == 0:
+        raise AssertionError(
+            f"the batch path launched K1 {fused_round_cuda.launches} times and its batch entry "
+            f"{batch_path_launches} times"
+        )
+    log(f"[3] batch path: {batch_path_launches} K1 batch launches {batch_launches_by_c}; "
+        f"done in {time.perf_counter() - t0:.1f} s")
+
+    # each batch query against its own single kernel solve
+    t0 = time.perf_counter()
+    batch_rows = []
+    for name, Qn, d, x0, qb, b, walls, allocs in batch_runs:
+        solver = batch_solvers[name]
+        singles_s, same_x, same_rounds = 0.0, True, True
+        for i in range(Qn):
+            qi = None if qb is None else qb[i]
+            own = solver.solve(x0[i], q=qi, delta=d, tol=-1.0, max_rounds=b.rounds)
+            same_x &= np.array_equal(own.x.view(np.int32), b.x[i].view(np.int32))
+            t1 = time.perf_counter()
+            one = solver.solve(x0[i], q=qi, delta=d)
+            singles_s += time.perf_counter() - t1
+            same_rounds &= one.converged and one.rounds == b.rounds_per_query[i]
+        row = {
+            "problem": name,
+            "Q": Qn,
+            "delta": b.delta,
+            "S": b.flushes // b.rounds,
+            "rounds": b.rounds,
+            "rounds_per_query": b.rounds_per_query.tolist(),
+            "converged": bool(b.converged.all()),
+            "flushes": b.flushes,
+            "flush_bytes": b.flush_bytes,
+            "total_s_first": walls[0],
+            "total_s": walls[1],
+            "loop_s": b.total_time_s,
+            "ms_per_round": b.total_time_s / b.rounds * 1e3,
+            "singles_total_s": singles_s,
+            "batch_over_singles": walls[1] / singles_s,
+            "device_allocs": allocs["num_device_alloc"],
+            "alloc_retries": allocs["num_alloc_retries"],
+            "x_equals_own_solves": bool(same_x),
+            "rounds_equal_single_solves": bool(same_rounds),
+        }
+        batch_rows.append(row)
+        log(f"[3] batch solve {json.dumps(row)}")
+        if not (same_x and same_rounds and row["converged"] and np.isfinite(b.x.astype(np.float64)).all()):
+            raise AssertionError(f"a batch query differs from its own solve: {row}")
+    for i in range(STEPPER_QUERIES):
+        fresh = st_solver.solve_batch(st_x0[None], q=ppr_teleport(hg_pr, st_seeds[i : i + 1]), delta="sync")
+        r = retired[i]
+        same_x = np.array_equal(r.x.view(np.int32), fresh.x[0].view(np.int32))
+        if not (r.converged and r.rounds == fresh.rounds and same_x):
+            raise AssertionError(f"open batch row {i} differs from a fresh one-query batch")
+    log(
+        f"[3] open batch s{HALO_SCALE}: capacity {STEPPER_CAPACITY}, {STEPPER_QUERIES} queries, "
+        f"{st.quanta} quanta, {st.rounds_executed} rounds; every retired row equals a fresh one-query "
+        f"batch; checks done in {time.perf_counter() - t0:.1f} s"
+    )
+
+    t0 = time.perf_counter()
+    compare_batch_all(
+        f"s{scale}", full["pagerank"], full["sssp"], mfull,
+        {"pagerank": ("sync", dstar["pagerank"]), "sssp": ("sync", dstar["sssp"]),
+         **{name: ("sync", mstar[name]) for name in mfull}},
+    )
+    log(f"[3] K1's batch entry vs plain at full size done in {time.perf_counter() - t0:.1f} s")
 
     # ---------------------------------------------------------------- 4 ---
     t0 = time.perf_counter()
@@ -1008,6 +1231,79 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"[4] K1 and K2 at F = 4 done in {time.perf_counter() - t0:.1f} s")
 
+    # K1's batch entry at C = 8 and 32: ppr and sssp at Q = BATCH_Q, rwr at
+    # Q = BATCH_Q (F = 4), ppr at Q = BATCH_Q_WIDE; at sync and δ*
+    t0 = time.perf_counter()
+    batch_timings, blocks = [], {}
+    rwr = mfull["rwr"]
+    cases = [("ppr", ppr, BATCH_Q, dstar["pagerank"]), ("sssp", full["sssp"], BATCH_Q, dstar["sssp"]),
+             ("rwr", rwr, BATCH_Q, mstar["rwr"]), ("ppr", ppr, BATCH_Q_WIDE, dstar["pagerank"])]
+    for name, solver, Qn, dst in cases:
+        sr = solver.problem.semiring
+        g = solver.graph
+        seeds = top_out_degree(g, Qn)
+        if name == "sssp":
+            x0, qb = multi_source_x0(g, seeds), None
+            single_eps = [Epilogue("min_old")] * Qn
+        elif name == "ppr":
+            x0, qb = np.full((Qn, g.n), 1.0 / g.n, np.float32), ppr_teleport(g, seeds)
+            single_eps = [solver.row_update(qb[i]) for i in range(Qn)]
+        else:
+            F = solver.problem.feature_dim
+            qb = np.stack([rwr_restart(g, seeds[(np.arange(F) + i) % Qn]) for i in range(Qn)])
+            x0 = np.full((Qn, g.n, F), 1.0 / g.n, np.float32)
+            single_eps = [solver.row_update(qb[i]) for i in range(Qn)]
+        feat = tuple(x0.shape[2:])
+        ep = solver.batch_row_update(qb, Qn, feat)
+        X = engine.extend_frontier(np.moveaxis(x0, 0, 1), sr, dev)
+        C = Qn * (feat[0] if feat else 1)
+        singles = [X[:, i].contiguous() for i in range(Qn)]
+        for d in ("sync", dst):
+            sched = solver.schedule(d)
+            k_ms = time_ms(lambda: ops.fused_batch_round(X, sched, sr, ep))
+            p_ms = time_ms(lambda: ref.fused_batch_round_ref(X, sched, sr, ep), 0.2, 3, 1)
+            q_ms = time_ms(lambda: [ops.fused_round(singles[i], sched, sr, single_eps[i]) for i in range(Qn)])
+            b_ms, b_by = round_bound(sched, ep.table is not None, C)
+            lib_ms = None
+            if sr.name == "plus_times":  # one library call a round (sync), or one a commit step
+                Xd = X[:-1].reshape(g.n, C).contiguous()
+                key = (g.name, sched.delta)
+                if key not in blocks:
+                    if d == "sync":
+                        blocks[key] = [torch.sparse_csr_tensor(
+                            torch.tensor(g.indptr, device=dev),
+                            torch.tensor(g.indices.astype(np.int64), device=dev),
+                            torch.tensor(g.values, device=dev),
+                            size=(g.n, g.n),
+                        )]
+                    else:
+                        blocks[key] = step_blocks(g, sched, dev)
+                mats = blocks[key]
+                lib_ms = time_ms(lambda: [torch.sparse.mm(A, Xd) for A in mats])
+                del Xd
+            row = {
+                "problem": name,
+                "tag": ep.tag,
+                "Q": Qn,
+                "C": C,
+                "delta": sched.delta,
+                "S": sched.S,
+                "ms": k_ms,
+                "plain_ms": p_ms,
+                "bound_ms": b_ms,
+                "bound_by": b_by,
+                "share_of_bound": b_ms / k_ms,
+                "library_ms": lib_ms,
+                "q_single_launches_ms": q_ms,
+                "q_single_over_batch": q_ms / k_ms,
+            }
+            batch_timings.append(row)
+            log(f"[4] batch timing {json.dumps(row)}")
+        del X, singles, ep, single_eps
+    del blocks
+    torch.cuda.synchronize()
+    log(f"[4] K1's batch entry done in {time.perf_counter() - t0:.1f} s")
+
     # K3: the ELL SpMV through its entry point, on the full-size graph's ELL
     t0 = time.perf_counter()
     idx_np, val_np = ops.ell_from_csr(g_pr)
@@ -1142,6 +1438,25 @@ def main() -> int:
                 "bound_by": matrix_timings[0]["k2_bound_by"],
                 "library_ms": matrix_timings[0]["library_ms"],
             },
+            *(
+                {
+                    "name": f"round_block_batch_c{C}",
+                    "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/round_block.cu",
+                    "replaces": "src/repro/kernels/round_block.py:114",
+                    "launches": batch_launches_by_c.get(C, 0),
+                    "max_abs_err": batch_err,
+                    "ms": row["ms"],
+                    "plain_ms": row["plain_ms"],
+                    "bound_ms": row["bound_ms"],
+                    "bound_by": row["bound_by"],
+                    "library_ms": row["library_ms"],
+                }
+                for C, row in (
+                    (BATCH_Q, batch_timings[0]),  # ppr Q = 8 at sync
+                    (BATCH_Q_WIDE, batch_timings[-1]),  # ppr Q = 32 at δ*
+                )
+            ),
             {
                 "name": "spmv_ell",
                 "route": "cuda",

@@ -48,7 +48,11 @@ def _segment_sum(vals, seg_ids, num):
     """Leading-axis segment-⊕ for plus-times; empty segments read 0.
     Trailing feature axes ride along: an ``(m, F)`` input is summed one
     column at a time (a vector ``index_add_`` runs a tight loop on the CPU,
-    a matrix one a tensor op per index), in the same index order."""
+    a matrix one a tensor op per index), in the same index order; more
+    trailing axes (a batch's ``(m, Q, F)``) are flattened into columns."""
+    if vals.dim() > 2:
+        flat = _segment_sum(vals.reshape(vals.shape[0], -1), seg_ids, num)
+        return flat.reshape((num,) + vals.shape[1:])
     if vals.dim() == 2:
         cols = [_segment_sum(vals[:, f].contiguous(), seg_ids, num) for f in range(vals.shape[1])]
         return torch.stack(cols, dim=1)

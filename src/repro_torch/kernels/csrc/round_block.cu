@@ -35,6 +35,30 @@
 // The wrapper checks that an F = 2/4/8 frontier (and table) starts at a
 // multiple of the vector width; rows then stay aligned.
 //
+// A batch of Q queries (the query axis that repro/solve/batch.py gets by
+// vmapping fused_round_fn_q) runs in the same kernel, entry point
+// round_block_batch_launch.  The batch lives on the card vertex-major,
+// (n+1, Q)+feat: one row a vertex holding its C = Q*F values contiguous,
+// the wrapper's callers transposing only at a batch's entry and exit and
+// at a compaction, never per round.  So a gathered source row holds every
+// query's values and a tile's edges are staged once for all Q: one schedule,
+// one walk of the edges, Q answers.  The TPU kernel, vmapped, keeps
+// (Q, n+1) and walks the edges once a query.  Each (row, query, feature)
+// is still summed in edge order from the (+)-identity, so every query's
+// bits are those of the single-query kernel.  The epilogue sees C columns
+// in groups of G: G = F for labelprop, whose total, division and FMA run
+// over each query's own F columns (left to right, as for one query), and
+// G = C for every other tag, which works column by column (add_const adds
+// one constant to all, add_table reads an (n+1, C) table, the Q queries'
+// tables side by side, min_old takes each column's old value).  Which
+// code a batch's C reaches: as F above for C = 1, 2, 4, 8 and any C not
+// listed; C = 16 and 32 have builds of their own (kF = C) whose walk stages
+// a tile's edges once and gathers and folds its rows kSubCols = 8 columns
+// at a time (two 16-B loads a gathered row a pass, C sums in registers;
+// their epilogue operands load after the walk, not beside it, to hold the
+// registers down).  The single-query entry point round_block_launch keeps
+// its widths (F = 16 runs the feature-block build there).
+//
 // Epilogues (tags as in repro_torch/kernels/round_block.py::TAG_CODES):
 // add_const c + acc, add_table table[row] + acc, min_old min(old, acc), and
 // labelprop, label propagation's row update:
@@ -128,9 +152,12 @@ constexpr int kMinOld = 2;     // min(old, acc)        (sssp, cc)
 constexpr int kLabelprop = 3;  // the blend above      (label propagation)
 
 // Columns a pass of the walk takes: kF, or kFeatBlock for any other F.
+// A wider kF (a batch's C = 16, 32) gathers and stages its columns
+// kSubCols at a time within one pass.
 constexpr int kFeatBlock = 4;
+constexpr int kSubCols = 8;
 template <int kF>
-constexpr int kPassCols = kF > 0 ? kF : kFeatBlock;
+constexpr int kPassCols = kF > 0 ? (kF < kSubCols ? kF : kSubCols) : kFeatBlock;
 
 // Vector types of a row's load or store (float and int32 rows alike).
 template <class T> struct Vec;
@@ -213,7 +240,8 @@ __device__ __forceinline__ void copy_row(T* dst, const T* src, int F) {
 // The epilogue is split: its operands (the table row, the old row) are
 // loaded beside the row's edge range, before the row is summed, and finish()
 // applies them to the sums.  finish() takes a row of `cols` values: N when
-// N > 0 (registers), else fn (a row in memory; out may be acc).
+// N > 0 (registers), else fn (a row in memory; out may be acc), in groups
+// of G columns (G divides cols; only labelprop reads G).
 struct PlusTimes {
   using T = float;
   __device__ static T zero() { return 0.0f; }
@@ -221,25 +249,50 @@ struct PlusTimes {
   __device__ static T add(T acc, T v) { return __fadd_rn(acc, v); }
   __device__ static bool wants_table(int tag) { return tag == kAddTable || tag == kLabelprop; }
   __device__ static bool wants_old(int tag) { return tag == kLabelprop; }
+  __device__ static T blend(T a, T total, T mass, T t, T o, float mix, float one_minus_mix) {
+    const T prop = total > 0.0f ? __fmaf_rn(mix, __fdiv_rn(a, total), __fmul_rn(one_minus_mix, o)) : o;
+    return mass > 0.0f ? t : prop;
+  }
   template <int N>
   __device__ static void finish(int tag, const T* acc, const T* tab, const T* old, T c,
-                                float mix, float one_minus_mix, int fn, T* out) {
+                                float mix, float one_minus_mix, int fn, int G, T* out) {
     const int cols = N > 0 ? N : fn;
     // the vector build (N = 1) leaves labelprop out: an (n+1, 1) labelprop
     // frontier runs the feature-block build (round_block_launch)
     if (N != 1 && tag == kLabelprop) {
-      T total = acc[0], mass = tab[0];
+      if constexpr (N > 1) {
+        // Registers: running sums left to right that restart at each
+        // group's first column; then each group's last column's sums, its
+        // total and mass, fill the group backwards.  Indices stay static.
+        T total[N], mass[N];
+        bool last[N];
+        int pos = 0;
 #pragma unroll
-      for (int j = 1; j < cols; ++j) {
-        total = __fadd_rn(total, acc[j]);
-        mass = __fadd_rn(mass, tab[j]);
-      }
+        for (int j = 0; j < N; ++j) {
+          const bool first = j == 0 || pos == 0;
+          total[j] = first ? acc[j] : __fadd_rn(total[j > 0 ? j - 1 : 0], acc[j]);
+          mass[j] = first ? tab[j] : __fadd_rn(mass[j > 0 ? j - 1 : 0], tab[j]);
+          pos = pos + 1 == G ? 0 : pos + 1;
+          last[j] = pos == 0;
+        }
 #pragma unroll
-      for (int j = 0; j < cols; ++j) {
-        const T prop = total > 0.0f
-                           ? __fmaf_rn(mix, __fdiv_rn(acc[j], total), __fmul_rn(one_minus_mix, old[j]))
-                           : old[j];
-        out[j] = mass > 0.0f ? tab[j] : prop;
+        for (int j = N - 2; j >= 0; --j) {
+          if (!last[j]) {
+            total[j] = total[j + 1];
+            mass[j] = mass[j + 1];
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < N; ++j) out[j] = blend(acc[j], total[j], mass[j], tab[j], old[j], mix, one_minus_mix);
+      } else {
+        for (int g0 = 0; g0 < cols; g0 += G) {
+          T total = acc[g0], mass = tab[g0];
+          for (int j = g0 + 1; j < g0 + G; ++j) {
+            total = __fadd_rn(total, acc[j]);
+            mass = __fadd_rn(mass, tab[j]);
+          }
+          for (int j = g0; j < g0 + G; ++j) out[j] = blend(acc[j], total, mass, tab[j], old[j], mix, one_minus_mix);
+        }
       }
       return;
     }
@@ -260,7 +313,7 @@ struct MinPlus {
   __device__ static bool wants_old(int) { return true; }
   template <int N>
   __device__ static void finish(int, const T* acc, const T*, const T* old, T, float, float,
-                                int fn, T* out) {
+                                int fn, int, T* out) {
     const int cols = N > 0 ? N : fn;
 #pragma unroll
     for (int j = 0; j < cols; ++j) out[j] = acc[j] < old[j] ? acc[j] : old[j];
@@ -289,8 +342,10 @@ __device__ __forceinline__ float clamp_nan(float v, float lo, float hi) {
 // their x rows through L1 and writes the products to prod (N a row); then
 // the thread that owns a row adds the chunk's products of its row in edge
 // order, one sum a column, carrying the sums from chunk to chunk.  Leaves
-// the sums in acc (the (+)-identity for an empty range).  Every thread of
-// the block must call it with the same t0 and t1.
+// the sums in acc (the (+)-identity for an empty range).  N above kSubCols
+// (kVec) takes each chunk's src and val once and then gathers, stages and
+// folds its columns kSubCols at a time.  Every thread of the block must call
+// it with the same t0 and t1.
 template <class Sr, int N, bool kVec>
 __device__ __forceinline__ void stage_fold(
     const typename Sr::T* x, const int32_t* __restrict__ src,
@@ -298,6 +353,8 @@ __device__ __forceinline__ void stage_fold(
     int F, int f0, typename Sr::T* prod, typename Sr::T (&acc)[N]) {
   using T = typename Sr::T;
   constexpr int kPer = kChunk / kThreads;
+  constexpr int kSub = N < kSubCols ? N : kSubCols;  // columns staged a pass
+  static_assert(N % kSub == 0 && (kVec || N == kSub), "sub-blocks are whole vector rows");
   const int tid = threadIdx.x;
   const int stride = kVec ? N : F;
   const int fn = kVec ? N : min(N, F - f0);
@@ -308,7 +365,7 @@ __device__ __forceinline__ void stage_fold(
     const int32_t* sp = src + cs + tid;
     const T* vp = val + cs + tid;
     int32_t sv[kPer];
-    T vv[kPer], xv[kPer][N];
+    T vv[kPer];
 #pragma unroll
     for (int k = 0; k < kPer; ++k) {
       if (k * kThreads + tid < cn) {
@@ -317,26 +374,30 @@ __device__ __forceinline__ void stage_fold(
       }
     }
 #pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      if (k * kThreads + tid < cn) load_row<N, kVec, kCa>(x + sv[k] * stride + f0, xv[k], fn);
-    }
+    for (int b = 0; b < N; b += kSub) {
+      T xv[kPer][kSub];
 #pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      if (k * kThreads + tid < cn) {
-        T* pp = prod + (k * kThreads + tid) * N;
-#pragma unroll
-        for (int j = 0; j < N; ++j) pp[j] = Sr::mul(xv[k][j], vv[k]);
+      for (int k = 0; k < kPer; ++k) {
+        if (k * kThreads + tid < cn) load_row<kSub, kVec, kCa>(x + sv[k] * stride + f0 + b, xv[k], fn - b);
       }
-    }
-    __syncthreads();
-    const int lo = max(e0, cs);
-    const int hi = min(e1, cs + cn);
-    for (int e = lo; e < hi; ++e) {
-      const T* pp = prod + (e - cs) * N;
 #pragma unroll
-      for (int j = 0; j < N; ++j) acc[j] = Sr::add(acc[j], pp[j]);
+      for (int k = 0; k < kPer; ++k) {
+        if (k * kThreads + tid < cn) {
+          T* pp = prod + (k * kThreads + tid) * kSub;
+#pragma unroll
+          for (int j = 0; j < kSub; ++j) pp[j] = Sr::mul(xv[k][j], vv[k]);
+        }
+      }
+      __syncthreads();
+      const int lo = max(e0, cs);
+      const int hi = min(e1, cs + cn);
+      for (int e = lo; e < hi; ++e) {
+        const T* pp = prod + (e - cs) * kSub;
+#pragma unroll
+        for (int j = 0; j < kSub; ++j) acc[b + j] = Sr::add(acc[b + j], pp[j]);
+      }
+      __syncthreads();
     }
-    __syncthreads();
   }
 }
 
@@ -345,26 +406,33 @@ __device__ __forceinline__ void stage_fold(
 // out_row = scratch + (its chunk index) * F.  xg is the frontier the
 // gathers read (K2: the shard's); old_row and tab_row are the row's
 // operands in x and the table (null where the tag reads none).  kF > 0:
-// one pass with kF sums in registers; kF = 0: a pass per block of
+// one pass with kF sums in registers (the operands loaded before the walk
+// up to kSubCols columns, after it above); kF = 0: a pass per block of
 // kFeatBlock columns, raw sums through out_row, then the finish over it.
+// G: the epilogue's group width (finish()).
 template <class Sr, int kF>
 __device__ __forceinline__ void tile_rows(
     const typename Sr::T* xg, const int32_t* __restrict__ src,
     const typename Sr::T* __restrict__ val, int t0, int t1, bool own, int e0,
     int e1, const typename Sr::T* old_row, const typename Sr::T* tab_row,
     typename Sr::T* out_row, int tag, typename Sr::T c, float mix,
-    float one_minus_mix, int F, typename Sr::T* prod) {
+    float one_minus_mix, int F, int G, typename Sr::T* prod) {
   using T = typename Sr::T;
   if constexpr (kF > 0) {
+    constexpr bool kEarly = kF <= kSubCols;
     T old[kF], tab[kF], acc[kF];
-    if (own) {
+    if (kEarly && own) {
       if (Sr::wants_old(tag)) load_row<kF, true, kCg>(old_row, old, kF);
       if (Sr::wants_table(tag)) load_row<kF, true, kPlain>(tab_row, tab, kF);
     }
     stage_fold<Sr, kF, true>(xg, src, val, t0, t1, e0, e1, kF, 0, prod, acc);
     if (own) {
+      if (!kEarly) {
+        if (Sr::wants_old(tag)) load_row<kF, true, kCg>(old_row, old, kF);
+        if (Sr::wants_table(tag)) load_row<kF, true, kPlain>(tab_row, tab, kF);
+      }
       T out[kF];
-      Sr::template finish<kF>(tag, acc, tab, old, c, mix, one_minus_mix, kF, out);
+      Sr::template finish<kF>(tag, acc, tab, old, c, mix, one_minus_mix, kF, G, out);
       store_row<kF, true>(out_row, out, kF);
     }
   } else {
@@ -373,7 +441,7 @@ __device__ __forceinline__ void tile_rows(
       stage_fold<Sr, kFeatBlock, false>(xg, src, val, t0, t1, e0, e1, F, f0, prod, acc);
       if (own) store_row<kFeatBlock, false>(out_row + f0, acc, min(kFeatBlock, F - f0));
     }
-    if (own) Sr::template finish<0>(tag, out_row, tab_row, old_row, c, mix, one_minus_mix, F, out_row);
+    if (own) Sr::template finish<0>(tag, out_row, tab_row, old_row, c, mix, one_minus_mix, F, G, out_row);
   }
 }
 
@@ -386,7 +454,7 @@ __global__ void __launch_bounds__(kThreads)
                  const int32_t* __restrict__ rows,
                  const typename Sr::T* __restrict__ table, typename Sr::T c,
                  float mix, float one_minus_mix, int tag, int n, int S, int P,
-                 int M, int delta, int R, int F_in) {
+                 int M, int delta, int R, int F_in, int G) {
   using T = typename Sr::T;
   __shared__ __align__(16) T prod[kChunk * kPassCols<kF>];
   cg::grid_group grid = cg::this_grid();
@@ -418,7 +486,7 @@ __global__ void __launch_bounds__(kThreads)
         at = static_cast<long long>(rows[step_cell * delta + i]) * F;
       }
       tile_rows<Sr, kF>(x, src + cell * M, val + cell * M, t0, t1, own, e0, e1, x + at,
-                        table + at, scratch + i * F, tag, c, mix, one_minus_mix, F, prod);
+                        table + at, scratch + i * F, tag, c, mix, one_minus_mix, F, G, prod);
     }
     grid.sync();
     for (long long i = first; i < cells; i += stride) {
@@ -471,7 +539,7 @@ template <class Sr, int kF>
 cudaError_t launch(void* x, void* scratch, const void* src, const void* val,
                    const void* row_ptr, const void* rows, const void* table,
                    double c_in, double mix_in, double one_minus_mix_in, int tag,
-                   int n, int S, int P, int M, int delta, int F,
+                   int n, int S, int P, int M, int delta, int F, int G,
                    cudaStream_t stream) {
   using T = typename Sr::T;
   T* x_p = static_cast<T*>(x);
@@ -492,7 +560,7 @@ cudaError_t launch(void* x, void* scratch, const void* src, const void* val,
   tile_grid(P, delta, resident, &R, &blocks);
   void* args[] = {&x_p, &scratch_p, &src_p, &val_p, &ptr_p, &rows_p,
                   &table_p, &c, &mix, &one_minus_mix, &tag, &n,
-                  &S, &P, &M, &delta, &R, &F};
+                  &S, &P, &M, &delta, &R, &F, &G};
   err = cudaLaunchCooperativeKernel(kernel, dim3(static_cast<unsigned>(blocks)),
                                     dim3(kThreads), args, 0, stream);
   if (err != cudaSuccess) return err;
@@ -643,7 +711,7 @@ __global__ void __launch_bounds__(kThreads, kHaloBlocksPerSm)
       tile_rows<Sr, kF>(xd, src_loc + lcell * M, val + cell * M, t0, t1, own, e0, e1,
                         xd + at_old, table + at_tab,
                         scratch + (static_cast<long long>(w) * delta + r) * F, tag, c, mix,
-                        one_minus_mix, F, prod);
+                        one_minus_mix, F, F, prod);
     }
     grid.sync();
     // --- B: publish, then the exchange (f32) or the scales' maxima
@@ -782,6 +850,18 @@ cudaError_t launch_halo_round(void* x, void* ef, void* scratch, void* amax,
     default: CALL(0);                                     \
   }
 
+// A batch's: as DISPATCH_F, and kF = C for C = 16 and 32.
+#define DISPATCH_C(C, TAG, CALL)                          \
+  switch ((C) == 1 && (TAG) == kLabelprop ? 0 : (C)) {    \
+    case 1: CALL(1);                                      \
+    case 2: CALL(2);                                      \
+    case 4: CALL(4);                                      \
+    case 8: CALL(8);                                      \
+    case 16: CALL(16);                                    \
+    case 32: CALL(32);                                    \
+    default: CALL(0);                                     \
+  }
+
 bool takes(int dtype, int tag, const void* table) {
   if (dtype == 0) return tag == kAddConst || ((tag == kAddTable || tag == kLabelprop) && table != nullptr);
   return dtype == 1 && tag == kMinOld;
@@ -799,7 +879,7 @@ extern "C" int round_block_launch(int dtype, void* x, void* scratch,
                                   int P, int M, int delta, int F, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (F < 1 || !takes(dtype, tag, table)) return cudaErrorInvalidValue;
-#define K1_ARGS x, scratch, src, val, row_ptr, rows, table, c, mix, one_minus_mix, tag, n, S, P, M, delta, F, st
+#define K1_ARGS x, scratch, src, val, row_ptr, rows, table, c, mix, one_minus_mix, tag, n, S, P, M, delta, F, F, st
 #define K1_PLUS(KF) return launch<PlusTimes, KF>(K1_ARGS)
 #define K1_MIN(KF) return launch<MinPlus, KF>(K1_ARGS)
   if (dtype == 0) DISPATCH_F(F, tag, K1_PLUS)
@@ -807,6 +887,29 @@ extern "C" int round_block_launch(int dtype, void* x, void* scratch,
 #undef K1_MIN
 #undef K1_PLUS
 #undef K1_ARGS
+  return cudaErrorInvalidValue;
+}
+
+// K1 over a batch: x and table are (n+1, C) with C = Q * F, the Q queries'
+// rows side by side; G = F for labelprop (each query's own columns), C for
+// every other tag.  Returns a cudaError_t.
+extern "C" int round_block_batch_launch(int dtype, void* x, void* scratch,
+                                        const void* src, const void* val,
+                                        const void* row_ptr, const void* rows,
+                                        const void* table, double c, double mix,
+                                        double one_minus_mix, int tag, int n, int S,
+                                        int P, int M, int delta, int C, int G,
+                                        void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (C < 1 || G < 1 || C % G != 0 || !takes(dtype, tag, table)) return cudaErrorInvalidValue;
+#define KB_ARGS x, scratch, src, val, row_ptr, rows, table, c, mix, one_minus_mix, tag, n, S, P, M, delta, C, G, st
+#define KB_PLUS(KF) return launch<PlusTimes, KF>(KB_ARGS)
+#define KB_MIN(KF) return launch<MinPlus, KF>(KB_ARGS)
+  if (dtype == 0) DISPATCH_C(C, tag, KB_PLUS)
+  DISPATCH_C(C, tag, KB_MIN)
+#undef KB_MIN
+#undef KB_PLUS
+#undef KB_ARGS
   return cudaErrorInvalidValue;
 }
 

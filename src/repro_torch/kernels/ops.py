@@ -12,10 +12,14 @@ import numpy as np
 
 from repro_torch.core.semiring import INT_INF
 from repro_torch.kernels import ref
-from repro_torch.kernels.round_block import fused_halo_round_cuda, fused_round_cuda
+from repro_torch.kernels.round_block import (
+    fused_batch_round_cuda,
+    fused_halo_round_cuda,
+    fused_round_cuda,
+)
 from repro_torch.kernels.spmv_ell import spmv_ell_cuda
 
-__all__ = ["ell_from_csr", "fused_halo_round", "fused_round", "spmv"]
+__all__ = ["ell_from_csr", "fused_batch_round", "fused_halo_round", "fused_round", "spmv"]
 
 
 def _route(x, kernel, plain, what):
@@ -30,6 +34,12 @@ def fused_round(x_ext, sched, semiring, row_update):
     """One full engine round (all S commit steps) over ``sched``."""
     fn = _route(x_ext, fused_round_cuda, ref.fused_round_ref, "fused round")
     return fn(x_ext, sched, semiring, row_update)
+
+
+def fused_batch_round(X, sched, semiring, row_update):
+    """One round over ``sched`` for a batch of Q queries, ``(n+1, Q)+feat``."""
+    fn = _route(X, fused_batch_round_cuda, ref.fused_batch_round_ref, "batch round")
+    return fn(X, sched, semiring, row_update)
 
 
 def fused_halo_round(x_loc, ef, sched, plan, semiring, row_update, halo_dtype="f32", steps=None):

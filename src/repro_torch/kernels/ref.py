@@ -4,7 +4,8 @@ The counterpart of ``repro.kernels.ref``.  The fused round's contract is "the
 engine's round, in one kernel", so its plain version is the engine's round
 itself (:func:`repro_torch.core.engine.round_fn`): S commit steps of gather,
 ⊗, per-worker segment-⊕ (``index_add_``, or ``scatter_reduce("amin")`` from
-int32 max), row update and publish.  The halo round's plain version runs,
+int32 max), row update and publish; the batch round's is the same round
+over the ``(n+1, Q)+feat`` batch frontier.  The halo round's plain version runs,
 per commit step, one such step on every shard's local frontier
 (:func:`fused_halo_step_ref`), then the quantizer (:func:`quantize_halo`,
 int8/fp8 only) and the exchange (:func:`halo_exchange`); the ELL SpMV's sums
@@ -24,6 +25,7 @@ from repro_torch.core.semiring import INT_INF
 __all__ = [
     "HALO_QUANT",
     "HaloStep",
+    "fused_batch_round_ref",
     "fused_halo_round_ref",
     "fused_halo_step_ref",
     "fused_round_ref",
@@ -43,6 +45,17 @@ HALO_QUANT = {
 def fused_round_ref(x_ext, sched, semiring, row_update):
     """Plain version of :func:`repro_torch.kernels.round_block.fused_round_cuda`."""
     return round_fn(sched, semiring, row_update)(x_ext)
+
+
+def fused_batch_round_ref(X, sched, semiring, row_update):
+    """Plain version of :func:`repro_torch.kernels.round_block.fused_batch_round_cuda`.
+
+    The plain round over the batch frontier ``(n+1, Q)+feat``: a column of
+    a matrix round is a vector round, so each query's columns get the round
+    that query alone would, and labelprop's row total (its row update's
+    ``_row_sum`` over the last axis) sums only each query's own F columns.
+    """
+    return round_fn(sched, semiring, row_update)(X)
 
 
 @dataclasses.dataclass(frozen=True)

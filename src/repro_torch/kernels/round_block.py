@@ -22,6 +22,12 @@ Both take a vector frontier ``(n+1,)`` or a matrix frontier ``(n+1, F)``
 (``(D, L)`` or ``(D, L, F)`` stacked for K2), row-major, so a vertex's F
 values are one contiguous row.
 
+K1's batch entry (:func:`fused_batch_round_cuda`) is the query axis the
+reference gets by vmapping ``fused_round_fn_q`` over Q queries
+(``repro.solve.batch``): one launch a round for a batch frontier
+``(n+1, Q)`` or ``(n+1, Q, F)``, vertex-major, so a vertex's Q·F values are
+one row and a tile's edges are walked once for all Q queries.
+
 Pallas evaluated any traced ``row_update`` inside the kernel.  The CUDA kernel
 takes a fixed set instead: an :class:`Epilogue` names the row update with a
 tag the kernel understands.  An ``Epilogue`` is also an ordinary
@@ -45,6 +51,7 @@ __all__ = [
     "MIN_OLD",
     "Epilogue",
     "fma_f32",
+    "fused_batch_round_cuda",
     "fused_halo_round_cuda",
     "fused_round_cuda",
 ]
@@ -69,6 +76,8 @@ MAX_SCALES = 512
 # (csrc/round_block.cu); such a frontier's rows must start 4·min(F, 4)-byte
 # aligned.  Any other F runs the kernels' loop over feature blocks.
 VECTOR_F = (2, 4, 8)
+# The batch entry's widths C = Q·F loaded as vectors (8-, 16-byte loads).
+VECTOR_C = (2, 4, 8, 16, 32)
 
 
 def _row_sum(v):
@@ -108,7 +117,8 @@ class Epilogue:
     ``table`` (``add_table``: the added values; ``labelprop``: the anchors)
     holds one row per frontier slot, the dump row included, so
     ``table[rows]`` never reads past the end where padded rows point at the
-    dump slot ``n``: ``(n + 1,)`` or, for a matrix frontier, ``(n + 1, F)``.
+    dump slot ``n``: ``(n + 1,)`` or, for a matrix frontier, ``(n + 1, F)``;
+    for a batch of Q queries ``(n + 1, Q)+feat`` (:meth:`for_batch`).
     ``labelprop`` carries ``mix`` and ``one_minus_mix`` as float32 values,
     each rounded from the Python double (:meth:`labelprop`).
     """
@@ -124,8 +134,11 @@ class Epilogue:
             raise ValueError(f"unknown epilogue tag {self.tag!r}")
         if (self.tag in _TABLE_TAGS) != (self.table is not None):
             raise ValueError("an add_table or labelprop epilogue needs a table; no other does")
-        if self.tag == LABELPROP and self.table.dim() != 2:
-            raise ValueError(f"labelprop's anchors are (n + 1, F), got {tuple(self.table.shape)}")
+        if self.tag == LABELPROP and self.table.dim() not in (2, 3):
+            raise ValueError(
+                f"labelprop's anchors are (n + 1, F), or (n + 1, Q, F) for a batch, "
+                f"got {tuple(self.table.shape)}"
+            )
 
     @classmethod
     def labelprop(cls, anchors: torch.Tensor, mix: float) -> "Epilogue":
@@ -156,6 +169,28 @@ class Epilogue:
             f"a {self.tag} table of shape {tuple(self.table.shape)} does not fit "
             f"a frontier with rows of shape {feat}"
         )
+
+    def for_batch(self, Q: int, feat: tuple, per_query: bool) -> "Epilogue":
+        """This row update for a batch frontier ``(n + 1, Q)+feat``.  With
+        ``per_query`` the table is ``(n + 1, Q)+tfeat``, each query's own
+        column(s); otherwise it is the one ``(n + 1,)+tfeat`` table every
+        query reads (jacobi's).  A ``(n + 1, Q)`` add_table table on a
+        matrix batch repeats over F, as :meth:`for_frontier` does.  Raises
+        on a table that fits neither."""
+        if self.table is None:
+            return self
+        feat = tuple(feat)
+        t = self.table if per_query else self.table[:, None]
+        tfeat = tuple(t.shape[2:])
+        fits = tfeat == feat or (self.tag == ADD_TABLE and not tfeat and len(feat) == 1)
+        if t.dim() < 2 or t.shape[1] != (Q if per_query else 1) or not fits:
+            raise ValueError(
+                f"a {self.tag} table of shape {tuple(self.table.shape)} does not fit a batch "
+                f"of {Q} queries with rows of shape {feat}"
+            )
+        if tfeat != feat:
+            t = t[..., None]
+        return dataclasses.replace(self, table=t.expand((t.shape[0], Q) + feat).contiguous())
 
     def __call__(self, old, reduced, rows):
         if self.tag == ADD_CONST:
@@ -218,10 +253,10 @@ def _feature_width(x, lead: int) -> tuple:
     return feat, (feat[0] if feat else 1)
 
 
-def _check_aligned(F: int, named: dict) -> None:
-    """Rows of F in :data:`VECTOR_F` are loaded as vectors: each F-wide
-    tensor must start at a multiple of its row's vector width."""
-    if F not in VECTOR_F:
+def _check_aligned(F: int, named: dict, widths=VECTOR_F) -> None:
+    """Rows of F in ``widths`` are loaded as vectors: each F-wide tensor
+    must start at a multiple of its row's vector width."""
+    if F not in widths:
         return
     align = 4 * min(F, 4)
     for name, t in named.items():
@@ -264,6 +299,8 @@ def _library():
         f64 = ctypes.c_double
         lib.round_block_launch.argtypes = [i32] + [ptr] * 7 + [f64] * 3 + [i32] * 7 + [ptr]
         lib.round_block_launch.restype = i32
+        lib.round_block_batch_launch.argtypes = [i32] + [ptr] * 7 + [f64] * 3 + [i32] * 8 + [ptr]
+        lib.round_block_batch_launch.restype = i32
         lib.halo_round_launch.argtypes = [i32] * 2 + [ptr] * 13 + [f64] * 4 + [i32] * 11 + [ptr]
         lib.halo_round_launch.restype = i32
         lib.round_block_error_string.argtypes = [i32]
@@ -277,17 +314,16 @@ def _raise_on(lib, err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: cudaError {err} ({msg})")
 
 
-def fused_round_cuda(x_ext, sched, semiring, epilogue) -> torch.Tensor:
-    """One round on the card: returns a new ``(n+1,)+feat`` frontier
-    (``x_ext`` is left as it was).  Launches on the current stream and does
-    not synchronise.  The dump row's value is unspecified."""
-    F = _check_args(x_ext, sched, semiring, epilogue)
+def _launch_k1(entry: str, x, sched, epilogue, *widths) -> torch.Tensor:
+    """Launch K1 through the library's ``entry`` on a copy of ``x`` and
+    return it; ``widths`` are the entry's last arguments (F; or C and G),
+    the first of them a row's values."""
     lib = _library()
-    out = x_ext.clone()
-    scratch = torch.empty(sched.P * sched.delta * F, dtype=out.dtype, device=out.device)
+    out = x.clone()
+    scratch = torch.empty(sched.P * sched.delta * widths[0], dtype=out.dtype, device=out.device)
     table = epilogue.table.data_ptr() if epilogue.table is not None else None
     with torch.cuda.device(out.device):
-        err = lib.round_block_launch(
+        err = getattr(lib, entry)(
             _DTYPE_CODES[out.dtype],
             out.data_ptr(),
             scratch.data_ptr(),
@@ -305,15 +341,70 @@ def fused_round_cuda(x_ext, sched, semiring, epilogue) -> torch.Tensor:
             sched.P,
             sched.M,
             sched.delta,
-            F,
+            *widths,
             torch.cuda.current_stream(out.device).cuda_stream,
         )
-    _raise_on(lib, err, "round_block")
+    _raise_on(lib, err, entry)
+    return out
+
+
+def fused_round_cuda(x_ext, sched, semiring, epilogue) -> torch.Tensor:
+    """One round on the card: returns a new ``(n+1,)+feat`` frontier
+    (``x_ext`` is left as it was).  Launches on the current stream and does
+    not synchronise.  The dump row's value is unspecified."""
+    F = _check_args(x_ext, sched, semiring, epilogue)
+    out = _launch_k1("round_block_launch", x_ext, sched, epilogue, F)
     fused_round_cuda.launches += 1
     return out
 
 
 fused_round_cuda.launches = 0  # kernel launches, for showing a path used K1
+
+
+def _check_batch_args(X, sched, semiring, epilogue) -> tuple:
+    """Raise on anything K1's batch entry does not take (before any launch);
+    returns ``(C, G)``: the values a row, Q·F, and the epilogue's group
+    width (F for labelprop, each query's own columns; C otherwise).  The
+    shapes are checked before the device."""
+    _check_epilogue(X, semiring, epilogue)
+    if X.dim() not in (2, 3) or 0 in X.shape[1:]:
+        raise ValueError(f"a batch frontier is (n + 1, Q) or (n + 1, Q, F), got {tuple(X.shape)}")
+    Q, feat = X.shape[1], tuple(X.shape[2:])
+    F = feat[0] if feat else 1
+    if epilogue.tag == LABELPROP and not feat:
+        raise ValueError("a labelprop epilogue needs a matrix batch (n + 1, Q, F)")
+    S, P, M, delta = sched.S, sched.P, sched.M, sched.delta
+    expect = {
+        "X": (X, (sched.n_slots, Q) + feat, X.dtype),
+        "src": (sched.src, (S, P, M), torch.int32),
+        "val": (sched.val, (S, P, M), X.dtype),
+        "row_ptr": (sched.row_ptr, (S, P, delta + 1), torch.int32),
+        "rows": (sched.rows, (S, P, delta), torch.int32),
+    }
+    if epilogue.table is not None:
+        expect["table"] = (epilogue.table, (sched.n_slots, Q) + feat, X.dtype)
+    _check_tensors(expect, X.device)
+    C = Q * F
+    if max(sched.n_slots, P * delta) * C >= 2**31:
+        raise ValueError("the batch frontier and the step's rows must hold fewer than 2**31 values")
+    _check_aligned(C, {"X": X, "table": epilogue.table}, VECTOR_C)
+    _check_cuda(X)
+    return C, (F if epilogue.tag == LABELPROP else C)
+
+
+def fused_batch_round_cuda(X, sched, semiring, epilogue) -> torch.Tensor:
+    """One round of a batch of Q queries on the card, one launch: returns a
+    new ``(n+1, Q)+feat`` frontier (``X`` is left as it was).  An
+    ``add_table`` or ``labelprop`` table is ``(n+1, Q)+feat``
+    (:meth:`Epilogue.for_batch`).  Launches on the current stream and does
+    not synchronise.  The dump row's values are unspecified."""
+    C, G = _check_batch_args(X, sched, semiring, epilogue)
+    out = _launch_k1("round_block_batch_launch", X, sched, epilogue, C, G)
+    fused_batch_round_cuda.launches += 1
+    return out
+
+
+fused_batch_round_cuda.launches = 0  # batch kernel launches, apart from K1's single-query count
 
 
 def _check_halo_args(x_loc, ef, sched, plan, semiring, epilogue, halo_dtype, steps):

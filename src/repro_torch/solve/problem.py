@@ -40,6 +40,7 @@ __all__ = [
     "pagerank_problem",
     "ppr_problem",
     "ppr_teleport",
+    "multi_source_x0",
     "sssp_problem",
     "cc_problem",
     "jacobi_problem",
@@ -60,8 +61,9 @@ class Problem:
       update is ``(old, reduced, rows) -> new`` on ``device`` (``rows`` hold
       global row ids, dump slot = n).  ``q`` is the query for
       ``takes_query`` problems and ``None`` otherwise.
-    * ``residual``        — ``(x_prev, x_new) -> scalar tensor``; converged
-      when ``residual ≤ tol``.
+    * ``residual``        — ``(x_prev, x_new, dim=None) -> tensor``, summed
+      over the axes ``dim`` (all by default: a scalar); converged when
+      ``residual ≤ tol``.  A batch passes every axis but its query axis.
     * ``x0``              — ``graph -> (n,) ndarray`` initial state factory
       (``(n, F)`` when ``feature_dim = F > 1``).
     * ``edge_values``     — optional ``graph -> (nnz,) ndarray`` override used
@@ -84,19 +86,27 @@ class Problem:
     feature_dim: int = 1
 
 
-def count_changed_residual(x_prev, x_new):
+def _sum(v, dim):
+    return torch.sum(v) if dim is None else torch.sum(v, dim=dim)
+
+
+def count_changed_residual(x_prev, x_new, dim=None):
     """Number of vertices whose value changed this round (paper's stop rule)."""
-    return torch.sum((x_prev != x_new).to(torch.float32))
+    return _sum((x_prev != x_new).to(torch.float32), dim)
 
 
-def l1_residual(x_prev, x_new):
+def l1_residual(x_prev, x_new, dim=None):
     """Total absolute change across vertices (PageRank/Jacobi stop rule)."""
-    return torch.sum(torch.abs(x_new - x_prev))
+    return _sum(torch.abs(x_new - x_prev), dim)
 
 
 def _row_table(values, device) -> torch.Tensor:
     """``(n,)+feat`` per-row values → ``(n+1,)+feat`` f32 table with a zero
-    dump row."""
+    dump row; a tensor's rows are joined on ``device`` (a batch's tables)."""
+    if isinstance(values, torch.Tensor):
+        values = values.to(device=device, dtype=torch.float32)
+        pad = torch.zeros((1,) + tuple(values.shape[1:]), dtype=torch.float32, device=device)
+        return torch.cat([values, pad]).contiguous()
     values = np.asarray(values, dtype=np.float32)
     pad = np.zeros((1,) + values.shape[1:], dtype=np.float32)
     return torch.as_tensor(np.concatenate([values, pad]), device=device)
@@ -159,6 +169,14 @@ def ppr_problem(
         takes_query=True,
         default_query=lambda g: np.full(g.n, (1.0 - damping) / g.n, dtype=np.float32),
     )
+
+
+def multi_source_x0(graph: CSRGraph, sources) -> np.ndarray:
+    """(Q, n) SSSP initial states, one per source — feed to ``solve_batch``."""
+    sources = np.atleast_1d(np.asarray(sources, dtype=np.int64))
+    x0 = np.full((sources.shape[0], graph.n), INT_INF, dtype=np.int32)
+    x0[np.arange(sources.shape[0]), sources] = 0
+    return x0
 
 
 def sssp_problem(source: int = 0, max_rounds: int = 10_000) -> Problem:

@@ -27,6 +27,10 @@ between shards.  ``halo_dtype`` ∈ ``{"f32",
 "kernel"`` only; f32 gives the replicated solve's answer bit for bit).
 Both backends run both frontiers.
 
+``solve_batch`` answers Q queries together on the replicated frontier, one
+launch of K1's batch entry a round for all Q (:mod:`repro_torch.solve.batch`,
+which also holds the open batch :class:`~repro_torch.solve.batch.BatchStepper`).
+
 The solver runs on CUDA unless it is given ``device="cpu"``; with no CUDA
 device and no ``device`` it raises.
 """
@@ -53,6 +57,7 @@ from repro_torch.graphs.formats import CSRGraph
 from repro_torch.graphs.partition import balanced_blocks
 from repro_torch.kernels.ops import fused_round
 from repro_torch.kernels.round_block import Epilogue
+from repro_torch.solve import batch
 from repro_torch.solve.problem import Problem
 
 __all__ = [
@@ -300,6 +305,29 @@ class Solver:
             raise ValueError(f"q must have shape ({n},) or ({n}, {F}), got {q.shape}")
         return self.problem.make_row_update(self.graph, q, self.device)
 
+    def batch_row_update(self, q, Q: int, feat: tuple) -> Epilogue:
+        """The row update of a batch of Q queries whose frontier rows are
+        ``(Q,)+feat`` a vertex.  A query problem's Q queries are copied to
+        the device once a batch and laid side by side there, vertex-major,
+        ``(n + 1, Q)+feat``; any other problem's one table is every query's."""
+        problem = self.problem
+        if not problem.takes_query:
+            if q is not None:
+                raise ValueError(f"problem {problem.name!r} takes no query")
+            return self._row_update.for_batch(Q, feat, per_query=False)
+        if q is None:
+            raise ValueError(f"problem {problem.name!r} needs a batched q=")
+        q = np.asarray(q)
+        lead = q.shape[0] if q.ndim else None
+        if lead != Q:
+            raise ValueError(f"q leading axis {lead} != Q {Q}")
+        n, F = self.graph.n, problem.feature_dim
+        if q.shape[1:] not in ((n,), (n, F)):
+            raise ValueError(f"q must have shape (Q, {n}) or (Q, {n}, {F}), got {q.shape}")
+        side_by_side = torch.as_tensor(np.ascontiguousarray(q)).to(self.device).movedim(0, 1)
+        ep = problem.make_row_update(self.graph, side_by_side, self.device)
+        return ep.for_batch(Q, feat, per_query=True)
+
     # ------------------------------------------------------------------ #
     # solve
     # ------------------------------------------------------------------ #
@@ -368,4 +396,29 @@ class Solver:
             tol,
             max_rounds,
             compile_time_s=build_s,
+        )
+
+    def solve_batch(
+        self,
+        x0_batch,
+        *,
+        q=None,
+        delta=None,
+        backend: str | None = None,
+        frontier: str | None = None,
+        tol=None,
+        max_rounds=None,
+        compact_every: int | None = None,
+    ) -> batch.BatchResult:
+        """Batched multi-query solve — see :func:`repro_torch.solve.batch.solve_batch`."""
+        return batch.solve_batch(
+            self,
+            x0_batch,
+            q=q,
+            delta=delta,
+            backend=backend,
+            frontier=frontier,
+            tol=tol,
+            max_rounds=max_rounds,
+            compact_every=compact_every,
         )

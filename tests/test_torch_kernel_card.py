@@ -1,5 +1,6 @@
 """K1, K2 and K3 on the card against their plain versions, bit for bit,
-on vector frontiers and on (n + 1, F) matrix frontiers.
+on vector frontiers and on (n + 1, F) matrix frontiers; K1's batch entry on
+(n + 1, Q) and (n + 1, Q, F) batch frontiers.
 
 Imports neither jax nor ``repro``, so it runs on a machine with a CUDA card
 and only the port installed:
@@ -27,15 +28,22 @@ from repro_torch.kernels.round_block import (  # noqa: E402
     LABELPROP,
     MIN_OLD,
     Epilogue,
+    fused_batch_round_cuda,
     fused_halo_round_cuda,
     fused_round_cuda,
 )
 from repro_torch.kernels.spmv_ell import spmv_ell_cuda  # noqa: E402
 from repro_torch.solve import (  # noqa: E402
+    BatchStepper,
     Solver,
     label_propagation_problem,
+    labelprop_anchors,
+    multi_source_x0,
     pagerank_problem,
+    ppr_problem,
+    ppr_teleport,
     rwr_embedding_problem,
+    rwr_restart,
     sssp_problem,
 )
 
@@ -516,6 +524,145 @@ def test_matrix_solve_without_nvcc_raises_instead_of_running_plain(cuda_device, 
                         frontier=frontier, n_shards=4)
         with pytest.raises(RuntimeError, match="nvcc not found"):
             solver.solve(backend="kernel")
+        assert not calls
+    finally:
+        build.load.cache_clear()
+
+
+# K1's batch entry: a batch frontier (n + 1, Q)+feat of C = Q·F values a
+# row against its plain round on the CPU, bit for bit.  C = 1, 2, 4, 8 take
+# the widths of the single-query kernel, 16 and 32 their own builds (edges
+# staged once, columns gathered 8 at a time), 3 and 12 the feature-block
+# build; labelprop's epilogue runs over each query's own F columns.
+BATCH_WIDTHS = (1, 3, 8, 12, 16, 32)
+# (tag, layout): "vector" is Q = C queries of (n + 1,) rows (ppr, multi-source
+# sssp), "matrix" Q = C / 4 queries of F = 4 (F = 1 where 4 does not divide C).
+BATCH_CASES = [(ADD_CONST, "matrix"), (ADD_TABLE, "vector"), (ADD_TABLE, "matrix"), (MIN_OLD, "vector"),
+               (LABELPROP, "matrix")]
+
+
+def _batch_card_inputs(tag, layout, C, g=None):
+    """Graph, semiring, the (n + 1, Q)+feat batch frontier (host) and its
+    epilogue with an (n + 1, Q)+feat table where the tag reads one."""
+    rng = np.random.default_rng(C)
+    Q, feat = (C, ()) if layout == "vector" else ((C // 4, (4,)) if C % 4 == 0 else (C, (1,)))
+    shape = (Q,) + feat
+    if tag == MIN_OLD:
+        g = g or make_graph("kron", scale=10, efactor=8, kind="sssp")
+        x = rng.integers(0, 1000, (g.n + 1,) + shape).astype(np.int32)
+        x[rng.random(x.shape) < 0.3] = INT_INF
+        return g, MIN_PLUS, x, Epilogue(MIN_OLD)
+    g = g or make_graph("twitter", scale=10, efactor=8, kind="pagerank")
+    x = _wide_range(rng, (g.n + 1,) + shape)
+    if tag == ADD_CONST:
+        return g, PLUS_TIMES, x, Epilogue(ADD_CONST, const=float(np.float32(0.15 / g.n)))
+    if tag == ADD_TABLE:
+        table = _wide_range(rng, (g.n + 1,) + shape)
+        table[-1] = 0.0
+        return g, PLUS_TIMES, x, Epilogue(ADD_TABLE, table=torch.as_tensor(table))
+    anchors = (rng.random((g.n + 1,) + shape) < 0.01).astype(np.float32)
+    anchors[-1] = 0.0
+    x[rng.random(g.n + 1) < 0.2] = 0.0
+    g = g.with_values(np.ones(g.nnz, np.float32))
+    return g, PLUS_TIMES, x, Epilogue.labelprop(torch.as_tensor(anchors), 0.9)
+
+
+def _batch_round_case(device, g, sr, x, ep, mode, delta, min_chunk=32, rounds=2):
+    cpu = engine.make_schedule(g, 4, delta, sr, mode=mode, min_chunk=min_chunk)
+    dev = engine.make_schedule(g, 4, delta, sr, mode=mode, min_chunk=min_chunk, device=device)
+    X = torch.as_tensor(x)
+    launches = (fused_batch_round_cuda.launches, fused_round_cuda.launches)
+    for _ in range(rounds):
+        want = ref.fused_batch_round_ref(X, cpu, sr, ep)
+        got = ops.fused_batch_round(X.to(device), dev, sr, ep.to(device))
+        torch.cuda.synchronize()
+        assert _bits_equal(got.cpu()[:-1], want[:-1])
+        X = want
+    assert (fused_batch_round_cuda.launches, fused_round_cuda.launches) == (launches[0] + rounds, launches[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,delta", MATRIX_MODES)
+@pytest.mark.parametrize("C", BATCH_WIDTHS)
+@pytest.mark.parametrize("tag,layout", BATCH_CASES)
+def test_batch_round_kernel_matches_plain_round(cuda_device, tag, layout, C, mode, delta):
+    g, sr, x, ep = _batch_card_inputs(tag, layout, C)
+    _batch_round_case(cuda_device, g, sr, x, ep, mode, delta)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,delta", [("sync", None), ("delayed", 301), ("delayed", 3001)])
+@pytest.mark.parametrize("tag,layout", BATCH_CASES)
+def test_batch_round_sums_hub_rows_in_edge_order(cuda_device, tag, layout, mode, delta):
+    """C = 8 on the 25,000-edge hub row (24 chunks), empty rows and
+    wide-range values."""
+    g = _hub_graph("sssp" if tag == MIN_OLD else "pagerank", 30_001, 25_000)
+    g, sr, x, ep = _batch_card_inputs(tag, layout, 8, g=g)
+    _batch_round_case(cuda_device, g, sr, x, ep, mode, delta, min_chunk=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["ppr", "sssp", "rwr", "labelprop"])
+def test_batch_solve_on_card_matches_cpu(cuda_device, name):
+    """``solve_batch`` (one batch launch a round) and a ``BatchStepper`` on the
+    card equal the CPU's, query for query."""
+    kind = "sssp" if name == "sssp" else "pagerank"
+    g = make_graph("kron" if name == "sssp" else "twitter", scale=10, efactor=8, kind=kind)
+    rng = np.random.default_rng(5)
+    seeds = rng.choice(g.n, 4, replace=False)
+    if name == "sssp":
+        problem, x0, q = sssp_problem(), multi_source_x0(g, seeds), None
+    elif name == "ppr":
+        problem, x0, q = ppr_problem(), np.full((4, g.n), 1.0 / g.n, np.float32), ppr_teleport(g, seeds)
+    elif name == "rwr":
+        problem, x0 = rwr_embedding_problem(), np.full((4, g.n, 4), 1.0 / g.n, np.float32)
+        q = np.stack([rwr_restart(g, rng.choice(g.n, 4, replace=False)) for _ in range(4)])
+    else:
+        problem, x0 = label_propagation_problem(max_rounds=100), np.full((4, g.n, 4), 0.25, np.float32)
+        q = np.stack([labelprop_anchors(g, rng.choice(g.n, 4, replace=False)) for _ in range(4)])
+    kw = dict(n_workers=8, delta=96, min_chunk=32)
+    card, cpu = Solver(g, problem, **kw), Solver(g, problem, device="cpu", **kw)
+    launches = fused_batch_round_cuda.launches
+    on_card, on_cpu = card.solve_batch(x0, q=q), cpu.solve_batch(x0, q=q)
+    assert fused_batch_round_cuda.launches == launches + on_card.rounds
+    assert (on_card.rounds, on_card.flush_bytes) == (on_cpu.rounds, on_cpu.flush_bytes)
+    np.testing.assert_array_equal(on_card.rounds_per_query, on_cpu.rounds_per_query)
+    np.testing.assert_array_equal(on_card.x, on_cpu.x)
+    rows = {}
+    for solver in (card, cpu):
+        st = BatchStepper(solver, capacity=3)
+        done = {}
+        for i in range(4):
+            while not st.free_slots:
+                done.update((r.tag, r) for r in st.run(5))
+            st.admit(x0[i], q=None if q is None else q[i], tag=i)
+        while st.occupancy:
+            done.update((r.tag, r) for r in st.run(5))
+        rows[solver.device.type] = done
+    for i in range(4):
+        assert rows["cuda"][i].rounds == rows["cpu"][i].rounds
+        np.testing.assert_array_equal(rows["cuda"][i].x, rows["cpu"][i].x)
+
+
+@pytest.mark.gpu
+def test_batch_solve_without_nvcc_raises_instead_of_running_plain(cuda_device, tmp_path, monkeypatch):
+    """No fallback for batches: with no built library and no nvcc, a kernel
+    batch solve raises and never runs the plain round."""
+    from repro_torch.kernels import build
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    build.load.cache_clear()
+    calls = []
+    monkeypatch.setattr(ref, "fused_batch_round_ref", lambda *a: calls.append(a))
+    monkeypatch.setattr(ref, "fused_round_ref", lambda *a: calls.append(a))
+    try:
+        g = make_graph("twitter", scale=9, efactor=8, kind="pagerank")
+        solver = Solver(g, ppr_problem(), n_workers=8, delta=64, min_chunk=32)
+        x0 = np.full((2, g.n), 1.0 / g.n, np.float32)
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            solver.solve_batch(x0, q=ppr_teleport(g, [1, 2]), backend="kernel")
         assert not calls
     finally:
         build.load.cache_clear()
