@@ -3,7 +3,9 @@
     python3 chip_smoke.py
 
 Phases, each printing its seconds; any failure ends the run with a nonzero
-exit and no result line:
+exit and no result line.  The full-size graph is generated in a child
+process (this script with ``--write-graph``) while phases 1 and 2 run on
+smaller graphs:
 
 1. the card's name and power limit; build every CUDA kernel from ``src/``
    (``build/kernels/``, one ``nvcc`` per source, all started together), and
@@ -25,26 +27,44 @@ exit and no result line:
    frontiers ``(n + 1, 4)``, K2 on ``(D, L, 4)`` with ``(D, S, H, 4)``
    residuals) likewise, for rwr (``add_table`` over its ``(n + 1, 4)``
    restart table) and labelprop (its anchors, unit edges) on twitter at
-   scale 16 at δ = sync and 128, and after phase 3 at scale 22 at sync.
+   scale 16 at δ = sync and 128, and after phase 3 at scale 22 at sync
+   (K2 there on the f32 wire alone).
    K1's batch entry (one launch a round for a batch frontier
    ``(n + 1, Q)+feat``) likewise, one round from the same frontier: ppr
    (``add_table`` over Q = 8 teleports) and multi-source sssp at Q = 8, rwr
    and labelprop at Q = 2, F = 4, at scale 16 (sync, 128) and, after phase
-   3, at scale 22 (sync, δ*).
+   3, at scale 22 (sync, δ*; rwr and labelprop at sync).
+   K1's loop entry (a whole solve, a closed batch or an open batch's
+   quantum in one launch) against its plain loops on the CPU
+   (``ref.fused_solve_ref``, ``ref.fused_batch_solve_ref``): x bit for bit,
+   rounds and ``rounds_per_query`` exactly, a count residual exactly and an
+   l1 residual within d·2⁻²⁴ of the float64 sum of the plain round's terms
+   (d the kernel's summation depth, ``loop_sum_depth``): PageRank, SSSP,
+   rwr (F = 4), ppr (Q = 8) and three quanta of an open ppr batch, to
+   convergence at scale 16 (sync, 128), and over a budget of a few rounds
+   (``tol = -1``) at scale 22 (sync and, after phase 3, PageRank and SSSP
+   at δ*), where SSSP's int32 plain loop runs on the card to convergence
+   (min-plus is order-free).
 3. the main path, ``Solver(...).solve()`` with ``backend="kernel"`` at sync,
    async, 1024 and auto (twice: cold, then warm): PageRank on ``twitter``
    scale 22 (4.2 M vertices, 64.3 M edges) and SSSP on the same topology
-   with SSSP weights, P = 8.  ``total_s`` is the wall time of the whole
-   ``solve()`` call; ``rounds_s`` the sum of its rounds' times.
-   K1's launch count is reset before and read after; it must be nonzero.  On
-   a smaller graph the kernel solve must give the plain (``backend="torch"``,
-   CPU) solve's rounds and ``x``.
+   with SSSP weights, P = 8.  Every launch count is reset before and read
+   after: one launch of K1's loop entry a solve (three for the cold auto,
+   whose probes solve at sync and async too) and no single-round K1
+   launch.  ``total_s`` is the wall time of the whole ``solve()`` call,
+   ``loop_s`` the loop's own.  Then each warm solve again in its parts
+   (``setup_s``: x0 and the row update's table to the card; ``loop_s``: the
+   loop entry and its read-back; ``copy_out_s``: x back to the host),
+   beside the same solve through ``engine.host_loop`` over single K1
+   launches (K1's count reset before and read after), whose x and rounds
+   must be equal.  On a smaller graph the kernel solve must give the plain
+   (``backend="torch"``, CPU) solve's rounds and ``x``.
    Then the halo path, ``solve(frontier="halo")`` over D = 4 shards at sync
    and δ*, with K2's launch count reset before and read after, one launch a
    round: f32 must give the replicated solve's ``x``, rounds, flushes and
    flush_bytes exactly; PageRank also runs with int8 and fp8 halos, which
    must converge.  Then K2 against its plain round at full size, at sync
-   and δ*, as in phase 2.
+   and δ*, as in phase 2 but one round of each quantized wire.
    Then the matrix path, with both launch counts reset before and read
    after: rwr embeddings (F = 4) and label propagation (F = 4, on the same
    topology with unit edges) on twitter scale 22, each
@@ -52,21 +72,27 @@ exit and no result line:
    sync and its own δ* (``delta="auto"``, probed before the count): rwr
    must converge, labelprop runs at most LABELPROP_ROUNDS rounds, both give
    finite ``(n, 4)`` values, and the halo solve must equal the replicated one in
-   x, rounds, flushes and flush_bytes.  At scale 14 their kernel solves
-   (replicated and halo, async) must equal the CPU plain solves.
+   x, rounds, flushes and flush_bytes; the replicated solve is one loop
+   launch, the halo solve one K2 launch a round; then each replicated
+   solve through ``engine.host_loop`` over single K1 launches (counted),
+   equal in x and rounds.  At scale 14 their kernel solves (replicated and
+   halo, async) must equal the CPU plain solves.
    Then the batch path, with the batch entry's launch count reset before
    and read after: ``Solver.solve_batch`` on twitter scale 22 for ppr
    (Q = 8 teleports, one a seed: the 8 vertices of largest out-degree) and
    multi-source sssp from the same 8 vertices, at sync and δ*, and ppr at
    Q = 32 at δ*, each twice (``total_s`` is the second call's wall time,
    beside the caching allocator's device allocations and retries in it);
-   then a ``BatchStepper`` at scale 16 (capacity 8, 12 ppr queries
-   admitted two a quantum of 4 rounds).  One batch launch a round and no
-   single-query launch; after the count, each batch query's x must equal its
+   ppr at Q = 8 and δ* with ``compact_every = 4``; then a ``BatchStepper``
+   at scale 16 (capacity 8, 12 ppr queries admitted two a quantum of 4
+   rounds).  One loop launch a compaction chunk and a quantum, and no
+   single-round launch; after the count, each batch query's x must equal its
    own kernel ``solve(tol=-1.0, max_rounds=batch.rounds)`` bit for bit,
    ``rounds_per_query`` each single solve's rounds (whose wall times are
    summed beside the batch's), and every retired row of the open batch a
-   fresh one-query ``solve_batch``.
+   fresh one-query ``solve_batch``.  Then the ppr batches (Q = 8 at sync,
+   Q = 32 at δ*) through ``engine.host_loop`` over single launches of K1's
+   batch entry (counted) for the batch's rounds, equal in x.
 4. K1's time per round at the full-size shapes, at sync, 128, 1024 and
    auto's δ* (CUDA events), beside its byte bound, the same round with no
    edges to walk (barriers, epilogues and publishes alone), the plain round's
@@ -93,19 +119,33 @@ exit and no result line:
    at C = Q·F = 8 (ppr and sssp, Q = 8) and 32 (rwr Q = 8 at F = 4, ppr
    Q = 32) at sync and δ*, beside its bound (``round_bound`` with C), its
    plain round on the card, ``torch.sparse.mm`` by the ``(n, C)`` frontier
-   (plus-times) and Q single-query K1 launches.
-5. the ``kernels`` line, the card's name and power limit, and the result line.
+   (plus-times) and Q single-query K1 launches.  K1's loop entry: its time a
+   round (a launch of a fixed number of rounds, ``tol = -1``, over that
+   number) at every δ the main path runs, for PageRank and SSSP, beside K1's
+   round (``loop_over_k1``), the same loop publishing without its residual
+   (``no_residual_ms``), the plain loop's time a round on the card and the
+   round's bound; and likewise for rwr at F = 4, a ppr batch of Q = 8
+   (sync) and of Q = 32 (δ*).
+5. the ``kernels`` line (every kernel's launches on its path must be
+   nonzero; K1's single-round entries, which no path launches now, show the
+   main path's 0 with ``on_path: false``, the loop entry that superseded
+   each, and their launches in phase 3's host-loop comparisons, which must
+   be nonzero), the card's name and power limit, and the result line.
 
 It imports neither jax nor the JAX package ``repro``.
 
-    python3 chip_smoke.py --ab OTHER_CHECKOUT
+    python3 chip_smoke.py --ab OTHER_CHECKOUT [ANOTHER ...]
 
-times only the vector kernels (K1 and K2 for PageRank at sync and δ* =
+times the vector kernels (K1 and K2 for PageRank at sync and δ* =
 16,384, K1's batch entry at C = 8 and 32 where both checkouts have it, K3
-plus-times F = 1) of this checkout and of another one (the
-parent commit's, unpacked with ``git archive`` into a directory that
-``.gitignore`` lists), in turns (other, this, this, other), each in its own
-process on the same twitter graph: a comparison of two versions on one card.
+plus-times F = 1), K1's loop entry a round where the checkout has one
+(PageRank at sync and δ*, rwr F = 4 and a ppr batch of Q = 8 at sync), and
+warm whole solves (PageRank, SSSP, rwr F = 4 and labelprop F = 4 at sync
+and δ*, a ppr batch of Q = 8 at δ*) of this checkout and of others (such
+as the parent commit's, unpacked with ``git archive`` into a directory that
+``.gitignore`` lists), in turns (the others, this, this, the others in
+reverse), each in its own process on the same twitter graph: a comparison
+of versions on one card.
 """
 
 from __future__ import annotations
@@ -117,6 +157,7 @@ import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -149,6 +190,12 @@ LABELPROP_ROUNDS = 200
 # capacity and queries (phase 3, at HALO_SCALE).
 BATCH_Q, BATCH_Q_WIDE, BATCH_Q_MATRIX = 8, 32, 2
 STEPPER_CAPACITY, STEPPER_QUERIES = 8, 12
+# K1's loop entry against its plain loops at full size: rounds a float32
+# case runs (the plain loop runs on the host's CPU), and the budget-cut case
+# at scale 16.  Phase 4 times a loop launch of LOOP_TIMED_ROUNDS[δ] rounds.
+LOOP_BUDGET, LOOP_BUDGET_CUT = 2, 3
+LOOP_TIMED_ROUNDS = {"sync": 20, 128: 3, 1024: 8}
+LOOP_TIMED_DEFAULT = 16  # δ*
 
 
 def log(msg: str) -> None:
@@ -174,7 +221,7 @@ def ptxas_summary(nvcc_log: str) -> list[dict]:
         if m:
             mangled = m.group(1)
             base = next(
-                (k for k in ("halo_round_kernel", "wide_round_kernel", "round_kernel", "spmv_tiles") if k in mangled),
+                (k for k in ("halo_round_kernel", "solve_kernel", "round_kernel", "spmv_tiles") if k in mangled),
                 mangled,
             )
             args = re.findall(r"PlusTimes|MinPlus|(?<=Li)\d+(?=E)", mangled.split(base, 1)[-1])
@@ -223,6 +270,26 @@ def on(sched, device):
         if isinstance(getattr(sched, f.name), torch.Tensor)
     }
     return dataclasses.replace(sched, **moved)
+
+
+def loop_sum_depth(sched, C: int, Q: int, sms: int) -> int:
+    """Most float32 additions on any term's way into a query's residual in
+    K1's loop entry (``solve_kernel`` in csrc/round_block.cu) over ``sched``
+    with C values a row and Q queries, on a grid of at least one block an SM
+    (``tile_grid`` at one block an SM gives the fewest lanes, so the most
+    terms a lane): a lane's cells of a step (C / Q values each) and one
+    addition a step, its block's fold (a tree of 8 levels for one query, a
+    query's lanes in lane order for a batch), and the fold over the blocks
+    (at most 32 an SM, 256-strided, then a tree of 8 levels).  A sum of
+    nonnegative float32 terms along paths of at most d additions is within
+    d·2⁻²⁴/(1 − d·2⁻²⁴) of the exact sum, relative."""
+    cells = sched.P * sched.delta
+    rows = min(max(-(-cells // sms), 8), 256, sched.delta)
+    blocks = max(min(sched.P * -(-sched.delta // rows), sms), -(-Q // 256))
+    lanes = blocks * 256 // Q  # a query's lanes
+    lane = -(-cells // lanes) * (C // Q) + sched.S
+    block = 8 if Q == 1 else -(-256 // Q)
+    return lane + block + -(-sms * 32 // 256) + 8
 
 
 def ulp_gap(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -301,35 +368,51 @@ def halo_round_bound(sched, plan, tag: str, wire: str, F: int = 1) -> tuple[floa
     return bound_ms(bytes_, (2 * edges + rows) * F, sched.val.dtype == torch.float32)
 
 
-AB_DELTAS = ("sync", 16384)  # δ* of PageRank on twitter scale 22
+AB_DELTAS = ("sync", 16384)  # δ* of PageRank and of SSSP on twitter scale 22
+AB_REPEATS = 3
 
 
 def time_vector(graph_npz: str, root: str) -> int:
     """The vector kernels of the checkout at ``root``, timed on the graph in
     ``graph_npz``: K1 and K2 (D = SHARDS) for PageRank at AB_DELTAS, K1's
     batch entry (where the checkout has one) for an add_table batch of C =
-    8 and 32 columns at AB_DELTAS, and K3 plus-times F = 1; prints one JSON
+    8 and 32 columns at AB_DELTAS, and K3 plus-times F = 1; K1's loop entry
+    a round (where the checkout has one; launches of R and 2R rounds at tol
+    = -1, the difference over R) for PageRank at AB_DELTAS, rwr (F = 4) and
+    a ppr batch of BATCH_Q teleports at sync; then warm whole solves, each
+    the least wall time of AB_REPEATS calls after a first one: PageRank,
+    SSSP (source: the vertex of largest out-degree), rwr and labelprop (F =
+    4; labelprop with unit edges, at most LABELPROP_ROUNDS rounds) at
+    AB_DELTAS, and a ppr batch of BATCH_Q teleports at δ*.  Prints one JSON
     object."""
     sys.path.insert(0, str(Path(root).resolve() / "src"))
     from repro_torch.core import engine
     from repro_torch.core.semiring import PLUS_TIMES
     from repro_torch.dist import engine_sharded
     from repro_torch.graphs.formats import CSRGraph
+    from repro_torch.graphs.generators import sssp_values
     from repro_torch.kernels import build, ops
     from repro_torch.kernels.round_block import ADD_TABLE, Epilogue
-    from repro_torch.solve import pagerank_problem
+    from repro_torch.solve import (
+        Solver,
+        label_propagation_problem,
+        pagerank_problem,
+        ppr_problem,
+        ppr_teleport,
+        rwr_embedding_problem,
+        sssp_problem,
+    )
 
     build.build()
     a = np.load(graph_npz)
     g = CSRGraph(int(a["n"]), a["indptr"], a["indices"], a["values"], name="ab")
     dev = torch.device("cuda", 0)
-    ep = pagerank_problem().make_row_update(g, None, dev)
+    pr = Solver(g, pagerank_problem(), n_workers=P)
+    ep = pr.row_update()
     x = engine.extend_frontier(np.full(g.n, 1.0 / g.n, np.float32), PLUS_TIMES, dev)
     row = {"root": root}
     for d in AB_DELTAS:
-        sched = engine.make_schedule(
-            g, P, None if d == "sync" else d, PLUS_TIMES, mode="sync" if d == "sync" else "delayed", device=dev
-        )
+        sched = pr.schedule(d)
         row[f"k1_{d}_ms"] = time_ms(lambda: ops.fused_round(x, sched, PLUS_TIMES, ep))
         plan = engine_sharded.make_frontier_plan(sched, SHARDS)
         x_loc = plan.scatter_x(x)
@@ -341,19 +424,66 @@ def time_vector(graph_npz: str, root: str) -> int:
             ep_b = Epilogue(ADD_TABLE, table=table)
             row[f"kb_c{C}_{d}_ms"] = time_ms(lambda: ops.fused_batch_round(X, sched, PLUS_TIMES, ep_b))
             del X, table, ep_b
-        del sched, plan, x_loc
+        del plan, x_loc
     idx, val = (torch.from_numpy(v).to(dev) for v in ops.ell_from_csr(g))
     row["k3_ms"] = time_ms(lambda: ops.spmv(x, idx, val, "plus_times"))
+    del idx, val
+
+    seeds = np.argsort(-g.out_degree, kind="stable")[:BATCH_Q]
+    ppr = Solver(g, ppr_problem(), n_workers=P)
+    rwr = Solver(g, rwr_embedding_problem(), n_workers=P)
+    x4 = engine.extend_frontier(rwr.problem.x0(g), PLUS_TIMES, dev)
+    sched, ep4 = rwr.schedule("sync"), rwr.row_update()
+    row["k1_rwr_f4_sync_ms"] = time_ms(lambda: ops.fused_round(x4, sched, PLUS_TIMES, ep4))
+    if hasattr(ops, "fused_solve"):
+        from repro_torch.solve.problem import l1_residual
+
+        def loop_ms(solver, d, ep, X, batch=False):
+            sched = solver.schedule(d)
+            rounds = LOOP_TIMED_ROUNDS.get(d, LOOP_TIMED_DEFAULT)
+            loop = ops.fused_batch_solve if batch else ops.fused_solve
+            one = time_ms(lambda: loop(X, sched, PLUS_TIMES, ep, l1_residual, -1.0, rounds), 0.3, 8, 2)
+            two = time_ms(lambda: loop(X, sched, PLUS_TIMES, ep, l1_residual, -1.0, 2 * rounds), 0.3, 8, 2)
+            return (two - one) / rounds
+
+        for d in AB_DELTAS:
+            row[f"loop_{d}_ms"] = loop_ms(pr, d, ep, x)
+        row["loop_rwr_f4_sync_ms"] = loop_ms(rwr, "sync", ep4, x4)
+        ep_b = ppr.batch_row_update(ppr_teleport(g, seeds), BATCH_Q, ())
+        X = engine.extend_frontier(np.full((g.n, BATCH_Q), 1.0 / g.n, np.float32), PLUS_TIMES, dev)
+        row[f"loop_ppr_q{BATCH_Q}_sync_ms"] = loop_ms(ppr, "sync", ep_b, X, batch=True)
+        del X, ep_b
+    del x4
+
+    def warm_s(call):
+        call()
+        walls = []
+        for _ in range(AB_REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            walls.append(time.perf_counter() - t0)
+        return min(walls)
+
+    hub = int(np.argmax(g.out_degree))
+    ss = Solver(g.with_values(sssp_values(g.indices)), sssp_problem(source=hub), n_workers=P)
+    lp = Solver(g, label_propagation_problem(max_rounds=LABELPROP_ROUNDS), n_workers=P)
+    for name, solver in (("pagerank", pr), ("sssp", ss), ("rwr", rwr), ("labelprop", lp)):
+        for d in AB_DELTAS:
+            row[f"solve_{name}_{d}_s"] = warm_s(lambda: solver.solve(delta=d))
+            row[f"solve_{name}_{d}_rounds"] = solver.solve(delta=d).rounds
+    x0 = np.full((BATCH_Q, g.n), 1.0 / g.n, np.float32)
+    qb = ppr_teleport(g, seeds)
+    row[f"batch_ppr_q{BATCH_Q}_{AB_DELTAS[-1]}_s"] = warm_s(lambda: ppr.solve_batch(x0, q=qb, delta=AB_DELTAS[-1]))
     print(json.dumps(row), flush=True)
     return 0
 
 
-def ab(other: str, scale: int) -> int:
-    """The vector kernels of this checkout and of ``other`` (another
-    checkout, such as the parent commit's) on one card, in turns: other,
-    this, this, other, each in its own process on one twitter graph."""
-    import tempfile
-
+def ab(others: list[str], scale: int) -> int:
+    """The vector kernels of this checkout and of ``others`` (other
+    checkouts, such as the parent commit's) on one card, in turns: the
+    others, this, this, the others in reverse, each in its own process on
+    one twitter graph."""
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.graphs.generators import make_graph
 
@@ -366,7 +496,8 @@ def ab(other: str, scale: int) -> int:
         npz = str(Path(tmp) / "graph.npz")
         np.savez(npz, n=g.n, indptr=g.indptr, indices=g.indices, values=g.values)
         del g
-        for label, root in (("other", other), ("this", here), ("this", here), ("other", other)):
+        turns = [(f"other {o}", o) for o in others]
+        for label, root in turns + [("this", here), ("this", here)] + turns[::-1]:
             out = subprocess.run(
                 [sys.executable, str(Path(__file__).resolve()), "--time-vector", npz, root],
                 capture_output=True, text=True, timeout=900,
@@ -383,10 +514,13 @@ def ab(other: str, scale: int) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=SCALE, help="full-size graph scale")
-    ap.add_argument("--ab", metavar="CHECKOUT", help="only time the vector kernels against another checkout's")
+    ap.add_argument("--ab", nargs="+", metavar="CHECKOUT", help="only time the vector kernels against other checkouts'")
     ap.add_argument("--time-vector", nargs=2, metavar=("GRAPH_NPZ", "CHECKOUT"), help=argparse.SUPPRESS)
+    ap.add_argument("--write-graph", nargs=2, metavar=("GRAPH_NPZ", "SCALE"), help=argparse.SUPPRESS)
     args = ap.parse_args()
     scale = args.scale
+    if args.write_graph:
+        return write_graph(args.write_graph[0], int(args.write_graph[1]))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -394,16 +528,43 @@ def main() -> int:
         return time_vector(*args.time_vector)
     if args.ab:
         return ab(args.ab, scale)
+    # the full-size graph is generated in a child process meanwhile
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = str(Path(tmp) / "graph.npz")
+        gen = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--write-graph", npz, str(scale)])
+        try:
+            return smoke(scale, gen, npz)
+        finally:
+            if gen.poll() is None:
+                gen.kill()
+            gen.wait()
+
+
+def write_graph(npz: str, scale: int) -> int:
+    """Generate the full-size twitter graph (PageRank values) into ``npz``."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.graphs.generators import make_graph
+
+    g = make_graph("twitter", scale=scale, efactor=EFACTOR, kind="pagerank")
+    np.savez(npz, n=g.n, indptr=g.indptr, indices=g.indices, values=g.values, name=g.name)
+    return 0
+
+
+def smoke(scale: int, gen: subprocess.Popen, npz: str) -> int:
+    """Phases 1 to 5; ``gen`` writes the full-size graph into ``npz``."""
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.core import engine
     from repro_torch.dist import engine_sharded
+    from repro_torch.graphs.formats import CSRGraph
     from repro_torch.graphs.generators import make_graph, sssp_values
-    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import build, ops, ref, round_block
     from repro_torch.kernels.round_block import (
         Epilogue,
         fused_batch_round_cuda,
+        fused_batch_solve_cuda,
         fused_halo_round_cuda,
         fused_round_cuda,
+        fused_solve_cuda,
     )
     from repro_torch.kernels.spmv_ell import spmv_ell_cuda
     from repro_torch.solve import (
@@ -419,6 +580,9 @@ def main() -> int:
         rwr_restart,
         sssp_problem,
     )
+    from repro_torch.core.semiring import PLUS_TIMES
+    from repro_torch.solve import batch as solve_batch_module
+    from repro_torch.solve.problem import count_changed_residual, l1_residual
 
     dev = torch.device("cuda", 0)
     t_all = time.perf_counter()
@@ -508,11 +672,12 @@ def main() -> int:
 
     halo_err = 0.0
 
-    def compare_halo(label, solver, sched, epilogue, x_cpu):
+    def compare_halo(label, solver, sched, epilogue, x_cpu, wires=None, quant_rounds=3):
         """K2, one launch a round, against the plain halo round on the
         stacked (D, L) frontier: x_loc outside the dump slots and ef, bit for
-        bit; one f32 round, and for plus-times three int8 and three fp8
-        rounds, each wire from the same x and zero residuals."""
+        bit; one f32 round, and for plus-times ``quant_rounds`` int8 and fp8
+        rounds, each wire (of ``wires``, default all) from the same x and
+        zero residuals."""
         nonlocal halo_err, compare_launches
         worst = 0.0
         sr = solver.problem.semiring
@@ -521,11 +686,11 @@ def main() -> int:
         # int32 min-plus is order-free: the plain round on the card is exact
         p_dev = "cpu" if is_f32 else dev
         p_sched, p_plan, p_ep = on(sched, p_dev), on(plan, p_dev), epilogue.to(p_dev)
-        for wire in engine_sharded.HALO_DTYPES if is_f32 else ("f32",):
+        for wire in (wires or engine_sharded.HALO_DTYPES) if is_f32 else ("f32",):
             feat = tuple(x_cpu.shape[1:])
             want = (p_plan.scatter_x(x_cpu.to(p_dev)), engine_sharded.frontier_ef_init(p_plan, feat))
             got = (plan.scatter_x(x_cpu.to(dev)), engine_sharded.frontier_ef_init(plan, feat))
-            for k in range(1 if wire == "f32" else 3):
+            for k in range(1 if wire == "f32" else quant_rounds):
                 ref.fused_halo_round_ref(*want, p_sched, p_plan, sr, p_ep, wire)
                 fused_halo_round_cuda(*got, sched, plan, sr, epilogue.to(dev), wire)
                 compare_launches += 1
@@ -546,7 +711,7 @@ def main() -> int:
 
     matrix_err = {"round_block": 0.0, "halo_round": 0.0}
 
-    def compare_matrix(tag, solvers, rng, deltas):
+    def compare_matrix(tag, solvers, rng, deltas, wires=None):
         """K1, and K2 on the (D, L, F) layout (one f32 round, three int8 and
         three fp8), at F = 4 against their plain versions, for each matrix
         problem's own row update (rwr: add_table over its (n + 1, 4)
@@ -562,10 +727,10 @@ def main() -> int:
                 label = f"{tag} {name} {ep.tag} F={x.shape[1]} δ={sched.delta}"
                 err = compare(label, sched, sr, ep, x)
                 matrix_err["round_block"] = max(matrix_err["round_block"], err)
-                err = compare_halo(label, solver, sched, ep, x)
+                err = compare_halo(label, solver, sched, ep, x, wires)
                 matrix_err["halo_round"] = max(matrix_err["halo_round"], err)
 
-    def compare_halo_all(tag, solvers, q, rng, deltas):
+    def compare_halo_all(tag, solvers, q, rng, deltas, quant_rounds=3):
         pr, ss = solvers["pagerank"], solvers["sssp"]
         x_f = torch.tensor(rng.random(pr.graph.n + 1).astype(np.float32))
         x_i = torch.tensor(rng.integers(0, 5000, ss.graph.n + 1).astype(np.int32))
@@ -573,8 +738,8 @@ def main() -> int:
         ppr_ep = ppr_problem().make_row_update(pr.graph, q, dev)
         for d in deltas:
             sp = pr.schedule(d)
-            compare_halo(f"{tag} pagerank add_const δ={d}", pr, sp, pr.row_update(), x_f)
-            compare_halo(f"{tag} ppr add_table δ={d}", pr, sp, ppr_ep, x_f)
+            compare_halo(f"{tag} pagerank add_const δ={d}", pr, sp, pr.row_update(), x_f, quant_rounds=quant_rounds)
+            compare_halo(f"{tag} ppr add_table δ={d}", pr, sp, ppr_ep, x_f, quant_rounds=quant_rounds)
             compare_halo(f"{tag} sssp min_old δ={d}", ss, ss.schedule(d), ss.row_update(), x_i)
 
     def compare_batch_all(tag, pr, ss, mats, deltas):
@@ -605,6 +770,111 @@ def main() -> int:
                 label = f"{tag} {name} {ep.tag} Q={BATCH_Q_MATRIX} F={F} δ={d}"
                 compare(label, solver.schedule(d), solver.problem.semiring, ep, torch.tensor(x), True)
 
+    loop_err = {"solve": 0.0, "solve_f4": 0.0, "batch": 0.0}
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def compare_loop(label, key, sched, sr, ep, residual, x, tol, max_rounds, batch=False, conv0=None,
+                     plain_on_card=False):
+        """K1's loop entry (one launch) against its plain loop from the same x:
+        x bit for bit; rounds, flags and rounds_per_query exactly; a count
+        residual exactly, and an l1 residual within d·2⁻²⁴/(1 − d·2⁻²⁴) of
+        the float64 sum of the plain round's float32 terms (the same terms
+        as the kernel's), d the kernel's summation depth
+        (``loop_sum_depth``).  The plain loop runs on the CPU, or with
+        ``plain_on_card`` (int32 min-plus, order-free) on the card.
+        Returns the kernel's result."""
+        nonlocal compare_launches
+        p_dev = dev if plain_on_card else "cpu"
+        p_sched, p_ep = on(sched, p_dev), ep.to(p_dev)
+        sums = []  # each plain round's float64 sum of its l1 terms, a query
+
+        def l1_f64(x_prev, x_new, dim=None):
+            t = (x_new - x_prev).abs().double()
+            sums.append(np.atleast_1d((t.sum() if dim is None else t.sum(dim=dim)).cpu().numpy()))
+            return residual(x_prev, x_new, dim)
+
+        plain_res = l1_f64 if residual is l1_residual else residual
+        Q = x.shape[1] if batch else 1
+        if batch:
+            want = ref.fused_batch_solve_ref(x.to(p_dev), p_sched, sr, p_ep, plain_res, tol, max_rounds, conv0)
+            got = fused_batch_solve_cuda(x.to(dev), on(sched, dev), sr, ep.to(dev), residual, tol, max_rounds, conv0)
+        else:
+            want = ref.fused_solve_ref(x.to(p_dev), p_sched, sr, p_ep, plain_res, tol, max_rounds)
+            got = fused_solve_cuda(x.to(dev), on(sched, dev), sr, ep.to(dev), residual, tol, max_rounds)
+        compare_launches += 1
+        a, b = got[0][:-1].cpu(), want[0][:-1].cpu()
+        err = float((a.double() - b.double()).abs().max().item())
+        loop_err[key] = max(loop_err[key], err)
+        res_a, res_b = np.atleast_1d(got[1]), np.atleast_1d(want[1])
+        fin = np.isfinite(res_b)
+        if residual is count_changed_residual:
+            rtol, exact = 0.0, res_b.astype(np.float64)
+        else:  # each query's residual is that of its last round, or of the round it froze on
+            d = loop_sum_depth(sched, int(np.prod(x.shape[1:], dtype=np.int64)), Q, sms)
+            rtol = d * 2.0**-24 / (1 - d * 2.0**-24)
+            rpq = np.atleast_1d(want[4]) if conv0 is not None else np.zeros(Q, np.int64)
+            exact = np.array([sums[k - 1][i] if k > 0 else sums[-1][i] for i, k in enumerate(rpq)]) if sums \
+                else np.full(Q, np.inf)
+        gap = np.abs(res_a[fin].astype(np.float64) - exact[fin]) / np.maximum(np.abs(exact[fin]), 1e-38)
+        same = (
+            torch.equal(a, b)
+            and got[2] == want[2]
+            and np.array_equal(np.atleast_1d(got[3]), np.atleast_1d(want[3]))
+            and (not batch or np.array_equal(got[4], want[4]))
+            and np.array_equal(np.isfinite(res_a), fin)
+            and bool((gap <= rtol).all())
+        )
+        log(
+            f"[2] loop {label}: x={tuple(x.shape)} S={sched.S} rounds={got[2]}/{want[2]} "
+            f"converged={np.atleast_1d(got[3]).tolist()} "
+            + (f"rounds_per_query={got[4].tolist()} " if batch else "")
+            + f"max_abs_err={err} residual_rel_gap={float(gap.max()) if gap.size else 0.0} rtol={rtol}"
+        )
+        if not same:
+            raise AssertionError(f"K1's loop entry disagrees with its plain loop: {label}")
+        return got
+
+    def compare_loops(tag, pr, ss, rwr, deltas, budget=None, vector_only=False):
+        """The loop entry against its plain loops at ``deltas``: PageRank,
+        SSSP, rwr (F = 4) and a ppr batch of Q = BATCH_Q, to convergence, or
+        with ``budget`` over that many rounds (tol = -1; SSSP's plain loop on
+        the card, to convergence); without a budget also a budget cut
+        (PageRank, LOOP_BUDGET_CUT rounds) and three quanta of 4 rounds of an
+        open ppr batch whose every third query starts converged.  With
+        ``vector_only``, PageRank and SSSP alone."""
+        g = pr.graph
+        seeds = top_out_degree(g, BATCH_Q)
+        ppr_ep = Solver(g, ppr_problem(), n_workers=P).batch_row_update(ppr_teleport(g, seeds), BATCH_Q, ())
+        X = engine.extend_frontier(np.full((g.n, BATCH_Q), 1.0 / g.n, np.float32), PLUS_TIMES, "cpu")
+        stop = (lambda solver: (-1.0, budget)) if budget else (lambda solver: (solver.tol, solver.max_rounds))
+        for d in deltas:
+            for name, solver, key in (("pagerank", pr, "solve"), ("rwr", rwr, "solve_f4"))[: 1 if vector_only else 2]:
+                sr = solver.problem.semiring
+                x = engine.extend_frontier(solver.problem.x0(solver.graph), sr, "cpu")
+                compare_loop(f"{tag} {name} δ={d}", key, solver.schedule(d), sr, solver.row_update(),
+                             solver.problem.residual, x, *stop(solver))
+            sr = ss.problem.semiring
+            x = engine.extend_frontier(ss.problem.x0(ss.graph), sr, "cpu")
+            compare_loop(f"{tag} sssp δ={d}", "solve", ss.schedule(d), sr, ss.row_update(), ss.problem.residual,
+                         x, ss.tol, ss.max_rounds, plain_on_card=budget is not None)
+            if vector_only:
+                continue
+            sp = pr.schedule(d)
+            tol, mr = (-1.0, budget) if budget else (pr.tol, pr.max_rounds)
+            compare_loop(f"{tag} ppr Q={BATCH_Q} δ={d}", "batch", sp, PLUS_TIMES, ppr_ep, l1_residual, X, tol, mr,
+                         batch=True)
+            if budget:
+                continue
+            x = engine.extend_frontier(pr.problem.x0(g), PLUS_TIMES, "cpu")
+            compare_loop(f"{tag} pagerank budget cut δ={d}", "solve", sp, PLUS_TIMES, pr.row_update(), l1_residual,
+                         x, -1.0, LOOP_BUDGET_CUT)
+            Xq, conv = X, np.arange(BATCH_Q) % 3 == 1
+            for k in range(3):
+                got = compare_loop(f"{tag} open ppr Q={BATCH_Q} quantum {k + 1} δ={d}", "batch", sp, PLUS_TIMES,
+                                   ppr_ep, l1_residual, Xq, pr.tol, 4, batch=True, conv0=conv)
+                Xq, conv = got[0].cpu(), got[3]
+
     t0 = time.perf_counter()
     rng = np.random.default_rng(0)
     sg_pr, sg_ss = graphs(SMALL_SCALE)
@@ -628,8 +898,11 @@ def main() -> int:
     compare_matrix(f"s{HALO_SCALE}", mid_mat, rng, ("sync", 128))
     mid_deltas = dict.fromkeys(("pagerank", "sssp", *mid_mat), ("sync", 128))
     compare_batch_all(f"s{HALO_SCALE}", mid["pagerank"], mid["sssp"], mid_mat, mid_deltas)
-    del mid, mid_mat
     log(f"[2] K2, K1 and K2 at F = 4, K1's batch entry, at s{HALO_SCALE} done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    compare_loops(f"s{HALO_SCALE}", mid["pagerank"], mid["sssp"], mid_mat["rwr"], ("sync", 128))
+    del mid, mid_mat
+    log(f"[2] K1's loop entry at s{HALO_SCALE} done in {time.perf_counter() - t0:.1f} s")
 
     # the quantized halo's rounding must not depend on the device
     t0 = time.perf_counter()
@@ -648,11 +921,17 @@ def main() -> int:
     log(f"[2] s{SMALL_SCALE} halo parity done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    g_pr, g_ss = graphs(scale)
+    if gen.wait() != 0:
+        raise RuntimeError(f"generating the twitter s{scale} graph failed ({gen.returncode})")
+    a = np.load(npz)
+    g_pr = CSRGraph(int(a["n"]), a["indptr"], a["indices"], a["values"], name=str(a["name"]))
+    g_ss = g_pr.with_values(sssp_values(g_pr.indices), name=f"{g_pr.name}-sssp")
+    del a
     hub, probs, q = problems(g_pr)
     log(
         f"[2] twitter s{scale}: n={g_pr.n} nnz={g_pr.nnz}, sssp source {hub} "
-        f"(out-degree {int(g_pr.out_degree[hub])}); generated in {time.perf_counter() - t0:.1f} s"
+        f"(out-degree {int(g_pr.out_degree[hub])}); generated beside phases 1 and 2, "
+        f"waited {time.perf_counter() - t0:.1f} s for it (total {time.perf_counter() - t_all:.1f} s)"
     )
     t0 = time.perf_counter()
     indeg = np.diff(g_pr.indptr)
@@ -666,17 +945,24 @@ def main() -> int:
     }
     compare_all(f"s{scale}", full, q, rng, dict.fromkeys(full, DELTAS))
     log(f"[2] full size done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mfull = matrix_solvers(g_pr)
+    compare_loops(f"s{scale}", full["pagerank"], full["sssp"], mfull["rwr"], ("sync",), LOOP_BUDGET)
+    log(f"[2] K1's loop entry at full size done in {time.perf_counter() - t0:.1f} s")
 
     # ---------------------------------------------------------------- 3 ---
     t0 = time.perf_counter()
     resolved = {name: set() for name in full}  # every δ the main path ran
     replicated = {}  # (problem, δ) → the replicated solve's result
     fused_round_cuda.launches = 0
+    fused_solve_cuda.launches = 0
     for name, solver in full.items():
-        # auto twice: the first call also runs the sync and async probes,
-        # fits the δ model and builds δ*'s schedule; the second is warm
+        # auto twice: the first call also runs the sync and async probes
+        # (one loop launch each), fits the δ model and builds δ*'s schedule;
+        # the second is warm
         for d in ("sync", "async", 1024, "auto", "auto"):
-            before = fused_round_cuda.launches
+            before = fused_solve_cuda.launches
+            probes = 2 if d == "auto" and solver.delta_model is None else 0
             builds = solver.stats["schedule_builds"]
             t1 = time.perf_counter()
             r = solver.solve(delta=d, backend="kernel")
@@ -693,28 +979,90 @@ def main() -> int:
                 "flush_bytes": r.flush_bytes,
                 "schedule_builds": solver.stats["schedule_builds"] - builds,
                 "total_s": secs,
-                "rounds_s": r.total_time_s,
+                "loop_s": r.total_time_s,
                 "ms_per_round": r.total_time_s / r.rounds * 1e3,
-                "launches": fused_round_cuda.launches - before,
+                "residuals": r.residuals,
+                "round_times": len(r.round_times_s),
+                "launches": fused_solve_cuda.launches - before,
+                "probe_launches": probes,
             }
             resolved[name].add(r.delta)
             replicated[(name, r.delta)] = r
             log(f"[3] solve {json.dumps(row)}")
-            if row["launches"] == 0:
-                raise AssertionError(f"the solve never launched K1: {row}")
+            if row["launches"] != 1 + probes or len(r.residuals) != 1 or r.round_times_s:
+                raise AssertionError(f"the solve was not one launch of K1's loop entry: {row}")
             if not (r.converged and np.isfinite(r.x.astype(np.float64)).all()):
                 raise AssertionError(f"solve did not converge to finite values: {row}")
-    main_launches = fused_round_cuda.launches
-    if main_launches == 0:
-        raise AssertionError("the main path never launched K1")
-    log(f"[3] main path: {main_launches} K1 launches; done in {time.perf_counter() - t0:.1f} s")
+    main_launches = fused_solve_cuda.launches
+    if main_launches == 0 or fused_round_cuda.launches != 0:
+        raise AssertionError(
+            f"the main path launched K1's loop entry {main_launches} times and K1 {fused_round_cuda.launches} times"
+        )
+    log(f"[3] main path: {main_launches} launches of K1's loop entry, 0 of K1; done in {time.perf_counter() - t0:.1f} s")
+
+    # each warm solve in its parts, beside the host loop over single K1 launches
+    t0 = time.perf_counter()
+    fused_round_cuda.launches = 0
+    for name, solver in full.items():
+        sr, residual = solver.problem.semiring, solver.problem.residual
+        for d in sorted(resolved[name]):
+            sched = solver.schedule(d)
+            t1 = time.perf_counter()
+            warm = solver.solve(delta=d)
+            total_s = time.perf_counter() - t1
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            x_ext = engine.extend_frontier(solver.problem.x0(solver.graph), sr, dev)
+            ep = solver.row_update()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            out, res, rounds, converged = ops.fused_solve(x_ext, sched, sr, ep, residual, solver.tol, solver.max_rounds)
+            t3 = time.perf_counter()
+            x_host = out[:-1].cpu().numpy()
+            t4 = time.perf_counter()
+            before = fused_round_cuda.launches
+            t5 = time.perf_counter()
+            host = engine.host_loop(
+                lambda x: ops.fused_round(x, sched, sr, ep), sched, sr, x_ext, residual, solver.tol, solver.max_rounds
+            )
+            host_s = time.perf_counter() - t5
+            row = {
+                "problem": name,
+                "delta": d,
+                "S": sched.S,
+                "rounds": rounds,
+                "total_s": total_s,
+                "setup_s": t2 - t1,
+                "loop_s": t3 - t2,
+                "copy_out_s": t4 - t3,
+                "other_s": total_s - (t4 - t1),
+                "loop_ms_per_round": (t3 - t2) / rounds * 1e3,
+                "host_loop_s": host_s,
+                "host_loop_rounds_s": host.total_time_s,
+                "host_loop_ms_per_round": host.total_time_s / host.rounds * 1e3,
+                "host_over_loop": host_s / (t3 - t2),
+                "k1_launches": fused_round_cuda.launches - before,
+                "equal": bool(
+                    host.rounds == rounds == warm.rounds
+                    and np.array_equal(host.x, x_host)
+                    and np.array_equal(warm.x, x_host)
+                ),
+            }
+            log(f"[3] loop vs host loop {json.dumps(row)}")
+            if not row["equal"] or row["k1_launches"] != host.rounds:
+                raise AssertionError(f"the loop entry and the host loop differ: {row}")
+    host_launches = fused_round_cuda.launches
+    log(f"[3] host loop: {host_launches} K1 launches; done in {time.perf_counter() - t0:.1f} s")
 
     # K1 vs plain at the δ the main path resolved beyond phase 2's (auto's δ*)
     t0 = time.perf_counter()
     compared = {name: {solver.resolve_delta(d) for d in DELTAS} for name, solver in full.items()}
     extra = {name: sorted(resolved[name] - compared[name]) for name in full}
     compare_all(f"s{scale}", full, q, rng, extra)
-    log(f"[3] K1 vs plain at the main path's other δ {extra}; done in {time.perf_counter() - t0:.1f} s")
+    compare_loops(f"s{scale}", full["pagerank"], full["sssp"], mfull["rwr"], extra["pagerank"], LOOP_BUDGET,
+                  vector_only=True)
+    log(f"[3] K1 and its loop entry vs plain at the main path's other δ {extra}; "
+        f"done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     for name, solver in small.items():
@@ -811,15 +1159,17 @@ def main() -> int:
     log(f"[3] halo path: {halo_launches} K2 launches; done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    compare_halo_all(f"s{scale}", full, q, rng, ["sync"])
+    # one round of each quantized wire at full size (three at s16)
+    compare_halo_all(f"s{scale}", full, q, rng, ["sync"], quant_rounds=1)
     pr = full["pagerank"]
     x_f = torch.tensor(rng.random(pr.graph.n + 1).astype(np.float32))
     for name, solver in full.items():  # at δ*, which may differ per problem
         if name == "pagerank":
             sp = solver.schedule(dstar[name])
-            compare_halo(f"s{scale} pagerank add_const δ={sp.delta}", solver, sp, solver.row_update(), x_f)
+            compare_halo(f"s{scale} pagerank add_const δ={sp.delta}", solver, sp, solver.row_update(), x_f,
+                         quant_rounds=1)
             ppr_ep = ppr_problem().make_row_update(solver.graph, q, dev)
-            compare_halo(f"s{scale} ppr add_table δ={sp.delta}", solver, sp, ppr_ep, x_f)
+            compare_halo(f"s{scale} ppr add_table δ={sp.delta}", solver, sp, ppr_ep, x_f, quant_rounds=1)
         else:
             x_i = torch.tensor(rng.integers(0, 5000, solver.graph.n + 1).astype(np.int32))
             x_i[torch.tensor(rng.random(solver.graph.n + 1) < 0.3)] = 2**30 - 1
@@ -830,7 +1180,6 @@ def main() -> int:
     # the matrix path: rwr and labelprop (F = 4) on the same topology (labelprop
     # with unit edges), replicated (K1) and halo (K2) at sync and δ*
     t0 = time.perf_counter()
-    mfull = matrix_solvers(g_pr)
     mstar = {}
     for name, solver in mfull.items():  # set-up: the auto probe, schedules, plans
         t1 = time.perf_counter()
@@ -839,18 +1188,20 @@ def main() -> int:
             solver.frontier_plan(solver.schedule(d))
         log(f"[3] matrix {name}: δ*={mstar[name]}, probes and plans in {time.perf_counter() - t1:.1f} s")
     fused_round_cuda.launches = 0
+    fused_solve_cuda.launches = 0
     fused_halo_round_cuda.launches = 0
     matrix_rows = []
     for name, solver in mfull.items():
         for d in ("sync", mstar[name]):
             rep = None
             for frontier in ("replicated", "halo"):
-                before = (fused_round_cuda.launches, fused_halo_round_cuda.launches)
+                before = (fused_solve_cuda.launches, fused_halo_round_cuda.launches, fused_round_cuda.launches)
                 t1 = time.perf_counter()
                 r = solver.solve(delta=d, frontier=frontier)
                 secs = time.perf_counter() - t1
-                k1 = fused_round_cuda.launches - before[0]
+                loops = fused_solve_cuda.launches - before[0]
                 k2 = fused_halo_round_cuda.launches - before[1]
+                k1 = fused_round_cuda.launches - before[2]
                 row = {
                     "problem": name,
                     "F": int(r.x.shape[1]),
@@ -865,8 +1216,9 @@ def main() -> int:
                     "rounds_s": r.total_time_s,
                     "ms_per_round": r.total_time_s / r.rounds * 1e3,
                     "last_residual": r.residuals[-1],
-                    "k1_launches": k1,
+                    "loop_launches": loops,
                     "k2_launches": k2,
+                    "k1_launches": k1,
                 }
                 if frontier == "replicated":
                     rep = r
@@ -877,22 +1229,45 @@ def main() -> int:
                     )
                 matrix_rows.append(row)
                 log(f"[3] matrix solve {json.dumps(row)}")
-                want = (r.rounds, 0) if frontier == "replicated" else (0, r.rounds)
-                if (k1, k2) != want:
-                    raise AssertionError(f"the matrix solve did not launch its kernel once a round: {row}")
+                want = (1, 0, 0) if frontier == "replicated" else (0, r.rounds, 0)
+                if (loops, k2, k1) != want:
+                    raise AssertionError(f"the matrix solve did not launch its kernel as it should: {row}")
                 if not (r.x.shape == (solver.graph.n, 4) and np.isfinite(r.x).all()):
                     raise AssertionError(f"matrix solve did not give finite (n, 4) values: {row}")
                 if name == "rwr" and not r.converged:
                     raise AssertionError(f"the rwr solve did not converge: {row}")
                 if frontier == "halo" and not row["equals_replicated"]:
                     raise AssertionError(f"the f32 halo matrix solve differs from the replicated one: {row}")
-    matrix_launches = {"round_block": fused_round_cuda.launches, "halo_round": fused_halo_round_cuda.launches}
-    if min(matrix_launches.values()) == 0:
-        raise AssertionError(f"the matrix path missed a kernel: {matrix_launches}")
+    matrix_launches = {"round_block_solve": fused_solve_cuda.launches, "halo_round": fused_halo_round_cuda.launches}
+    if min(matrix_launches.values()) == 0 or fused_round_cuda.launches:
+        raise AssertionError(f"the matrix path missed a kernel or launched K1: {matrix_launches}")
     log(f"[3] matrix path: {matrix_launches} launches; done in {time.perf_counter() - t0:.1f} s")
 
+    # the replicated matrix solves through the host loop over single K1 launches
     t0 = time.perf_counter()
-    compare_matrix(f"s{scale}", mfull, rng, ("sync",))
+    fused_round_cuda.launches = 0
+    for name, solver in mfull.items():
+        sr, residual = solver.problem.semiring, solver.problem.residual
+        for d in ("sync", mstar[name]):
+            sched = solver.schedule(d)
+            rep = solver.solve(delta=d)
+            ep = solver.row_update()
+            x_ext = engine.extend_frontier(solver.problem.x0(solver.graph), sr, dev)
+            host = engine.host_loop(
+                lambda x: ops.fused_round(x, sched, sr, ep), sched, sr, x_ext, residual, solver.tol, solver.max_rounds
+            )
+            equal = host.rounds == rep.rounds and np.array_equal(host.x, rep.x)
+            log(
+                f"[3] matrix {name} δ={sched.delta}: host loop rounds {host.rounds} in {host.total_time_s:.4f} s, "
+                f"loop rounds {rep.rounds} in {rep.total_time_s:.4f} s, equal={equal}"
+            )
+            if not equal:
+                raise AssertionError(f"the matrix loop entry and the host loop differ: {name} δ={d}")
+    matrix_launches["round_block"] = fused_round_cuda.launches
+    log(f"[3] matrix host loop: {fused_round_cuda.launches} K1 launches; done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    compare_matrix(f"s{scale}", mfull, rng, ("sync",), wires=("f32",))  # int8/fp8 at F = 4: s16
     s_mat = matrix_solvers(sg_pr)
     for name, solver in s_mat.items():
         plain = Solver(solver.graph, solver.problem, n_workers=P, n_shards=SHARDS, device="cpu")
@@ -925,10 +1300,10 @@ def main() -> int:
         return np.full((k, g_pr.n), 1.0 / g_pr.n, np.float32), ppr_teleport(g_pr, seeds)
 
     batch_solvers = {"ppr": ppr, "sssp": full["sssp"]}
-    batch_cases = [("ppr", BATCH_Q, d) for d in ("sync", dstar["pagerank"])]
-    batch_cases += [("sssp", BATCH_Q, d) for d in ("sync", dstar["sssp"])]
-    batch_cases += [("ppr", BATCH_Q_WIDE, dstar["pagerank"])]
-    for name, _, d in batch_cases:  # set-up: schedules built before the count
+    batch_cases = [("ppr", BATCH_Q, d, None) for d in ("sync", dstar["pagerank"])]
+    batch_cases += [("sssp", BATCH_Q, d, None) for d in ("sync", dstar["sssp"])]
+    batch_cases += [("ppr", BATCH_Q_WIDE, dstar["pagerank"], None), ("ppr", BATCH_Q, dstar["pagerank"], 4)]
+    for name, _, d, _ in batch_cases:  # set-up: schedules built before the count
         batch_solvers[name].schedule(d)
     st_solver = Solver(hg_pr, ppr_problem(), n_workers=P)
     st_seeds = top_out_degree(hg_pr, STEPPER_QUERIES)
@@ -936,56 +1311,62 @@ def main() -> int:
     st_solver.schedule("sync")
     fused_round_cuda.launches = 0
     fused_batch_round_cuda.launches = 0
+    fused_batch_solve_cuda.launches = 0
     batch_runs, batch_launches_by_c = [], {}
-    for name, Qn, d in batch_cases:
+    for name, Qn, d, every in batch_cases:
         solver = batch_solvers[name]
         x0, qb = batch_query(name, Qn)
         walls = []
         for _ in range(2):  # the second call: every allocation warm
-            before = fused_batch_round_cuda.launches
+            before = fused_batch_solve_cuda.launches
             mem = torch.cuda.memory_stats()
             t1 = time.perf_counter()
-            b = solver.solve_batch(x0, q=qb, delta=d)
+            b = solver.solve_batch(x0, q=qb, delta=d, compact_every=every)
             walls.append(time.perf_counter() - t1)
             # the caching allocator's calls to the device during the batch
             allocs = {k: torch.cuda.memory_stats()[k] - mem[k] for k in ("num_device_alloc", "num_alloc_retries")}
-            launches = fused_batch_round_cuda.launches - before
-            if launches != b.rounds:
-                raise AssertionError(f"batch {name} Q={Qn}: {launches} K1 batch launches in {b.rounds} rounds")
+            launches = fused_batch_solve_cuda.launches - before
+            chunks = -(-b.rounds // every) if every else 1
+            if launches != chunks:
+                raise AssertionError(
+                    f"batch {name} Q={Qn}: {launches} loop launches for {chunks} chunks of {b.rounds} rounds"
+                )
             C = Qn * (b.x.shape[2] if b.x.ndim == 3 else 1)
             batch_launches_by_c[C] = batch_launches_by_c.get(C, 0) + launches
-        batch_runs.append((name, Qn, d, x0, qb, b, walls, allocs))
+        batch_runs.append((name, Qn, d, every, x0, qb, b, walls, allocs))
     # the open batch: staggered admissions, two a quantum of 4 rounds
     st = BatchStepper(st_solver, capacity=STEPPER_CAPACITY, delta="sync")
     retired, pending = {}, list(range(STEPPER_QUERIES))
-    st_before = fused_batch_round_cuda.launches
+    st_before = fused_batch_solve_cuda.launches
     while pending or st.occupancy:
         for _ in range(min(2, st.free_slots, len(pending))):
             i = pending.pop(0)
             st.admit(st_x0, q=ppr_teleport(hg_pr, st_seeds[i : i + 1])[0], tag=i)
         retired.update((r.tag, r) for r in st.run(4))
-    st_launches = fused_batch_round_cuda.launches - st_before
-    if st_launches != st.rounds_executed:
-        raise AssertionError(f"the open batch ran {st.rounds_executed} rounds in {st_launches} launches")
+    st_launches = fused_batch_solve_cuda.launches - st_before
+    if st_launches != st.quanta:
+        raise AssertionError(f"the open batch ran {st.quanta} quanta in {st_launches} loop launches")
     batch_launches_by_c[STEPPER_CAPACITY] = batch_launches_by_c.get(STEPPER_CAPACITY, 0) + st_launches
-    batch_path_launches = fused_batch_round_cuda.launches
-    if fused_round_cuda.launches != 0 or batch_path_launches == 0:
+    batch_path_launches = fused_batch_solve_cuda.launches
+    if fused_round_cuda.launches or fused_batch_round_cuda.launches or batch_path_launches == 0:
         raise AssertionError(
-            f"the batch path launched K1 {fused_round_cuda.launches} times and its batch entry "
-            f"{batch_path_launches} times"
+            f"the batch path launched K1 {fused_round_cuda.launches} times, its batch entry "
+            f"{fused_batch_round_cuda.launches} times and the loop entry {batch_path_launches} times"
         )
-    log(f"[3] batch path: {batch_path_launches} K1 batch launches {batch_launches_by_c}; "
+    log(f"[3] batch path: {batch_path_launches} batch loop launches {batch_launches_by_c}; "
         f"done in {time.perf_counter() - t0:.1f} s")
 
     # each batch query against its own single kernel solve
     t0 = time.perf_counter()
     batch_rows = []
-    for name, Qn, d, x0, qb, b, walls, allocs in batch_runs:
+    for name, Qn, d, every, x0, qb, b, walls, allocs in batch_runs:
         solver = batch_solvers[name]
         singles_s, same_x, same_rounds = 0.0, True, True
         for i in range(Qn):
             qi = None if qb is None else qb[i]
-            own = solver.solve(x0[i], q=qi, delta=d, tol=-1.0, max_rounds=b.rounds)
+            # a compacted query left the batch at the end of its chunk
+            left = min(b.rounds, -(-int(b.rounds_per_query[i]) // every) * every) if every else b.rounds
+            own = solver.solve(x0[i], q=qi, delta=d, tol=-1.0, max_rounds=left)
             same_x &= np.array_equal(own.x.view(np.int32), b.x[i].view(np.int32))
             t1 = time.perf_counter()
             one = solver.solve(x0[i], q=qi, delta=d)
@@ -995,6 +1376,8 @@ def main() -> int:
             "problem": name,
             "Q": Qn,
             "delta": b.delta,
+            "compact_every": every,
+            "compactions": b.compactions,
             "S": b.flushes // b.rounds,
             "rounds": b.rounds,
             "rounds_per_query": b.rounds_per_query.tolist(),
@@ -1028,11 +1411,52 @@ def main() -> int:
         f"batch; checks done in {time.perf_counter() - t0:.1f} s"
     )
 
+    # the ppr batches through the host loop over single launches of K1's batch entry
+    t0 = time.perf_counter()
+    fused_batch_round_cuda.launches = 0
+    batch_round_launches_by_c = {}
+    for name, Qn, d, every, x0, qb, b, _, _ in batch_runs:
+        if name != "ppr" or every or (Qn, d) not in ((BATCH_Q, "sync"), (BATCH_Q_WIDE, dstar["pagerank"])):
+            continue
+        solver = batch_solvers[name]
+        sr, sched = solver.problem.semiring, solver.schedule(d)
+        ep = solver.batch_row_update(qb, Qn, ())
+        X = engine.extend_frontier(np.moveaxis(x0, 0, 1), sr, dev)
+        before = fused_batch_round_cuda.launches
+        host = engine.host_loop(
+            lambda X: ops.fused_batch_round(X, sched, sr, ep), sched, sr, X, l1_residual, -1.0, b.rounds
+        )
+        launches = fused_batch_round_cuda.launches - before
+        batch_round_launches_by_c[Qn] = batch_round_launches_by_c.get(Qn, 0) + launches
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        solve_batch_module._to_host(X)  # what a solve_batch's exit copies
+        copy_s = time.perf_counter() - t1
+        row = {
+            "problem": name,
+            "Q": Qn,
+            "delta": sched.delta,
+            "rounds": host.rounds,
+            "host_loop_s": host.total_time_s,
+            "host_loop_ms_per_round": host.total_time_s / host.rounds * 1e3,
+            "batch_loop_ms_per_round": b.total_time_s / b.rounds * 1e3,
+            "copy_out_s": copy_s,
+            "copy_out_gb_per_s": X[:-1].numel() * X.element_size() / copy_s / 1e9,
+            "loop_s_less_copy_out_ms_per_round": (b.total_time_s - copy_s) / b.rounds * 1e3,
+            "launches": launches,
+            "equal": bool(np.array_equal(host.x.T.view(np.int32), b.x.view(np.int32))),
+        }
+        log(f"[3] batch host loop {json.dumps(row)}")
+        if not row["equal"] or launches != b.rounds:
+            raise AssertionError(f"the batch loop entry and the batch host loop differ: {row}")
+    log(f"[3] batch host loop: {batch_round_launches_by_c} launches of K1's batch entry; "
+        f"done in {time.perf_counter() - t0:.1f} s")
+
     t0 = time.perf_counter()
     compare_batch_all(
         f"s{scale}", full["pagerank"], full["sssp"], mfull,
         {"pagerank": ("sync", dstar["pagerank"]), "sssp": ("sync", dstar["sssp"]),
-         **{name: ("sync", mstar[name]) for name in mfull}},
+         **{name: ("sync",) for name in mfull}},
     )
     log(f"[3] K1's batch entry vs plain at full size done in {time.perf_counter() - t0:.1f} s")
 
@@ -1304,6 +1728,84 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"[4] K1's batch entry done in {time.perf_counter() - t0:.1f} s")
 
+    # K1's loop entry: a launch of a fixed number of rounds (tol = -1), its
+    # time a round beside K1's round at the same δ
+    t0 = time.perf_counter()
+    loop_timings = []
+
+    def time_loop(label, sched, sr, ep, residual, x, k1_ms, batch=False):
+        """The loop's ms a round: launches of R and of 2R rounds, the
+        difference over R, so that what a call adds once (the copy of x, the
+        state's copy in and read-back, and the card idle while the host
+        issues the next call) cancels; that once-a-call part is
+        ``call_ms``.  At C = 1 also ``no_residual_ms``: the same loop
+        with the publish alone (no read of old values, no residual; the
+        wrapper's timing-only residual code), and what the residual adds."""
+        rounds = LOOP_TIMED_ROUNDS.get(sched.delta, LOOP_TIMED_DEFAULT)
+        if sched.delta == full["pagerank"].block_size:
+            rounds = LOOP_TIMED_ROUNDS["sync"]
+        loop = ops.fused_batch_solve if batch else ops.fused_solve
+        plain = ref.fused_batch_solve_ref if batch else ref.fused_solve_ref
+        one = time_ms(lambda: loop(x, sched, sr, ep, residual, -1.0, rounds), 0.3, 8, 2)
+        two = time_ms(lambda: loop(x, sched, sr, ep, residual, -1.0, 2 * rounds), 0.3, 8, 2)
+        ms = (two - one) / rounds
+        p_ms = time_ms(lambda: plain(x, sched, sr, ep, residual, -1.0, 1), 0.2, 3, 1)
+        C = int(np.prod(x.shape[1:], dtype=np.int64))
+        b_ms, b_by = round_bound(sched, ep.table is not None, C)
+        row = {
+            "loop": label,
+            "delta": sched.delta,
+            "S": sched.S,
+            "C": C,
+            "rounds_a_launch": rounds,
+            "ms": ms,
+            "call_ms": one - rounds * ms,
+            "one_launch_ms_per_round": one / rounds,
+            "k1_round_ms": k1_ms,
+            "loop_over_k1": ms / k1_ms,
+            "plain_ms": p_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "share_of_bound": b_ms / ms,
+        }
+        if not batch and C == 1:
+            def bare(k):
+                return round_block._launch_loop(
+                    x, sched, ep, round_block._RESIDUAL_NONE, -1.0, k, np.zeros(1, bool), False, C, C
+                )
+
+            one = time_ms(lambda: bare(rounds), 0.3, 8, 2)
+            row["no_residual_ms"] = (time_ms(lambda: bare(2 * rounds), 0.3, 8, 2) - one) / rounds
+            row["residual_ms"] = ms - row["no_residual_ms"]
+            row["no_residual_over_k1"] = row["no_residual_ms"] / k1_ms
+        loop_timings.append(row)
+        log(f"[4] loop timing {json.dumps(row)}")
+        return row
+
+    for name, solver in full.items():
+        sr, ep = solver.problem.semiring, solver.row_update()
+        x = engine.extend_frontier(solver.problem.x0(solver.graph), sr, dev)
+        for d in DELTAS + ("auto",):
+            sched = solver.schedule(d)
+            k1 = next(t for t in timings if t["problem"] == name and t["delta"] == sched.delta)
+            time_loop(name, sched, sr, ep, solver.problem.residual, x, k1["ms"])
+    rwr = mfull["rwr"]
+    sched = rwr.schedule("sync")
+    x = engine.extend_frontier(rwr.problem.x0(rwr.graph), rwr.problem.semiring, dev)
+    k1 = next(t for t in matrix_timings if t["problem"] == "rwr" and t["delta"] == sched.delta)
+    loop_f4 = time_loop("rwr", sched, rwr.problem.semiring, rwr.row_update(), rwr.problem.residual, x, k1["k1_ms"])
+    loop_batch = {}
+    for Qn, d in ((BATCH_Q, "sync"), (BATCH_Q_WIDE, dstar["pagerank"])):
+        g = ppr.graph
+        sched = ppr.schedule(d)
+        ep = ppr.batch_row_update(ppr_teleport(g, top_out_degree(g, Qn)), Qn, ())
+        X = engine.extend_frontier(np.full((g.n, Qn), 1.0 / g.n, np.float32), PLUS_TIMES, dev)
+        kb = next(t for t in batch_timings if t["problem"] == "ppr" and t["Q"] == Qn and t["delta"] == sched.delta)
+        loop_batch[Qn] = time_loop(f"ppr Q={Qn}", sched, PLUS_TIMES, ep, l1_residual, X, kb["ms"], batch=True)
+        del X, ep
+    torch.cuda.synchronize()
+    log(f"[4] K1's loop entry done in {time.perf_counter() - t0:.1f} s")
+
     # K3: the ELL SpMV through its entry point, on the full-size graph's ELL
     t0 = time.perf_counter()
     idx_np, val_np = ops.ell_from_csr(g_pr)
@@ -1384,6 +1886,19 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 5 ---
     head = next(t for t in timings if t["problem"] == "pagerank" and t["delta"] == full["pagerank"].block_size)
+    # K1's single-round entries: no path of the port launches them (phase 3
+    # counts 0 on the replicated, matrix and batch paths); their arithmetic
+    # runs on every path inside the loop entry, which takes each round's steps
+    # through the same step_tiles.  launches is the main path's count; the
+    # launches of phase 3's host-loop comparisons stand apart.
+    off_path = {
+        "round_block": ("round_block_solve", host_launches),
+        "round_block_f4": ("round_block_solve_f4", matrix_launches["round_block"]),
+        **{
+            f"round_block_batch_c{C}": (f"round_block_batch_solve_c{C}", batch_round_launches_by_c.get(C, 0))
+            for C in (BATCH_Q, BATCH_Q_WIDE)
+        },
+    }
     kernels = {
         "kernels": [
             {
@@ -1391,7 +1906,7 @@ def main() -> int:
                 "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/round_block.cu",
                 "replaces": "src/repro/kernels/round_block.py:114",
-                "launches": main_launches,
+                "launches": 0,
                 "max_abs_err": max_abs_err,
                 "ms": head["ms"],
                 "plain_ms": head["plain_ms"],
@@ -1417,7 +1932,7 @@ def main() -> int:
                 "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/round_block.cu",
                 "replaces": "src/repro/kernels/round_block.py:114",
-                "launches": matrix_launches["round_block"],
+                "launches": 0,
                 "max_abs_err": matrix_err["round_block"],
                 "ms": matrix_timings[0]["k1_ms"],
                 "plain_ms": matrix_timings[0]["k1_plain_ms"],
@@ -1444,7 +1959,7 @@ def main() -> int:
                     "route": "cuda",
                     "source": "src/repro_torch/kernels/csrc/round_block.cu",
                     "replaces": "src/repro/kernels/round_block.py:114",
-                    "launches": batch_launches_by_c.get(C, 0),
+                    "launches": 0,
                     "max_abs_err": batch_err,
                     "ms": row["ms"],
                     "plain_ms": row["plain_ms"],
@@ -1455,6 +1970,28 @@ def main() -> int:
                 for C, row in (
                     (BATCH_Q, batch_timings[0]),  # ppr Q = 8 at sync
                     (BATCH_Q_WIDE, batch_timings[-1]),  # ppr Q = 32 at δ*
+                )
+            ),
+            *(
+                {
+                    "name": name,
+                    "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/round_block.cu",
+                    "replaces": "src/repro/kernels/round_block.py:114",
+                    "launches": launches,
+                    "max_abs_err": loop_err[key],
+                    "ms": row["ms"],
+                    "plain_ms": row["plain_ms"],
+                    "bound_ms": row["bound_ms"],
+                    "bound_by": row["bound_by"],
+                    "library_ms": None,  # no PyTorch call runs a solve
+                }
+                for name, key, launches, row in (
+                    ("round_block_solve", "solve", main_launches, loop_timings[0]),  # PageRank at sync
+                    ("round_block_solve_f4", "solve_f4", matrix_launches["round_block_solve"], loop_f4),
+                    ("round_block_batch_solve_c8", "batch", batch_launches_by_c.get(BATCH_Q, 0), loop_batch[BATCH_Q]),
+                    ("round_block_batch_solve_c32", "batch", batch_launches_by_c.get(BATCH_Q_WIDE, 0),
+                     loop_batch[BATCH_Q_WIDE]),
                 )
             ),
             {
@@ -1472,6 +2009,13 @@ def main() -> int:
             },
         ]
     }
+    for k in kernels["kernels"]:
+        if k["name"] in off_path:
+            k["on_path"] = False
+            k["superseded_by"], k["host_loop_launches"] = off_path[k["name"]]
+    unused = [k["name"] for k in kernels["kernels"] if k["launches"] == 0 and k["name"] not in off_path]
+    if unused or min(k["host_loop_launches"] for k in kernels["kernels"] if k["name"] in off_path) == 0:
+        raise AssertionError(f"kernels never launched on their paths: {unused}, or off them: {off_path}")
     log(f"[5] total {time.perf_counter() - t_all:.1f} s; {compare_launches} comparison launches")
     log(json.dumps(kernels))
     log(card_line())

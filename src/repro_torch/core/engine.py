@@ -12,7 +12,10 @@ This is a deterministic block Gauss–Seidel schedule with commit period δ:
 
 :func:`round_fn` is the plain PyTorch round; the CUDA kernel
 (:mod:`repro_torch.kernels.round_block`) computes the same round in one
-launch.  Every function takes its tensors on an explicit device.  The
+launch, and its loop entry runs rounds to convergence in one launch
+(:func:`fused_loop`, the reference's ``execute_solve_fn``).
+:func:`host_loop` steps rounds from the host, reading every round's
+residual back.  Every function takes its tensors on an explicit device.  The
 frontier is a vector ``(n+1,)`` or a matrix ``(n+1, F)`` (F independent
 columns sharing the schedule); for a vector every feature-axis reshape here
 is the identity, so the vector round is unchanged.
@@ -37,6 +40,7 @@ __all__ = [
     "make_schedule",
     "round_fn",
     "host_loop",
+    "fused_loop",
     "extend_frontier",
     "chunk_reduce",
     "MIN_CHUNK",
@@ -248,8 +252,8 @@ class EngineResult:
     converged: bool
     flushes: int  # total commit steps executed
     flush_bytes: int  # total bytes published to the frontier
-    residuals: list  # per-round convergence residuals
-    round_times_s: list  # host-measured wall time per round
+    residuals: list  # per-round residuals (host loop), or the final one (fused loop)
+    round_times_s: list  # host-measured wall time per round (host loop; fused: [])
     delta: int
     P: int
     compile_time_s: float = 0.0  # build cost paid by this run (0 = warm)
@@ -333,4 +337,40 @@ def host_loop(
         residuals=residuals,
         round_times_s=times,
         compile_time_s=compile_time_s,
+    )
+
+
+def fused_loop(
+    solve: Callable,
+    sched: DeviceSchedule,
+    semiring: Semiring,
+    x_ext,
+    tol: float,
+    max_rounds: int,
+    compile_time_s: float = 0.0,
+) -> EngineResult:
+    """Run a fused convergence loop and normalise its result: the
+    counterpart of the reference's ``execute_solve_fn``.
+
+    ``solve(x_ext, tol, max_rounds) -> (x, residual, rounds, converged)``
+    runs every round itself (:func:`repro_torch.kernels.ops.fused_solve`).
+    The result holds the final residual alone and no per-round times, as the
+    reference's fused loop returns; ``total_time_s`` runs up to one device
+    synchronise at the end.
+    """
+    t0 = time.perf_counter()
+    x_out, res, rounds, converged = solve(x_ext, tol, max_rounds)
+    if x_out.is_cuda:
+        torch.cuda.synchronize(x_out.device)
+    total_time_s = time.perf_counter() - t0
+    return EngineResult.from_run(
+        sched,
+        semiring,
+        x_out,
+        rounds=int(rounds),
+        converged=bool(converged),
+        residuals=[float(res)],
+        round_times_s=[],
+        compile_time_s=compile_time_s,
+        total_time_s=total_time_s,
     )

@@ -445,6 +445,44 @@ __device__ __forceinline__ void tile_rows(
   }
 }
 
+// K1's commit step s: every tile of the step's P * delta chunk rows, each
+// block taking tiles blockIdx.x, blockIdx.x + gridDim.x, ..., through
+// tile_rows into scratch (F values a chunk row).  round_kernel and
+// solve_kernel both run their steps through it, so a round's bits are one.
+template <class Sr, int kF>
+__device__ __forceinline__ void step_tiles(
+    const typename Sr::T* x, typename Sr::T* scratch, const int32_t* __restrict__ src,
+    const typename Sr::T* __restrict__ val, const int32_t* __restrict__ row_ptr,
+    const int32_t* __restrict__ rows, const typename Sr::T* __restrict__ table,
+    typename Sr::T c, float mix, float one_minus_mix, int tag, int s, int P, int M,
+    int delta, int R, int F, int G, typename Sr::T* prod) {
+  const int tid = threadIdx.x;
+  const int tiles_per_cell = (delta + R - 1) / R;
+  const long long tiles = static_cast<long long>(P) * tiles_per_cell;
+  const long long step_cell = static_cast<long long>(s) * P;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int w = static_cast<int>(t / tiles_per_cell);
+    const int r0 = static_cast<int>(t - static_cast<long long>(w) * tiles_per_cell) * R;
+    const int rn = min(R, delta - r0);
+    const long long cell = step_cell + w;
+    const int32_t* ptr = row_ptr + cell * (delta + 1) + r0;
+    const int t0 = ptr[0];
+    const int t1 = ptr[rn];
+    const bool own = tid < rn;
+    // this thread's row: its edge range and its epilogue's operands
+    const long long i = static_cast<long long>(w) * delta + r0 + tid;
+    int e0 = 0, e1 = 0;
+    long long at = 0;
+    if (own) {
+      e0 = ptr[tid];
+      e1 = ptr[tid + 1];
+      at = static_cast<long long>(rows[step_cell * delta + i]) * F;
+    }
+    tile_rows<Sr, kF>(x, src + cell * M, val + cell * M, t0, t1, own, e0, e1, x + at,
+                      table + at, scratch + i * F, tag, c, mix, one_minus_mix, F, G, prod);
+  }
+}
+
 template <class Sr, int kF>
 __global__ void __launch_bounds__(kThreads)
     round_kernel(typename Sr::T* x, typename Sr::T* scratch,
@@ -459,35 +497,13 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ __align__(16) T prod[kChunk * kPassCols<kF>];
   cg::grid_group grid = cg::this_grid();
   const int F = kF > 0 ? kF : F_in;
-  const int tid = threadIdx.x;
-  const int tiles_per_cell = (delta + R - 1) / R;
-  const long long tiles = static_cast<long long>(P) * tiles_per_cell;
   const long long cells = static_cast<long long>(P) * delta;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + tid;
+  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   for (int s = 0; s < S; ++s) {
     const long long step_cell = static_cast<long long>(s) * P;
-    for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
-      const int w = static_cast<int>(t / tiles_per_cell);
-      const int r0 = static_cast<int>(t - static_cast<long long>(w) * tiles_per_cell) * R;
-      const int rn = min(R, delta - r0);
-      const long long cell = step_cell + w;
-      const int32_t* ptr = row_ptr + cell * (delta + 1) + r0;
-      const int t0 = ptr[0];
-      const int t1 = ptr[rn];
-      const bool own = tid < rn;
-      // this thread's row: its edge range and its epilogue's operands
-      const long long i = static_cast<long long>(w) * delta + r0 + tid;
-      int e0 = 0, e1 = 0;
-      long long at = 0;
-      if (own) {
-        e0 = ptr[tid];
-        e1 = ptr[tid + 1];
-        at = static_cast<long long>(rows[step_cell * delta + i]) * F;
-      }
-      tile_rows<Sr, kF>(x, src + cell * M, val + cell * M, t0, t1, own, e0, e1, x + at,
-                        table + at, scratch + i * F, tag, c, mix, one_minus_mix, F, G, prod);
-    }
+    step_tiles<Sr, kF>(x, scratch, src, val, row_ptr, rows, table, c, mix, one_minus_mix, tag, s, P,
+                       M, delta, R, F, G, prod);
     grid.sync();
     for (long long i = first; i < cells; i += stride) {
       const int row = rows[step_cell * delta + i];
@@ -561,6 +577,304 @@ cudaError_t launch(void* x, void* scratch, const void* src, const void* val,
   void* args[] = {&x_p, &scratch_p, &src_p, &val_p, &ptr_p, &rows_p,
                   &table_p, &c, &mix, &one_minus_mix, &tag, &n,
                   &S, &P, &M, &delta, &R, &F, &G};
+  err = cudaLaunchCooperativeKernel(kernel, dim3(static_cast<unsigned>(blocks)),
+                                    dim3(kThreads), args, 0, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// K1's loop entry: rounds until every query's residual is <= tol, or
+// max_rounds, in one cooperative launch (entry point round_block_solve_launch).
+//
+// Replaces the loop around the TPU kernel: src/repro/core/engine.py::
+// make_solve_fn_q, a lax.while_loop over fused_round_fn_q that tests an f32
+// residual against an f32 tol, and its batch forms in src/repro/solve/batch.py
+// (_make_batch_solve_fn, one loop a compaction chunk; _make_open_batch_solve_fn,
+// one loop a BatchStepper quantum).  The host reads the result back once.
+//
+//   do
+//     for s in 0..S-1:
+//       K1's step (step_tiles: round_kernel's walk, so the same bits);
+//       grid.sync()
+//       publish: lane l < lanes (lanes = the grid's threads rounded down to
+//         a multiple of Q) owns query l % Q's Fq values of the cells l / Q,
+//         l / Q + lanes / Q, ... (one query: whole rows, as vectors at
+//         C = 2, 4, 8); it adds |new - old| (l1) or (new != old)
+//         (count-changed) into its share of the round's residual, old being
+//         the value the publish overwrites: each real row is published once
+//         a round, so that is the round-start value and no round-start copy
+//         of x is kept;
+//       grid.sync()   (the last step's: after each block has folded its lanes'
+//                      shares into part[q, block], one sum a query)
+//     every block folds part[q, 0..blocks) of every query itself, compares
+//       the sum, as f32, with float(tol) and updates its own flags
+//   while some query is unconverged and rounds < max_rounds
+//
+// The fold needs no barrier of its own: the last step's grid.sync orders
+// every block's part writes before any block reads them, and part is next
+// written after round r + 1's first grid.sync, which no block passes before
+// every block has folded round r.  Every block adds the same partials in the
+// same order, so every block reaches the same sums and the same decision,
+// and all leave the loop on the same round.  Each block keeps its own copy of
+// the convergence flags (flags[q, block], read and written by that block
+// only); block 0 alone writes the out-state (conv, rpq, res, the round count).
+//
+// Order: a lane adds its values in cell order, a block folds its lanes in a
+// fixed tree (one query) or in lane order (a batch), the fold adds the
+// blocks' partials in block order, 256-strided, and folds those in a fixed
+// tree: the same sum every launch of a grid size.  Count-changed sums are
+// integers, exact below 2^24, so SSSP and CC stop on the reference's round.
+// An l1 sum adds the same terms in another order than XLA's reduce, so a
+// residual within an ulp or so of tol could stop on another round than the
+// reference's.
+//
+// A batch (C = Q * Fq columns, Fq a query's own) keeps one residual a query,
+// and a lane's share is its query's.  A closed batch iterates
+// every query until all have converged; each query's first-convergence round
+// is stamped on the card.  An open batch (freeze) publishes nothing for a
+// query converged at the round's start (conv0, or an earlier round of this
+// call), so its state and residual stay: queries never share a column, so
+// that is the reference's where(frozen, X, X_new).
+//
+// The loop's state (the round count, a lane's residual share, its cells and
+// query, whether it publishes) lives in shared memory and is re-read after
+// the barriers, the state's pointers are formed where they are used, and
+// the kernel asks for round_kernel's occupancy (kSolveMinBlocks).  A lane
+// publishes its cells one after another (a store may alias the next cell's
+// loads), so a lane's cells set the publish's time: one query publishes
+// whole rows, as round_kernel does, and a batch one query's values of a row
+// a lane, Q lanes a row (PERF.md).
+// max_rounds <= 0 never launches: the wrapper returns x as it was, with
+// res = inf and rounds = 0, as the reference's while-loop does.
+//
+// state (int32): [0] rounds, then conv (Q; the caller's conv0), rpq (Q) and
+// res (Q floats' bits).  part: Q * blocks floats, then Q * blocks int32 flags.
+constexpr int kStateHead = 1;
+constexpr int kResL1 = 0;       // sum of |new - old|
+constexpr int kResChanged = 1;  // count of new != old
+constexpr int kResNone = 2;     // none (timing only, C = 1: the publish alone, no read of old; res = 0)
+
+template <class Sr>
+__device__ __forceinline__ float residual_term(int kind, typename Sr::T nw, typename Sr::T old) {
+  if (kind == kResL1) return fabsf(__fsub_rn(static_cast<float>(nw), static_cast<float>(old)));
+  return nw != old ? 1.0f : 0.0f;
+}
+
+// Tree-sums red[0..kThreads) into red[0] in a fixed order (every thread calls).
+__device__ __forceinline__ void block_tree_sum(float* red) {
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int w = kThreads / 2; w > 0; w /= 2) {
+    __syncthreads();
+    if (tid < w) red[tid] = __fadd_rn(red[tid], red[tid + w]);
+  }
+  __syncthreads();
+}
+
+// Blocks an SM the loop entry asks for: round_kernel's own occupancy
+// (ptxas -v: 64 registers at kF = 1 and 2, 77-80 at kF = 4 and 0, 98-128 at
+// kF = 8), so that it runs on round_kernel's grid.  Left to itself ptxas
+// gives kF = 4 and 0 100-105 registers (a block fewer an SM), and told
+// nothing less than one block kF = 1 80 registers (three blocks, against
+// four).  Held to round_kernel's occupancy, kF = 1, 2, 4, 16 and 32 spill
+// nothing, the plus-times kF = 8 build 4 B and the feature-block builds
+// 16-40 B (round_kernel's min-plus one spills 16 B): values that live
+// across the step loop.  chip_smoke.py phase 1 prints ptxas -v for every
+// build, and phase 4 times the loop a round beside K1's (PERF.md).
+template <int kF>
+constexpr int kSolveMinBlocks = kF == 1 || kF == 2 ? 4 : kF == 0 || kF == 4 ? 3 : kF == 8 ? 2 : 1;
+
+template <class Sr, int kF>
+__global__ void __launch_bounds__(kThreads, kSolveMinBlocks<kF>)
+    solve_kernel(typename Sr::T* x, typename Sr::T* scratch,
+                 const int32_t* __restrict__ src,
+                 const typename Sr::T* __restrict__ val,
+                 const int32_t* __restrict__ row_ptr,
+                 const int32_t* __restrict__ rows,
+                 const typename Sr::T* __restrict__ table, typename Sr::T c,
+                 float mix, float one_minus_mix, int tag, int n, int S, int P,
+                 int M, int delta, int R, int F_in, int G, int Fq, int kind,
+                 float tol, int max_rounds, int freeze, float* part,
+                 int32_t* state) {
+  using T = typename Sr::T;
+  __shared__ __align__(16) T prod[kChunk * kPassCols<kF>];
+  __shared__ float lane_res[kThreads];  // this lane's share of the round's residual
+  __shared__ int lane_skip[kThreads];   // 1: the lane publishes nothing this round
+  __shared__ int lane_cell[kThreads];   // the lane's first cell, lane / Q
+  __shared__ int lane_q[kThreads];      // its query, lane % Q
+  __shared__ int lane_step;             // cells between its cells, lanes / Q
+  __shared__ int round_s;               // rounds done before this one
+  __shared__ int block_live;            // 1: some query is unconverged after this round
+  cg::grid_group grid = cg::this_grid();
+  const int C = kF > 0 ? kF : F_in;  // values a row
+  const int tid = threadIdx.x;
+  const long long cells = static_cast<long long>(P) * delta;
+  {
+    const int Q = C / Fq;
+    const int lane = blockIdx.x * kThreads + tid;
+    lane_cell[tid] = lane / Q;
+    lane_q[tid] = lane % Q;
+    if (tid == 0) {
+      lane_step = gridDim.x * kThreads / Q;
+      round_s = 0;
+    }
+    // this block's flags start as conv0 (block 0 writes conv only after a grid.sync)
+    int32_t* flags = reinterpret_cast<int32_t*>(part) + static_cast<long long>(Q) * gridDim.x;
+    for (int q = tid; q < Q; q += kThreads) {
+      flags[static_cast<long long>(q) * gridDim.x + blockIdx.x] = state[kStateHead + q];
+    }
+  }
+  __syncthreads();
+  for (;;) {
+    {  // the round's start: this lane's share, and whether it publishes
+      const int lane = blockIdx.x * kThreads + tid;
+      const int Q = C / Fq;
+      const int32_t* flags = reinterpret_cast<const int32_t*>(part) + static_cast<long long>(Q) * gridDim.x;
+      lane_res[tid] = 0.0f;
+      lane_skip[tid] = lane >= lane_step * Q ||
+                       (freeze && flags[static_cast<long long>(lane_q[tid]) * gridDim.x + blockIdx.x]);
+    }
+    for (int s = 0; s < S; ++s) {
+      const long long step_cell = static_cast<long long>(s) * P;
+      step_tiles<Sr, kF>(x, scratch, src, val, row_ptr, rows, table, c, mix, one_minus_mix, tag, s, P,
+                         M, delta, R, C, G, prod);
+      grid.sync();
+      if (!lane_skip[tid]) {  // publish this lane's query's values, and its residual share
+        const int col = lane_q[tid] * Fq;
+        const int cstride = lane_step;
+        const int32_t* rows_s = rows + step_cell * delta;
+        float share = 0.0f;
+        for (long long i = lane_cell[tid]; i < cells; i += cstride) {
+          const int row = rows_s[i];
+          if (row < n) {
+            T* p = x + static_cast<long long>(row) * C + col;
+            const T* v = scratch + i * C + col;
+            if constexpr (kF == 1) {  // only the C = 1 build takes kResNone: no other build's code changes
+              if (kind == kResNone) {
+                *p = *v;
+                continue;
+              }
+            }
+            if constexpr (kF > 1 && kF <= 8) {
+              if (Fq == kF) {  // one query: the whole row, as vectors
+                T old[kF], nw[kF];
+                load_row<kF, true, kPlain>(p, old, kF);
+                load_row<kF, true, kPlain>(v, nw, kF);
+                store_row<kF, true>(p, nw, kF);
+#pragma unroll
+                for (int j = 0; j < kF; ++j) share = __fadd_rn(share, residual_term<Sr>(kind, nw[j], old[j]));
+                continue;
+              }
+            }
+            for (int j = 0; j < Fq; ++j) {
+              const T old = p[j];
+              const T nw = v[j];
+              p[j] = nw;
+              share = __fadd_rn(share, residual_term<Sr>(kind, nw, old));
+            }
+          }
+        }
+        lane_res[tid] = __fadd_rn(lane_res[tid], share);
+      }
+      if (s == S - 1) {  // the block's share of each query's residual
+        const int Q = C / Fq;
+        __syncthreads();
+        if (Q == 1) {
+          block_tree_sum(lane_res);
+          if (tid == 0) part[blockIdx.x] = lane_res[0];
+        } else {
+          const int lane0 = blockIdx.x * kThreads;
+          const int tmax = min(kThreads, max(lane_step * Q - lane0, 0));
+          const int base = lane0 % Q;
+          for (int q = tid; q < Q; q += kThreads) {  // query q's lanes, in lane order
+            float sum = 0.0f;
+            for (int t = (q - base + Q) % Q; t < tmax; t += Q) sum = __fadd_rn(sum, lane_res[t]);
+            part[static_cast<long long>(q) * gridDim.x + blockIdx.x] = sum;
+          }
+        }
+      }
+      grid.sync();
+    }
+    // the fold, in every block: each query's residual, in block order, then the tree
+    const int r = round_s;
+    const int Q = C / Fq;
+    const int B = gridDim.x;
+    if (tid == 0) block_live = 0;
+    for (int q = 0; q < Q; ++q) {
+      const float* pq = part + static_cast<long long>(q) * B;
+      float sum = 0.0f;
+      for (int b = tid; b < B; b += kThreads) sum = __fadd_rn(sum, __ldcg(pq + b));
+      __syncthreads();  // lane_res is free: the block's shares are in part
+      lane_res[tid] = sum;
+      block_tree_sum(lane_res);
+      if (tid == 0) {
+        int32_t* flag = reinterpret_cast<int32_t*>(part) + static_cast<long long>(Q + q) * B + blockIdx.x;
+        const float rq = lane_res[0];
+        const bool was = *flag != 0;
+        if (!(freeze && was)) {
+          const bool now = was || rq <= tol;
+          if (!now) block_live = 1;
+          if (now && !was) *flag = 1;
+          if (blockIdx.x == 0) {
+            int32_t* conv = state + kStateHead;
+            int32_t* rpq = conv + Q;
+            reinterpret_cast<float*>(rpq + Q)[q] = rq;
+            if (now && !was) {
+              conv[q] = 1;
+              rpq[q] = r + 1;
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // every thread has read round_s; block_live is final
+    const bool stop = block_live == 0 || r + 1 >= max_rounds;
+    if (tid == 0) round_s = r + 1;
+    if (stop) {
+      if (blockIdx.x == 0 && tid == 0) state[0] = r + 1;
+      return;
+    }
+  }
+}
+
+template <class Sr, int kF>
+cudaError_t launch_solve(void* x, void* scratch, const void* src, const void* val,
+                         const void* row_ptr, const void* rows, const void* table,
+                         double c_in, double mix_in, double one_minus_mix_in, int tag,
+                         int n, int S, int P, int M, int delta, int C, int G, int Fq,
+                         int kind, double tol_in, int max_rounds, int freeze,
+                         void* part, long long part_cap, void* state,
+                         cudaStream_t stream) {
+  using T = typename Sr::T;
+  T* x_p = static_cast<T*>(x);
+  T* scratch_p = static_cast<T*>(scratch);
+  const int32_t* src_p = static_cast<const int32_t*>(src);
+  const T* val_p = static_cast<const T*>(val);
+  const int32_t* ptr_p = static_cast<const int32_t*>(row_ptr);
+  const int32_t* rows_p = static_cast<const int32_t*>(rows);
+  const T* table_p = static_cast<const T*>(table);
+  float* part_p = static_cast<float*>(part);
+  int32_t* state_p = static_cast<int32_t*>(state);
+  T c = static_cast<T>(c_in);
+  float mix = static_cast<float>(mix_in);
+  float one_minus_mix = static_cast<float>(one_minus_mix_in);
+  float tol = static_cast<float>(tol_in);  // the reference's f32 tol
+  static int cache[kMaxDevices] = {};
+  const void* kernel = reinterpret_cast<const void*>(&solve_kernel<Sr, kF>);
+  int resident = 0, R = 0, blocks = 0;
+  cudaError_t err = resident_blocks(kernel, cache, &resident);
+  if (err != cudaSuccess) return err;
+  tile_grid(P, delta, resident, &R, &blocks);
+  // every query needs a lane: at least Q threads
+  const int need = (C / Fq + kThreads - 1) / kThreads;
+  if (blocks < need) blocks = need;
+  if (blocks > resident || 2 * static_cast<long long>(blocks) * (C / Fq) > part_cap) {
+    return cudaErrorInvalidValue;
+  }
+  void* args[] = {&x_p,   &scratch_p, &src_p, &val_p,  &ptr_p, &rows_p, &table_p,
+                  &c,     &mix,       &one_minus_mix,  &tag,   &n,      &S,
+                  &P,     &M,         &delta, &R,      &C,     &G,      &Fq,
+                  &kind,  &tol,       &max_rounds,     &freeze, &part_p, &state_p};
   err = cudaLaunchCooperativeKernel(kernel, dim3(static_cast<unsigned>(blocks)),
                                     dim3(kThreads), args, 0, stream);
   if (err != cudaSuccess) return err;
@@ -912,6 +1226,42 @@ extern "C" int round_block_batch_launch(int dtype, void* x, void* scratch,
 #undef KB_ARGS
   return cudaErrorInvalidValue;
 }
+
+// K1's loop entry over C = Q * Fq values a row (Fq: a query's own columns;
+// one query: Q = 1, Fq = C; G as for round_block_batch_launch, so a single
+// query's F = 16 or 32 takes the batch's builds, whose columns sum in the
+// same order), freeze = 1 for an open batch.
+// kind: 0 = l1 (float32 only), 1 = count-changed, 2 = none (timing only;
+// C = 1 and not labelprop, which take the kF = 1 build).  state and part as in
+// solve_kernel (state zeroed but for conv and res, which the caller fills;
+// part holds part_cap floats, at least 2 * Q * blocks).  Returns a cudaError_t.
+extern "C" int round_block_solve_launch(int dtype, void* x, void* scratch,
+                                        const void* src, const void* val,
+                                        const void* row_ptr, const void* rows,
+                                        const void* table, double c, double mix,
+                                        double one_minus_mix, int tag, int n, int S, int P,
+                                        int M, int delta, int C, int G, int Fq, int kind,
+                                        double tol, int max_rounds, int freeze, void* part,
+                                        long long part_cap, void* state, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (C < 1 || G < 1 || C % G != 0 || Fq < 1 || C % Fq != 0 || max_rounds < 1) return cudaErrorInvalidValue;
+  if (!takes(dtype, tag, table) || kind < kResL1 || kind > kResNone || (kind == kResL1 && dtype != 0) ||
+      (kind == kResNone && (C != 1 || tag == kLabelprop))) {
+    return cudaErrorInvalidValue;
+  }
+#define KS_ARGS                                                                          \
+  x, scratch, src, val, row_ptr, rows, table, c, mix, one_minus_mix, tag, n, S, P, M, delta, \
+      C, G, Fq, kind, tol, max_rounds, freeze, part, part_cap, state, st
+#define KS_PLUS(KF) return launch_solve<PlusTimes, KF>(KS_ARGS)
+#define KS_MIN(KF) return launch_solve<MinPlus, KF>(KS_ARGS)
+  if (dtype == 0) DISPATCH_C(C, tag, KS_PLUS)
+  DISPATCH_C(C, tag, KS_MIN)
+#undef KS_MIN
+#undef KS_PLUS
+#undef KS_ARGS
+  return cudaErrorInvalidValue;
+}
+
 
 // K2.  dtype, tag and F as for round_block_launch; wire: 0 = f32, 1 = int8,
 // 2 = fp8 (float32 plus-times only, D * F <= 512 scales a step; ef and amax

@@ -14,12 +14,22 @@ from repro_torch.core.semiring import INT_INF
 from repro_torch.kernels import ref
 from repro_torch.kernels.round_block import (
     fused_batch_round_cuda,
+    fused_batch_solve_cuda,
     fused_halo_round_cuda,
     fused_round_cuda,
+    fused_solve_cuda,
 )
 from repro_torch.kernels.spmv_ell import spmv_ell_cuda
 
-__all__ = ["ell_from_csr", "fused_batch_round", "fused_halo_round", "fused_round", "spmv"]
+__all__ = [
+    "ell_from_csr",
+    "fused_batch_round",
+    "fused_batch_solve",
+    "fused_halo_round",
+    "fused_round",
+    "fused_solve",
+    "spmv",
+]
 
 
 def _route(x, kernel, plain, what):
@@ -40,6 +50,21 @@ def fused_batch_round(X, sched, semiring, row_update):
     """One round over ``sched`` for a batch of Q queries, ``(n+1, Q)+feat``."""
     fn = _route(X, fused_batch_round_cuda, ref.fused_batch_round_ref, "batch round")
     return fn(X, sched, semiring, row_update)
+
+
+def fused_solve(x_ext, sched, semiring, row_update, residual, tol, max_rounds):
+    """Rounds over ``sched`` until ``residual`` ≤ ``float32(tol)`` or
+    ``max_rounds``: ``(x, residual, rounds, converged)``."""
+    fn = _route(x_ext, fused_solve_cuda, ref.fused_solve_ref, "solve loop")
+    return fn(x_ext, sched, semiring, row_update, residual, tol, max_rounds)
+
+
+def fused_batch_solve(X, sched, semiring, row_update, residual, tol, max_rounds, conv0=None):
+    """Rounds of a batch of Q queries until every query's residual is ≤
+    ``float32(tol)`` or ``max_rounds`` (``conv0``: an open batch's flags):
+    ``(X, residuals, rounds, converged, rounds_per_query)``."""
+    fn = _route(X, fused_batch_solve_cuda, ref.fused_batch_solve_ref, "batch solve loop")
+    return fn(X, sched, semiring, row_update, residual, tol, max_rounds, conv0)
 
 
 def fused_halo_round(x_loc, ef, sched, plan, semiring, row_update, halo_dtype="f32", steps=None):

@@ -5,11 +5,14 @@ engine's round, in one kernel", so its plain version is the engine's round
 itself (:func:`repro_torch.core.engine.round_fn`): S commit steps of gather,
 ⊗, per-worker segment-⊕ (``index_add_``, or ``scatter_reduce("amin")`` from
 int32 max), row update and publish; the batch round's is the same round
-over the ``(n+1, Q)+feat`` batch frontier.  The halo round's plain version runs,
-per commit step, one such step on every shard's local frontier
-(:func:`fused_halo_step_ref`), then the quantizer (:func:`quantize_halo`,
-int8/fp8 only) and the exchange (:func:`halo_exchange`); the ELL SpMV's sums
-column by column, in the kernel's order.
+over the ``(n+1, Q)+feat`` batch frontier.  The loop entry's plain versions
+iterate those rounds under the reference's stopping test
+(:func:`fused_solve_ref`, :func:`fused_batch_solve_ref`).  The halo round's
+plain version runs, per commit step, one such step on every shard's local
+frontier (:func:`fused_halo_step_ref`), then the quantizer
+(:func:`quantize_halo`, int8/fp8 only) and the exchange
+(:func:`halo_exchange`); the ELL SpMV's sums column by column, in the
+kernel's order.
 """
 
 from __future__ import annotations
@@ -26,9 +29,11 @@ __all__ = [
     "HALO_QUANT",
     "HaloStep",
     "fused_batch_round_ref",
+    "fused_batch_solve_ref",
     "fused_halo_round_ref",
     "fused_halo_step_ref",
     "fused_round_ref",
+    "fused_solve_ref",
     "halo_exchange",
     "halo_step",
     "quantize_halo",
@@ -56,6 +61,72 @@ def fused_batch_round_ref(X, sched, semiring, row_update):
     ``_row_sum`` over the last axis) sums only each query's own F columns.
     """
     return round_fn(sched, semiring, row_update)(X)
+
+
+def fused_solve_ref(x_ext, sched, semiring, row_update, residual, tol, max_rounds):
+    """Plain version of :func:`repro_torch.kernels.round_block.fused_solve_cuda`.
+
+    The body of the reference's ``make_solve_fn_q``: from a residual of
+    ``inf`` and 0 rounds, plain rounds while ``rounds < max_rounds`` and not
+    converged, each round's residual taken as float32 and compared with
+    ``float32(tol)``.  Returns ``(x, residual, rounds, converged)``.  It reads
+    the residual back every round; the kernel reads once a call.
+    """
+    rnd = round_fn(sched, semiring, row_update)
+    tol32 = np.float32(tol)
+    res, rounds, converged = np.float32(np.inf), 0, False
+    while rounds < max_rounds and not converged:
+        x_new = rnd(x_ext)
+        res = np.float32(residual(x_ext[:-1], x_new[:-1]).item())
+        x_ext = x_new
+        rounds += 1
+        converged = bool(res <= tol32)
+    return x_ext, res, rounds, converged
+
+
+def _batch_residuals(residual, X, X_new) -> np.ndarray:
+    """``(Q,)`` float32: ``residual`` of each query of a batch frontier
+    ``(n, Q)+feat``, summed over every axis but the query axis 1.  (A
+    ``torch.func.vmap`` over axis 1 runs the same sums on a permuted view,
+    several times slower.)"""
+    dims = (0,) + tuple(range(2, X.dim()))
+    return residual(X, X_new, dim=dims).to(torch.float32).cpu().numpy()
+
+
+def fused_batch_solve_ref(X, sched, semiring, row_update, residual, tol, max_rounds, conv0=None):
+    """Plain version of :func:`repro_torch.kernels.round_block.fused_batch_solve_cuda`.
+
+    Plain batch rounds while ``rounds < max_rounds`` and some query has not
+    converged (each query's residual as float32 against ``float32(tol)``).
+    ``conv0`` None: the reference's ``_make_batch_solve_fn``, every query
+    iterating to the end.  Otherwise its ``_make_open_batch_solve_fn``: rows
+    flagged in ``conv0`` start converged, and a row freezes, state and
+    residual, at its first convergence.  Returns ``(X, residuals, rounds,
+    converged, rounds_per_query)``.
+    """
+    rnd = round_fn(sched, semiring, row_update)
+    tol32 = np.float32(tol)
+    Q = X.shape[1]
+    res = np.full(Q, np.inf, np.float32)
+    conv = np.zeros(Q, bool) if conv0 is None else np.array(conv0, dtype=bool)
+    rpq = np.zeros(Q, np.int32)
+    rounds = 0
+    while rounds < max_rounds and not conv.all():
+        X_new = rnd(X)
+        r = _batch_residuals(residual, X[:-1], X_new[:-1])
+        hit = r <= tol32
+        rpq[~conv & hit] = rounds + 1  # stamped only at first convergence
+        if conv0 is None:
+            res = r
+        else:
+            if conv.any():
+                frozen = torch.as_tensor(conv, device=X.device).reshape((1, Q) + (1,) * (X.dim() - 2))
+                X_new = torch.where(frozen, X, X_new)
+            res = np.where(conv, res, r)
+        conv |= hit
+        rounds += 1
+        X = X_new
+    return X, res, rounds, conv, rpq
 
 
 @dataclasses.dataclass(frozen=True)

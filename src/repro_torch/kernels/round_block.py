@@ -28,6 +28,13 @@ reference gets by vmapping ``fused_round_fn_q`` over Q queries
 ``(n+1, Q)`` or ``(n+1, Q, F)``, vertex-major, so a vertex's Q·F values are
 one row and a tile's edges are walked once for all Q queries.
 
+K1's loop entry (:func:`fused_solve_cuda`, :func:`fused_batch_solve_cuda`)
+is the loop the reference wraps around ``fused_round_fn_q``
+(``repro.core.engine.make_solve_fn_q``, and the batch loops of
+``repro.solve.batch``): one launch runs rounds, with K1's step code, until
+every query's residual meets ``tol`` as float32 or the round budget is spent,
+and the host reads the result back once.
+
 Pallas evaluated any traced ``row_update`` inside the kernel.  The CUDA kernel
 takes a fixed set instead: an :class:`Epilogue` names the row update with a
 tag the kernel understands.  An ``Epilogue`` is also an ordinary
@@ -52,8 +59,10 @@ __all__ = [
     "Epilogue",
     "fma_f32",
     "fused_batch_round_cuda",
+    "fused_batch_solve_cuda",
     "fused_halo_round_cuda",
     "fused_round_cuda",
+    "fused_solve_cuda",
 ]
 
 ADD_CONST = "add_const"  # c + reduced            (pagerank)
@@ -78,6 +87,14 @@ MAX_SCALES = 512
 VECTOR_F = (2, 4, 8)
 # The batch entry's widths C = Q·F loaded as vectors (8-, 16-byte loads).
 VECTOR_C = (2, 4, 8, 16, 32)
+# The loop entry's residuals (csrc/round_block.cu kResL1, kResChanged, and
+# kResNone: the publish without the residual, which chip_smoke.py times
+# beside it), its state's head (the round count, before the per-query flags,
+# rounds and residuals), and the most blocks of a cooperative launch one SM
+# holds (Hopper), which sizes the per-block partial sums and flags.
+_RESIDUAL_L1, _RESIDUAL_CHANGED, _RESIDUAL_NONE = 0, 1, 2
+_STATE_HEAD = 1
+_MAX_BLOCKS_PER_SM = 32
 
 
 def _row_sum(v):
@@ -301,6 +318,10 @@ def _library():
         lib.round_block_launch.restype = i32
         lib.round_block_batch_launch.argtypes = [i32] + [ptr] * 7 + [f64] * 3 + [i32] * 8 + [ptr]
         lib.round_block_batch_launch.restype = i32
+        lib.round_block_solve_launch.argtypes = (
+            [i32] + [ptr] * 7 + [f64] * 3 + [i32] * 10 + [f64] + [i32] * 2 + [ptr, ctypes.c_longlong, ptr, ptr]
+        )
+        lib.round_block_solve_launch.restype = i32
         lib.halo_round_launch.argtypes = [i32] * 2 + [ptr] * 13 + [f64] * 4 + [i32] * 11 + [ptr]
         lib.halo_round_launch.restype = i32
         lib.round_block_error_string.argtypes = [i32]
@@ -405,6 +426,131 @@ def fused_batch_round_cuda(X, sched, semiring, epilogue) -> torch.Tensor:
 
 
 fused_batch_round_cuda.launches = 0  # batch kernel launches, apart from K1's single-query count
+
+
+def _residual_code(residual, dtype) -> int:
+    """The loop entry's code of ``residual``, which must be one of the
+    problems' two residuals; l1 only on a float32 frontier."""
+    from repro_torch.solve.problem import count_changed_residual, l1_residual
+
+    if residual is l1_residual and dtype == torch.float32:
+        return _RESIDUAL_L1
+    if residual is count_changed_residual:
+        return _RESIDUAL_CHANGED
+    raise ValueError(
+        "K1's loop entry computes l1_residual (float32) or count_changed_residual, "
+        f"got {getattr(residual, '__name__', residual)!r} on {dtype}"
+    )
+
+
+def _launch_loop(x, sched, epilogue, code, tol, max_rounds, conv0, freeze, C, G) -> tuple:
+    """Launch K1's loop entry on a copy of ``x`` (C values a row, Q =
+    ``conv0.size`` queries of C / Q columns), then read its state back once.
+    Returns ``(x, rounds, converged (Q,), rounds_per_query (Q,), residuals
+    (Q,) float32)``."""
+    lib = _library()
+    Q = conv0.size
+    out = x.clone()
+    dev = out.device
+    scratch = torch.empty(sched.P * sched.delta * C, dtype=out.dtype, device=dev)
+    # each block's partial sums and its own convergence flags, Q of each
+    part_cap = 2 * torch.cuda.get_device_properties(dev).multi_processor_count * _MAX_BLOCKS_PER_SM * Q
+    part = torch.empty(part_cap, dtype=torch.float32, device=dev)
+    head = np.zeros(_STATE_HEAD + 3 * Q, np.int32)
+    head[_STATE_HEAD : _STATE_HEAD + Q] = conv0
+    head[_STATE_HEAD + 2 * Q :] = np.full(Q, np.inf, np.float32).view(np.int32)
+    state = torch.from_numpy(head).to(dev)
+    table = epilogue.table.data_ptr() if epilogue.table is not None else None
+    with torch.cuda.device(dev):
+        err = lib.round_block_solve_launch(
+            _DTYPE_CODES[out.dtype],
+            out.data_ptr(),
+            scratch.data_ptr(),
+            sched.src.data_ptr(),
+            sched.val.data_ptr(),
+            sched.row_ptr.data_ptr(),
+            sched.rows.data_ptr(),
+            table,
+            float(epilogue.const),
+            float(epilogue.mix),
+            float(epilogue.one_minus_mix),
+            TAG_CODES[epilogue.tag],
+            sched.n,
+            sched.S,
+            sched.P,
+            sched.M,
+            sched.delta,
+            C,
+            G,
+            C // Q,
+            code,
+            float(tol),
+            int(max_rounds),
+            int(freeze),
+            part.data_ptr(),
+            part_cap,
+            state.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on(lib, err, "round_block_solve")
+    st = state.cpu().numpy()  # the call's one read-back
+    conv = st[_STATE_HEAD : _STATE_HEAD + Q] != 0
+    rpq = st[_STATE_HEAD + Q : _STATE_HEAD + 2 * Q].copy()
+    res = st[_STATE_HEAD + 2 * Q :].view(np.float32).copy()
+    return out, int(st[0]), conv, rpq, res
+
+
+def fused_solve_cuda(x_ext, sched, semiring, epilogue, residual, tol, max_rounds) -> tuple:
+    """Rounds of K1 on the card until ``residual`` (the problems'
+    ``l1_residual`` or ``count_changed_residual``) is ≤ ``float32(tol)`` or
+    ``max_rounds`` rounds have run, in one launch: the reference's
+    ``make_solve_fn_q``.  Returns ``(x, residual, rounds, converged)``, ``x``
+    a new ``(n+1,)+feat`` frontier and the residual the last round's, as
+    float32; ``max_rounds`` ≤ 0 launches nothing and returns ``x_ext`` with
+    an infinite residual.  Synchronises once, to read the result back.  The
+    dump row's value is unspecified."""
+    code = _residual_code(residual, x_ext.dtype)
+    F = _check_args(x_ext, sched, semiring, epilogue)
+    if max_rounds < 1:
+        return x_ext, np.float32(np.inf), 0, False
+    out, rounds, conv, _, res = _launch_loop(
+        x_ext, sched, epilogue, code, tol, max_rounds, np.zeros(1, bool), False, F, F
+    )
+    fused_solve_cuda.launches += 1
+    return out, res[0], rounds, bool(conv[0])
+
+
+fused_solve_cuda.launches = 0  # loop entry launches for one query
+
+
+def fused_batch_solve_cuda(X, sched, semiring, epilogue, residual, tol, max_rounds, conv0=None) -> tuple:
+    """Rounds of K1's batch entry on the card until every query's residual
+    (summed over its own rows and columns) is ≤ ``float32(tol)`` or
+    ``max_rounds`` rounds have run, in one launch: the reference's batch
+    loops.  With ``conv0`` None a closed batch: every query iterates to the
+    end.  Otherwise an open batch: the ``(Q,)`` flags ``conv0`` mark queries
+    already converged, and a query freezes, state and residual, at its first
+    convergence.  Returns ``(X, residuals (Q,) float32, rounds, converged
+    (Q,), rounds_per_query (Q,))``, ``rounds_per_query`` the round of each
+    query's first convergence in this call (0: none).  A call with nothing
+    to run (``max_rounds`` ≤ 0, or every query converged) launches nothing
+    and returns ``X``.  Synchronises once, to read the result back."""
+    code = _residual_code(residual, X.dtype)
+    Q = X.shape[1] if X.dim() > 1 else 0
+    conv = np.zeros(Q, bool) if conv0 is None else np.array(conv0, dtype=bool)
+    if conv.shape != (Q,):
+        raise ValueError(f"conv0 must have shape ({Q},), got {conv.shape}")
+    C, G = _check_batch_args(X, sched, semiring, epilogue)
+    if max_rounds < 1 or conv.all():
+        return X, np.full(Q, np.inf, np.float32), 0, conv, np.zeros(Q, np.int32)
+    out, rounds, conv, rpq, res = _launch_loop(
+        X, sched, epilogue, code, tol, max_rounds, conv, conv0 is not None, C, G
+    )
+    fused_batch_solve_cuda.launches += 1
+    return out, res, rounds, conv, rpq
+
+
+fused_batch_solve_cuda.launches = 0  # loop entry launches for a batch
 
 
 def _check_halo_args(x_loc, ef, sched, plan, semiring, epilogue, halo_dtype, steps):

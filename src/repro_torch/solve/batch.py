@@ -6,11 +6,14 @@ embeddings for Q seed sets) over one cached schedule; :class:`BatchStepper`
 keeps an open batch of ``capacity`` slots that admits queries between
 quanta and retires each at its first convergence.
 
-The reference vmaps its round over a leading Q axis.  The port keeps the
-batch on the device vertex-major, ``(n + 1, Q)+feat``: a vertex's Q·F values
-are one row, so each round is one launch of K1's batch entry
-(:func:`repro_torch.kernels.ops.fused_batch_round`) that walks the edges
-once for all Q queries, and the query tables sit side by side in one
+The reference vmaps its round over a leading Q axis and runs one
+``lax.while_loop`` a compaction chunk (closed batch) or a quantum (open
+batch).  The port keeps the batch on the device vertex-major,
+``(n + 1, Q)+feat``: a vertex's Q·F values are one row, so each chunk or
+quantum is one launch of K1's loop entry
+(:func:`repro_torch.kernels.ops.fused_batch_solve`), every round of it
+walking the edges once for all Q queries, with one read-back at its end;
+and the query tables sit side by side in one
 ``(n + 1, Q)+feat`` table (:meth:`Solver.batch_row_update`).  The batch is
 transposed only at entry and exit and at a compaction, on the device (a
 host transpose of a full-size batch costs more than its rounds).  Each query's
@@ -40,8 +43,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.core.engine import round_fn
-from repro_torch.kernels.ops import fused_batch_round
+from repro_torch.kernels import ops, ref
 
 __all__ = ["BatchResult", "BatchStepper", "RetiredQuery", "solve_batch"]
 
@@ -94,20 +96,14 @@ def _resolve(solver, backend, frontier) -> tuple:
     return backend, frontier
 
 
-def _round(sched, semiring, backend: str, epilogue):
-    """``X -> X``: one round of the batch (K1's batch entry, or the plain round)."""
-    if backend == "kernel":
-        return lambda X: fused_batch_round(X, sched, semiring, epilogue)
-    return round_fn(sched, semiring, epilogue)
-
-
-def _residuals(residual, X, X_new) -> np.ndarray:
-    """``(Q,)`` float32: the problem's residual of each query, summed over
-    every axis but the batch's query axis 1, read back to the host.  (A
-    ``torch.func.vmap`` over axis 1 runs the same sums on a permuted view,
-    several times slower.)"""
-    dims = (0,) + tuple(range(2, X.dim()))
-    return residual(X[:-1], X_new[:-1], dim=dims).to(torch.float32).cpu().numpy()
+def _solve(sched, semiring, backend: str, epilogue, residual, X, tol, max_rounds, conv0=None):
+    """One loop over the batch ``X`` until every query's residual is ≤ tol
+    or ``max_rounds`` (``conv0``: an open batch's flags; see
+    :func:`repro_torch.kernels.ref.fused_batch_solve_ref`): K1's loop entry,
+    or the plain loop.  Returns ``(X, residuals, rounds, converged,
+    rounds_per_query)``."""
+    loop = ops.fused_batch_solve if backend == "kernel" else ref.fused_batch_solve_ref
+    return loop(X, sched, semiring, epilogue, residual, tol, max_rounds, conv0)
 
 
 def _to_device(x0_batch, semiring, device) -> torch.Tensor:
@@ -132,37 +128,6 @@ def _columns(epilogue, keep):
     return dataclasses.replace(epilogue, table=epilogue.table[:, keep].contiguous())
 
 
-def _loop(rnd, residual, X, tol32, max_rounds, conv0=None):
-    """Rounds until every query's residual is ≤ tol or ``max_rounds``.
-    Returns ``(X, residuals, rounds, converged, rounds_per_query)``.
-
-    A closed batch (``conv0`` None) iterates every query to the end.  An
-    open batch's rows may start converged (``conv0``: its free slots ride
-    along), and a row freezes at its first convergence: its state and
-    residual stop changing."""
-    Q = X.shape[1]
-    res = np.full(Q, np.inf, np.float32)
-    conv = np.zeros(Q, bool) if conv0 is None else conv0.copy()
-    rpq = np.zeros(Q, np.int32)
-    rounds = 0
-    while rounds < max_rounds and not conv.all():
-        X_new = rnd(X)
-        r = _residuals(residual, X, X_new)
-        hit = r <= tol32
-        rpq[~conv & hit] = rounds + 1  # stamp only at first convergence
-        if conv0 is None:
-            res = r
-        else:
-            if conv.any():
-                frozen = torch.as_tensor(conv, device=X.device).reshape((1, Q) + (1,) * (X.dim() - 2))
-                X_new = torch.where(frozen, X, X_new)
-            res = np.where(conv, res, r)
-        conv |= hit
-        rounds += 1
-        X = X_new
-    return X, res, rounds, conv, rpq
-
-
 def _build_s(solver, backend: str) -> float:
     """Seconds spent loading (building, on first use) K1's library."""
     if backend != "kernel" or solver.device.type != "cuda":
@@ -185,7 +150,7 @@ class BatchStepper:
       slot;
     * :meth:`run` executes one quantum, at most ``quantum`` rounds over
       **all** slots (free slots ride along pre-converged, so the batch's
-      width never changes); each round is one K1 launch;
+      width never changes) in one launch of K1's loop entry;
     * converged slots (and slots out of round budget) retire from
       :meth:`run` as :class:`RetiredQuery` rows, freeing their slots.
 
@@ -296,10 +261,10 @@ class BatchStepper:
         if self._epilogue is None:
             self._epilogue = self.solver.batch_row_update(self._qb, self.capacity, self._feat)
         _build_s(self.solver, self.backend)
-        rnd = _round(self.sched, self._sr, self.backend, self._epilogue)
-        tol32 = np.float32(self.tol)
         residual = self.solver.problem.residual
-        self._X, res, r, conv, rpq = _loop(rnd, residual, self._X, tol32, quantum, conv0=~occ)
+        self._X, res, r, conv, rpq = _solve(
+            self.sched, self._sr, self.backend, self._epilogue, residual, self._X, self.tol, quantum, conv0=~occ
+        )
         before = self._rounds_in.copy()
         self._rounds_in[occ] += r
         self.rounds_executed += r
@@ -349,9 +314,9 @@ def solve_batch(
       or (Q, n, F) for matrix-frontier problems (e.g. batched rwr).
     * ``q``             — for query problems, the Q queries with a leading Q
       axis (e.g. :func:`ppr_teleport`); must be ``None`` otherwise.
-    * ``backend``       — ``"kernel"`` (one launch of K1's batch entry a
-      round on a CUDA device, its plain version on the CPU) or ``"torch"``
-      (the plain round); the replicated frontier only.
+    * ``backend``       — ``"kernel"`` (one launch of K1's loop entry a
+      compaction chunk on a CUDA device, its plain loop on the CPU) or
+      ``"torch"`` (the plain loop); the replicated frontier only.
     * ``compact_every`` — shrink the active batch to the unconverged subset
       every this many rounds (straggler-aware batching); ``None`` runs until
       the slowest query converges.
@@ -374,7 +339,6 @@ def solve_batch(
     epilogue = solver.batch_row_update(q, Q, feat)
     X = _to_device(x0, sr, solver.device)
     compile_time_s = _build_s(solver, backend)
-    tol32 = np.float32(tol)
     bytes_per = np.dtype(sr.dtype).itemsize * (int(np.prod(feat)) if feat else 1)
 
     solver.stats["solves"] += 1
@@ -389,8 +353,7 @@ def solve_batch(
         chunk = max_rounds - rounds_done
         if compact_every is not None:
             chunk = min(chunk, compact_every)
-        rnd = _round(sched, sr, backend, epilogue)
-        X, res, r, conv, rpq = _loop(rnd, problem.residual, X, tol32, chunk)
+        X, res, r, conv, rpq = _solve(sched, sr, backend, epilogue, problem.residual, X, tol, chunk)
         rounds_done += r
         flushes += r * sched.S
         flush_bytes += r * sched.S * sched.P * sched.delta * bytes_per * active.size

@@ -2,15 +2,21 @@
 
 The counterpart of ``repro.solve.solver.Solver`` on one device.  A solver
 binds ``(graph, problem, n_workers)``, caches one :class:`DeviceSchedule` per
-resolved δ (and one halo plan per δ), and runs rounds under the host loop
-until the residual meets the tolerance.
+resolved δ (and one halo plan per δ), and runs rounds until the residual
+meets the tolerance: on the replicated frontier in one fused loop (the
+reference's ``jit``/``pallas`` path: an f32 residual against an f32 ``tol``,
+one read-back a solve, ``residuals=[final]`` and ``round_times_s=[]``), on
+the halo frontier under the host loop (one residual and one time a round),
+as the reference's ``_solve_once`` dispatches.
 
 ``delta`` takes the paper's disciplines by name (``"sync"``, ``"async"``), an
 integer (delayed), or ``"auto"``, which probes the sync and async round
 counts and asks the δ cost model (:mod:`repro_torch.core.delta_model`) for
-δ*.  ``backend="kernel"`` (the default) runs each round as one launch of the
-hand-written CUDA kernel K1 on a CUDA device, and as K1's plain version on
-the CPU; ``backend="torch"`` runs the plain round on either, for comparison.
+δ*.  ``backend="kernel"`` (the default) runs a replicated solve as one
+launch of K1's loop entry on a CUDA device (every round in it), and as its
+plain loop on the CPU; ``backend="torch"`` runs the plain loop on either,
+for comparison (the port's ``jit``: the same stopping test and result,
+reading a residual back each round).
 
 The frontier is a vector ``(n,)`` or a matrix ``(n, F)``: rwr embeddings
 and label propagation (``Problem.feature_dim = F``) iterate F columns over
@@ -48,14 +54,14 @@ from repro_torch.core.engine import (
     DeviceSchedule,
     EngineResult,
     extend_frontier,
+    fused_loop,
     host_loop,
     make_schedule,
-    round_fn,
 )
 from repro_torch.dist import engine_sharded
 from repro_torch.graphs.formats import CSRGraph
 from repro_torch.graphs.partition import balanced_blocks
-from repro_torch.kernels.ops import fused_round
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.round_block import Epilogue
 from repro_torch.solve import batch
 from repro_torch.solve.problem import Problem
@@ -331,27 +337,22 @@ class Solver:
     # ------------------------------------------------------------------ #
     # solve
     # ------------------------------------------------------------------ #
-    def _round(self, sched, backend, frontier, halo_dtype, row_update, feat):
+    def _halo_round(self, sched, backend, halo_dtype, row_update, feat):
+        """One halo round ``x_ext -> x_ext`` for the host loop."""
         sr = self.problem.semiring
-        if frontier == "halo":
-            plan = self.frontier_plan(sched)
-            if backend == "torch":
-                return engine_sharded.frontier_round_ext_fn(sched, plan, sr, row_update)
-            fn = engine_sharded.frontier_kernel_round_ext_fn(
-                sched, plan, sr, row_update, halo_dtype
-            )
-            # The error-feedback residuals are loop state of one solve: fresh
-            # zeros per solve, carried from round to round.
-            state = {"ef": engine_sharded.frontier_ef_init(plan, feat)}
+        plan = self.frontier_plan(sched)
+        if backend == "torch":
+            return engine_sharded.frontier_round_ext_fn(sched, plan, sr, row_update)
+        fn = engine_sharded.frontier_kernel_round_ext_fn(sched, plan, sr, row_update, halo_dtype)
+        # The error-feedback residuals are loop state of one solve: fresh
+        # zeros per solve, carried from round to round.
+        state = {"ef": engine_sharded.frontier_ef_init(plan, feat)}
 
-            def rnd(x):
-                x, state["ef"] = fn(x, state["ef"])
-                return x
+        def rnd(x):
+            x, state["ef"] = fn(x, state["ef"])
+            return x
 
-            return rnd
-        if backend == "kernel":
-            return lambda x: fused_round(x, sched, sr, row_update)
-        return round_fn(sched, sr, row_update)
+        return rnd
 
     def solve(
         self,
@@ -378,7 +379,7 @@ class Solver:
         row_update = self.row_update(q)
         if isinstance(row_update, Epilogue):  # fit its table to x's rows
             row_update = row_update.for_frontier(feat)
-        rnd = self._round(sched, backend, frontier, halo_dtype, row_update, feat)
+        sr, residual = self.problem.semiring, self.problem.residual
         build_s = 0.0
         if backend == "kernel" and self.device.type == "cuda":
             from repro_torch.kernels.build import load
@@ -387,16 +388,15 @@ class Solver:
             load("round_block")  # built once per process; timed apart from rounds
             build_s = time.perf_counter() - t0
         self.stats["solves"] += 1
-        return host_loop(
-            rnd,
-            sched,
-            self.problem.semiring,
-            x_ext,
-            self.problem.residual,
-            tol,
-            max_rounds,
-            compile_time_s=build_s,
-        )
+        if frontier == "halo":
+            rnd = self._halo_round(sched, backend, halo_dtype, row_update, feat)
+            return host_loop(rnd, sched, sr, x_ext, residual, tol, max_rounds, compile_time_s=build_s)
+        loop = ops.fused_solve if backend == "kernel" else ref.fused_solve_ref
+
+        def solve(x, tol, max_rounds):
+            return loop(x, sched, sr, row_update, residual, tol, max_rounds)
+
+        return fused_loop(solve, sched, sr, x_ext, tol, max_rounds, compile_time_s=build_s)
 
     def solve_batch(
         self,

@@ -1,6 +1,7 @@
 """K1, K2 and K3 on the card against their plain versions, bit for bit,
 on vector frontiers and on (n + 1, F) matrix frontiers; K1's batch entry on
-(n + 1, Q) and (n + 1, Q, F) batch frontiers.
+(n + 1, Q) and (n + 1, Q, F) batch frontiers; K1's loop entry (whole solves,
+closed batches and open-batch quanta in one launch) against its plain loops.
 
 Imports neither jax nor ``repro``, so it runs on a machine with a CUDA card
 and only the port installed:
@@ -10,6 +11,8 @@ and only the port installed:
 Where there is no card every test here skips with its reason.  The plain
 version runs on the CPU: on CUDA it would sum with atomics, in no fixed order.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -29,8 +32,10 @@ from repro_torch.kernels.round_block import (  # noqa: E402
     MIN_OLD,
     Epilogue,
     fused_batch_round_cuda,
+    fused_batch_solve_cuda,
     fused_halo_round_cuda,
     fused_round_cuda,
+    fused_solve_cuda,
 )
 from repro_torch.kernels.spmv_ell import spmv_ell_cuda  # noqa: E402
 from repro_torch.solve import (  # noqa: E402
@@ -46,6 +51,7 @@ from repro_torch.solve import (  # noqa: E402
     rwr_restart,
     sssp_problem,
 )
+from repro_torch.solve.problem import count_changed_residual, l1_residual  # noqa: E402
 
 
 @pytest.fixture
@@ -517,6 +523,7 @@ def test_matrix_solve_without_nvcc_raises_instead_of_running_plain(cuda_device, 
     build.load.cache_clear()
     calls = []
     monkeypatch.setattr(ref, "fused_round_ref", lambda *a: calls.append(a))
+    monkeypatch.setattr(ref, "fused_solve_ref", lambda *a: calls.append(a))
     monkeypatch.setattr(ref, "fused_halo_round_ref", lambda *a: calls.append(a))
     try:
         g = make_graph("twitter", scale=9, efactor=8, kind="pagerank")
@@ -604,8 +611,8 @@ def test_batch_round_sums_hub_rows_in_edge_order(cuda_device, tag, layout, mode,
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["ppr", "sssp", "rwr", "labelprop"])
 def test_batch_solve_on_card_matches_cpu(cuda_device, name):
-    """``solve_batch`` (one batch launch a round) and a ``BatchStepper`` on the
-    card equal the CPU's, query for query."""
+    """``solve_batch`` (one launch of K1's loop entry) and a ``BatchStepper``
+    on the card equal the CPU's, query for query."""
     kind = "sssp" if name == "sssp" else "pagerank"
     g = make_graph("kron" if name == "sssp" else "twitter", scale=10, efactor=8, kind=kind)
     rng = np.random.default_rng(5)
@@ -622,9 +629,9 @@ def test_batch_solve_on_card_matches_cpu(cuda_device, name):
         q = np.stack([labelprop_anchors(g, rng.choice(g.n, 4, replace=False)) for _ in range(4)])
     kw = dict(n_workers=8, delta=96, min_chunk=32)
     card, cpu = Solver(g, problem, **kw), Solver(g, problem, device="cpu", **kw)
-    launches = fused_batch_round_cuda.launches
+    launches = (fused_batch_solve_cuda.launches, fused_batch_round_cuda.launches)
     on_card, on_cpu = card.solve_batch(x0, q=q), cpu.solve_batch(x0, q=q)
-    assert fused_batch_round_cuda.launches == launches + on_card.rounds
+    assert (fused_batch_solve_cuda.launches, fused_batch_round_cuda.launches) == (launches[0] + 1, launches[1])
     assert (on_card.rounds, on_card.flush_bytes) == (on_cpu.rounds, on_cpu.flush_bytes)
     np.testing.assert_array_equal(on_card.rounds_per_query, on_cpu.rounds_per_query)
     np.testing.assert_array_equal(on_card.x, on_cpu.x)
@@ -656,6 +663,7 @@ def test_batch_solve_without_nvcc_raises_instead_of_running_plain(cuda_device, t
     build.load.cache_clear()
     calls = []
     monkeypatch.setattr(ref, "fused_batch_round_ref", lambda *a: calls.append(a))
+    monkeypatch.setattr(ref, "fused_batch_solve_ref", lambda *a: calls.append(a))
     monkeypatch.setattr(ref, "fused_round_ref", lambda *a: calls.append(a))
     try:
         g = make_graph("twitter", scale=9, efactor=8, kind="pagerank")
@@ -666,3 +674,167 @@ def test_batch_solve_without_nvcc_raises_instead_of_running_plain(cuda_device, t
         assert not calls
     finally:
         build.load.cache_clear()
+
+
+# K1's loop entry against its plain loops (ref.fused_solve_ref,
+# ref.fused_batch_solve_ref on the CPU): x bit for bit, rounds, flags and
+# first-convergence rounds exactly.  The residual sums N non-negative float32
+# terms (a query's n·F values) in another order than torch's: each order lies
+# within (N - 1)·2⁻²⁴ of the exact sum (relative), so the two within
+# 2·N·2⁻²⁴ (_loop_rtol).  Count-changed sums are exact integers and compared
+# exactly.
+def _loop_rtol(terms: int) -> float:
+    return 2 * terms * 2.0**-24
+
+
+def _assert_loop_equal(got, want, terms, batch):
+    assert _bits_equal(got[0].cpu()[:-1], want[0][:-1])
+    assert got[2] == want[2]
+    if batch:
+        np.testing.assert_array_equal(got[3], want[3])
+        np.testing.assert_array_equal(got[4], want[4])
+    else:
+        assert got[3] == want[3]
+    res_got, res_want = np.atleast_1d(got[1]), np.atleast_1d(want[1])
+    assert res_got.dtype == np.float32
+    np.testing.assert_array_equal(np.isfinite(res_got), np.isfinite(res_want))
+    fin = np.isfinite(res_want)
+    np.testing.assert_allclose(res_got[fin], res_want[fin], rtol=_loop_rtol(terms))
+
+
+def _loop_case(device, g, sr, x, ep, residual, mode, delta, tol, max_rounds, batch=False, conv0=None,
+               min_chunk=32):
+    """One loop on the card (one launch) against the plain loop on the CPU;
+    ``x`` is an (n + 1,)+feat frontier, or with ``batch`` an (n + 1, Q)+feat
+    batch (``conv0``: an open batch's flags)."""
+    cpu = engine.make_schedule(g, 4, delta, sr, mode=mode, min_chunk=min_chunk)
+    dev = engine.make_schedule(g, 4, delta, sr, mode=mode, min_chunk=min_chunk, device=device)
+    X = torch.as_tensor(x)
+    before = (fused_solve_cuda.launches, fused_batch_solve_cuda.launches,
+              fused_round_cuda.launches, fused_batch_round_cuda.launches)
+    if batch:
+        want = ref.fused_batch_solve_ref(X, cpu, sr, ep, residual, tol, max_rounds, conv0)
+        got = ops.fused_batch_solve(X.to(device), dev, sr, ep.to(device), residual, tol, max_rounds, conv0)
+        terms = g.n * int(np.prod(X.shape[2:], dtype=np.int64))
+    else:
+        want = ref.fused_solve_ref(X, cpu, sr, ep, residual, tol, max_rounds)
+        got = ops.fused_solve(X.to(device), dev, sr, ep.to(device), residual, tol, max_rounds)
+        terms = g.n * int(np.prod(X.shape[1:], dtype=np.int64))
+    after = (fused_solve_cuda.launches, fused_batch_solve_cuda.launches,
+             fused_round_cuda.launches, fused_batch_round_cuda.launches)
+    assert after == (before[0] + (not batch), before[1] + batch, before[2], before[3])
+    _assert_loop_equal(got, want, terms, batch)
+    return got
+
+
+LOOP_TOL = {ADD_CONST: 1e-6, ADD_TABLE: 1e-3, MIN_OLD: 0.5}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("budget", [False, True])
+@pytest.mark.parametrize("tag", [ADD_CONST, ADD_TABLE, MIN_OLD])
+@pytest.mark.parametrize("mode,delta", [("sync", None), ("delayed", 1), ("delayed", 96), ("delayed", 3001)])
+def test_loop_entry_matches_plain_loop(cuda_device, tag, mode, delta, budget):
+    """A whole solve in one launch: to convergence (pagerank from a uniform
+    start, ppr's table, sssp-like min_old), or over a budget of 3 rounds
+    with tol = -1."""
+    g, sr, x0, ep = _inputs(tag, cuda_device)
+    if tag == ADD_CONST:
+        x0 = np.full(g.n, 1.0 / g.n, np.float32)
+    residual = count_changed_residual if tag == MIN_OLD else l1_residual
+    tol, rounds = (-1.0, 3) if budget else (LOOP_TOL[tag], 300)
+    got = _loop_case(cuda_device, g, sr, engine.extend_frontier(x0, sr, "cpu"), ep, residual, mode, delta,
+                     tol, rounds)
+    assert got[3] != budget and got[2] > 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,delta", [("sync", None), ("delayed", 96)])
+@pytest.mark.parametrize("F,tag", MATRIX_K1)
+def test_matrix_loop_entry_matches_plain_loop(cuda_device, F, tag, mode, delta):
+    """F = 1 to 8 (vector rows, the feature-block build at F = 3), 4 rounds."""
+    g, sr, x0, ep = _matrix_inputs(tag, F, cuda_device)
+    residual = count_changed_residual if tag == MIN_OLD else l1_residual
+    _loop_case(cuda_device, g, sr, engine.extend_frontier(x0, sr, "cpu"), ep, residual, mode, delta, -1.0, 4)
+
+
+def _open_flags(Q):
+    return np.arange(Q) % 3 == 1  # every third query starts converged
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("closed", [True, False])
+@pytest.mark.parametrize("mode,delta", [("sync", None), ("delayed", 96)])
+@pytest.mark.parametrize("C", BATCH_WIDTHS)
+@pytest.mark.parametrize("tag,layout", BATCH_CASES)
+def test_batch_loop_entry_matches_plain_loop(cuda_device, tag, layout, C, mode, delta, closed):
+    """A closed batch, and an open one whose flagged queries must not move,
+    over 3 rounds (tol = -1)."""
+    g, sr, x, ep = _batch_card_inputs(tag, layout, C)
+    residual = count_changed_residual if tag == MIN_OLD else l1_residual
+    conv0 = None if closed else _open_flags(x.shape[1])
+    got = _loop_case(cuda_device, g, sr, x, ep, residual, mode, delta, -1.0, 3, True, conv0)
+    if not closed:
+        frozen = torch.as_tensor(conv0)
+        assert _bits_equal(got[0].cpu()[:-1, frozen], torch.as_tensor(x)[:-1, frozen])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("closed", [True, False])
+@pytest.mark.parametrize("name", ["ppr", "sssp"])
+def test_batch_loop_entry_stamps_first_convergence(cuda_device, name, closed):
+    """Eight queries to convergence: each query's first-convergence round
+    (stamped on the card), and, open, each row frozen from then on."""
+    rng = np.random.default_rng(2)
+    if name == "sssp":
+        g = make_graph("kron", scale=10, efactor=8, kind="sssp")
+        x = np.ascontiguousarray(np.concatenate([multi_source_x0(g, rng.choice(g.n, 8, replace=False)).T,
+                                                 np.full((1, 8), INT_INF, np.int32)]))
+        sr, ep, residual, tol = MIN_PLUS, Epilogue(MIN_OLD), count_changed_residual, 0.5
+    else:
+        g = make_graph("twitter", scale=10, efactor=8, kind="pagerank")
+        x = np.full((g.n + 1, 8), 1.0 / g.n, np.float32)
+        ep = Solver(g, ppr_problem(), n_workers=4, device="cpu").batch_row_update(
+            ppr_teleport(g, rng.choice(g.n, 8, replace=False)), 8, ())
+        sr, residual, tol = PLUS_TIMES, l1_residual, 1e-6
+    conv0 = None if closed else np.zeros(8, bool)
+    got = _loop_case(cuda_device, g, sr, x, ep, residual, "delayed", 96, tol, 500, True, conv0)
+    assert got[3].all() and got[2] == got[4].max() and got[4].min() > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,delta", [("sync", None), ("delayed", 301), ("delayed", 3001)])
+@pytest.mark.parametrize("tag,layout", BATCH_CASES)
+def test_loop_entry_sums_hub_rows_in_edge_order(cuda_device, tag, layout, mode, delta):
+    """The 25,000-edge hub row (24 chunks), empty rows and wide-range values,
+    3 rounds: one query (the batch's first column) and a batch of C = 8."""
+    g = _hub_graph("sssp" if tag == MIN_OLD else "pagerank", 30_001, 25_000)
+    g, sr, x, ep = _batch_card_inputs(tag, layout, 8, g=g)
+    residual = count_changed_residual if tag == MIN_OLD else l1_residual
+    one = x[:, 0].copy()
+    ep_one = ep if ep.table is None else dataclasses.replace(ep, table=ep.table[:, 0].contiguous())
+    _loop_case(cuda_device, g, sr, one, ep_one, residual, mode, delta, -1.0, 3, min_chunk=1)
+    _loop_case(cuda_device, g, sr, x, ep, residual, mode, delta, -1.0, 3, True, min_chunk=1)
+    _loop_case(cuda_device, g, sr, x, ep, residual, mode, delta, -1.0, 3, True, _open_flags(x.shape[1]), min_chunk=1)
+
+
+@pytest.mark.gpu
+def test_solves_launch_the_loop_entry_once(cuda_device):
+    """A replicated solve is one launch of the loop entry and no round
+    launch; a closed batch one a compaction chunk, a stepper one a quantum."""
+    g = make_graph("twitter", scale=10, efactor=8, kind="pagerank")
+    solver = Solver(g, ppr_problem(), n_workers=8, delta=96, min_chunk=32)
+    counts = lambda: (fused_solve_cuda.launches, fused_batch_solve_cuda.launches,  # noqa: E731
+                      fused_round_cuda.launches, fused_batch_round_cuda.launches)
+    before = counts()
+    r = solver.solve(q=ppr_teleport(g, [5])[0])
+    assert r.converged and len(r.residuals) == 1 and r.round_times_s == []
+    assert counts() == (before[0] + 1,) + before[1:]
+    x0 = np.full((4, g.n), 1.0 / g.n, np.float32)
+    b = solver.solve_batch(x0, q=ppr_teleport(g, [1, 2, 3, 4]), compact_every=2)
+    assert counts() == (before[0] + 1, before[1] + -(-b.rounds // 2), before[2], before[3])
+    st = BatchStepper(solver, capacity=2)
+    st.admit(x0[0], q=ppr_teleport(g, [9])[0])
+    while st.occupancy:
+        st.run(4)
+    assert counts()[1] == before[1] + -(-b.rounds // 2) + st.quanta
