@@ -93,6 +93,26 @@ smaller graphs:
    fresh one-query ``solve_batch``.  Then the ppr batches (Q = 8 at sync,
    Q = 32 at δ*) through ``engine.host_loop`` over single launches of K1's
    batch entry (counted) for the batch's rounds, equal in x.
+   Then the evolving-graph path, with the loop entry's count reset before
+   and read after: on solvers of its own at δ* on twitter scale 22, SSSP
+   takes mixed batches (the recipe of ``benchmarks/incremental.py``: k/2
+   deletes, k/4 reweights, the rest inserts, weights in [1, 255]) and
+   PageRank mass-conserving deletes (each touched source's surviving
+   out-edges reweighted to ``0.85 / outdeg``), k = 64 and 4,096, seeded,
+   each batch after the last on the same solver.  Each
+   ``resolve(updates=batch)`` must be one loop-entry launch; the patched
+   ``row_ptr`` must equal ``_cell_row_ptr`` of the patched ``dst_local``
+   (recomputed on the card), and the patched schedule a fresh build of the
+   mutated graph with the same bounds and δ (padded to its ``M``); the
+   result must equal a cold solve on the mutated graph (bit for bit for
+   SSSP, L1 ≤ 20·tol for PageRank); K1's loop entry must equal its plain
+   loop on the patched schedule (PageRank over LOOP_BUDGET rounds,
+   ``tol = -1``; SSSP to convergence, its plain loop on the card).  Each
+   case prints its rounds, ``total_s`` and ``apply_updates_s`` (the host's
+   patch and its copies to the card) beside the cold solve's rounds.  At
+   scale 16 a halo resolve (f32, D = 4, δ = 128, k = 64) must rebuild its
+   plan once, launch K2 once a round and equal the replicated resolve, and
+   K2 must equal its plain round over the rebuilt plan.
 4. K1's time per round at the full-size shapes, at sync, 128, 1024 and
    auto's δ* (CUDA events), beside its byte bound, the same round with no
    edges to walk (barriers, epilogues and publishes alone), the plain round's
@@ -127,7 +147,8 @@ smaller graphs:
    round's bound; and likewise for rwr at F = 4, a ppr batch of Q = 8
    (sync) and of Q = 32 (δ*).
 5. the ``kernels`` line (every kernel's launches on its path must be
-   nonzero; K1's single-round entries, which no path launches now, show the
+   nonzero; ``resolve_launches`` of the loop entry and of K2 are the
+   evolving-graph path's; K1's single-round entries, which no path launches now, show the
    main path's 0 with ``on_path: false``, the loop entry that superseded
    each, and their launches in phase 3's host-loop comparisons, which must
    be nonzero), the card's name and power limit, and the result line.
@@ -196,6 +217,11 @@ STEPPER_CAPACITY, STEPPER_QUERIES = 8, 12
 LOOP_BUDGET, LOOP_BUDGET_CUT = 2, 3
 LOOP_TIMED_ROUNDS = {"sync": 20, 128: 3, 1024: 8}
 LOOP_TIMED_DEFAULT = 16  # δ*
+# Evolving graphs (phase 3): edge operations a batch, the batches' seed, and
+# the δ of the halo resolve at HALO_SCALE.
+EVOLVE_BATCHES = (64, 4096)
+EVOLVE_SEED = 22
+EVOLVE_HALO_DELTA = 128
 
 
 def log(msg: str) -> None:
@@ -366,6 +392,68 @@ def halo_round_bound(sched, plan, tag: str, wire: str, F: int = 1) -> tuple[floa
         exchange += S * D * H * 8 * F
     bytes_ = edges * 8 + distinct * 4 * F + rows * per_row + int(live.sum()) * 4 * F + exchange
     return bound_ms(bytes_, (2 * edges + rows) * F, sched.val.dtype == torch.float32)
+
+
+def edge_list(graph) -> tuple[np.ndarray, np.ndarray]:
+    """(src, dst) int64 of every edge, in CSR order (sorted by dst·n + src)."""
+    dst = np.repeat(np.arange(graph.n, dtype=np.int64), np.diff(graph.indptr))
+    return graph.indices.astype(np.int64), dst
+
+
+def sssp_event(graph, k: int, rng):
+    """A mixed batch of ``k`` edge operations with GAP-style integer weights,
+    the recipe (and the draws) of ``benchmarks/incremental.py``'s
+    ``_sssp_event``: k/2 deletes and k/4 reweights of distinct existing edges,
+    the rest inserts of absent non-loop edges, weights in [1, 255].  Edge
+    membership is a search in the sorted CSR keys, not a set of every edge."""
+    from repro_torch.evolve import EdgeBatch
+
+    src, dst = edge_list(graph)
+    n = graph.n
+    n_del, n_rw = k // 2, k // 4
+    n_ins = k - n_del - n_rw
+    pick = rng.choice(graph.nnz, size=n_del + n_rw, replace=False)
+    deletes = [(int(src[e]), int(dst[e])) for e in pick[:n_del]]
+    reweights = [(int(src[e]), int(dst[e]), int(rng.integers(1, 256))) for e in pick[n_del:]]
+    keys, added, inserts = dst * n + src, set(), []
+    while len(inserts) < n_ins:
+        s, d = (int(v) for v in rng.integers(0, n, size=2))
+        key = d * n + s
+        i = int(np.searchsorted(keys, key))
+        if s == d or key in added or (i < keys.size and keys[i] == key):
+            continue
+        added.add(key)
+        inserts.append((s, d, int(rng.integers(1, 256))))
+    return EdgeBatch.from_ops(inserts=inserts, deletes=deletes, reweights=reweights)
+
+
+def pagerank_event(graph, k: int, rng, damping: float = 0.85):
+    """``k`` mass-conserving deletes, the recipe (and the draws) of
+    ``benchmarks/incremental.py``'s ``_pagerank_event``: every touched
+    source's surviving out-edges are reweighted to ``damping / outdeg_new``,
+    so the graph stays a scaled column-stochastic operator.  Built with array
+    operations: a hub's millions of out-edges become one reweight array."""
+    from repro_torch.evolve import EdgeBatch
+
+    src, dst = edge_list(graph)
+    pick = rng.choice(graph.nnz, size=k, replace=False)
+    gone = np.zeros(graph.nnz, dtype=bool)
+    gone[pick] = True
+    touched = np.zeros(graph.n, dtype=bool)
+    touched[src[pick]] = True
+    kept = np.flatnonzero(touched[src] & ~gone)
+    outdeg = np.bincount(src[kept], minlength=graph.n)
+    none = np.zeros(0, dtype=np.int64)
+    return EdgeBatch(
+        insert_src=none,
+        insert_dst=none,
+        insert_val=np.zeros(0),
+        delete_src=src[pick],
+        delete_dst=dst[pick],
+        reweight_src=src[kept],
+        reweight_dst=dst[kept],
+        reweight_val=damping / outdeg[src[kept]],
+    )
 
 
 AB_DELTAS = ("sync", 16384)  # δ* of PageRank and of SSSP on twitter scale 22
@@ -1460,6 +1548,186 @@ def smoke(scale: int, gen: subprocess.Popen, npz: str) -> int:
     )
     log(f"[3] K1's batch entry vs plain at full size done in {time.perf_counter() - t0:.1f} s")
 
+    # the evolving-graph path: resolve(updates=batch) at δ* on solvers of its
+    # own (the main path's keep the unmutated graph for phase 4): SSSP takes
+    # mixed batches, PageRank mass-conserving deletes; after each resolve a
+    # cold solve on the mutated graph over the same patched schedule
+    t0 = time.perf_counter()
+    fused_round_cuda.launches = 0
+    fused_solve_cuda.launches = 0
+    evolve_launches, evolve_rows = 0, []
+    events = {"sssp": sssp_event, "pagerank": pagerank_event}
+    for name, g0 in (("sssp", g_ss), ("pagerank", g_pr)):
+        t1 = time.perf_counter()
+        inc = Solver(g0, probs[name], n_workers=P, delta=dstar[name])
+        sr, residual = inc.problem.semiring, inc.problem.residual
+        before = fused_solve_cuda.launches
+        r0 = inc.solve()
+        evolve_launches += fused_solve_cuda.launches - before
+        log(f"[3] evolve {name} δ={r0.delta}: cold solve {r0.rounds} rounds, {r0.total_time_s:.4f} s; "
+            f"solver set up and solved in {time.perf_counter() - t1:.1f} s")
+        apply_s, patch_s = [], []
+
+        def timed(fn, secs):
+            def run(*args):
+                t1 = time.perf_counter()
+                out = fn(*args)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t1)
+                return out
+
+            return run
+
+        # resolve applies its batch through apply_updates, which patches the
+        # cached schedule through _patch_schedules
+        inc.apply_updates = timed(inc.apply_updates, apply_s)
+        inc._patch_schedules = timed(inc._patch_schedules, patch_s)
+        rng = np.random.default_rng(EVOLVE_SEED)
+        for k in EVOLVE_BATCHES:
+            t1 = time.perf_counter()
+            batch = events[name](inc.graph, k, rng)
+            make_s = time.perf_counter() - t1
+            builds = inc.stats["schedule_builds"]
+            before = fused_solve_cuda.launches
+            t1 = time.perf_counter()
+            r = inc.resolve(updates=batch)
+            total_s = time.perf_counter() - t1
+            launches = fused_solve_cuda.launches - before
+            report = inc._last_report
+            sched = inc.schedule()
+            row_ptr_ok = torch.equal(sched.row_ptr, engine._cell_row_ptr(sched.dst_local, sched.delta))
+            # the patched schedule against a fresh build of the mutated graph
+            # with the pinned bounds, padded to the patched M
+            t1 = time.perf_counter()
+            fresh = engine.make_schedule(inc._sched_graph, P, sched.delta, sr, bounds=inc.bounds, device=dev)
+            pad = sched.M - fresh.M
+            fills = {"src": 0, "val": sr.pad_edge_val.item(), "dst_local": sched.delta}
+            same_sched = pad >= 0 and all(
+                torch.equal(getattr(sched, f), torch.nn.functional.pad(getattr(fresh, f), (0, pad), value=v))
+                for f, v in fills.items()
+            ) and torch.equal(sched.rows, fresh.rows) and torch.equal(sched.row_ptr, fresh.row_ptr)
+            fresh_s = time.perf_counter() - t1
+            del fresh
+            before = fused_solve_cuda.launches
+            t1 = time.perf_counter()
+            cold = inc.solve()
+            cold_s = time.perf_counter() - t1
+            evolve_launches += fused_solve_cuda.launches - before + launches
+            gap = float(np.abs(r.x.astype(np.float64) - cold.x.astype(np.float64)).sum())
+            if name == "sssp":
+                equal = bool(np.array_equal(r.x, cold.x))
+            else:
+                equal = gap <= 20 * inc.tol
+            row = {
+                "problem": name,
+                "k": k,
+                "delta": r.delta,
+                "S": sched.S,
+                "M": sched.M,
+                "inserts": batch.n_inserts,
+                "deletes": batch.n_deletes,
+                "reweights": batch.n_reweights,
+                "affected_rows": int(report.affected_rows.size),
+                "touched_workers": int(inc._touched_workers(report.affected_rows).size),
+                "schedule_builds": inc.stats["schedule_builds"] - builds,
+                "make_batch_s": make_s,
+                "apply_updates_s": apply_s[-1],
+                "patch_s": patch_s[-1],
+                "total_s": total_s,
+                "loop_s": r.total_time_s,
+                "warm_start_and_rest_s": total_s - apply_s[-1] - r.total_time_s,
+                "rounds": r.rounds,
+                "converged": r.converged,
+                "launches": launches,
+                "cold_rounds": cold.rounds,
+                "cold_total_s": cold_s,
+                "cold_loop_s": cold.total_time_s,
+                "rounds_over_cold": r.rounds / cold.rounds,
+                "l1_gap_vs_cold": gap,
+                "equals_cold": equal,
+                "row_ptr_rederived": row_ptr_ok,
+                "schedule_equals_fresh_build": same_sched,
+                "fresh_build_s": fresh_s,
+            }
+            evolve_rows.append(row)
+            log(f"[3] evolve {json.dumps(row)}")
+            log(f"[3] evolve {name} k={k}: rounds {r.rounds} (cold {cold.rounds}), total_s {total_s:.4f}, "
+                f"apply_updates_s {apply_s[-1]:.4f}")
+            if launches != 1 or not (row_ptr_ok and same_sched and equal and r.converged and cold.converged):
+                raise AssertionError(f"the evolving-graph path failed: {row}")
+            # K1's loop entry against its plain loop on the patched schedule,
+            # over a budget of rounds (SSSP's plain loop on the card, to convergence)
+            x = engine.extend_frontier(inc.problem.x0(inc.graph), sr, "cpu")
+            if name == "sssp":
+                compare_loop(f"s{scale} evolved sssp k={k} δ={sched.delta}", "solve", sched, sr, inc.row_update(),
+                             residual, x, inc.tol, inc.max_rounds, plain_on_card=True)
+            else:
+                compare_loop(f"s{scale} evolved pagerank k={k} δ={sched.delta}", "solve", sched, sr,
+                             inc.row_update(), residual, x, -1.0, LOOP_BUDGET)
+        del inc
+    if evolve_launches == 0 or fused_round_cuda.launches:
+        raise AssertionError(
+            f"the evolving-graph path launched the loop entry {evolve_launches} times and K1 "
+            f"{fused_round_cuda.launches} times"
+        )
+    log(f"[3] evolving-graph path: {evolve_launches} loop launches, one a resolve and a solve; "
+        f"done in {time.perf_counter() - t0:.1f} s")
+
+    # the halo resolve at HALO_SCALE: K2 over a plan rebuilt from the patched
+    # schedule, equal to the replicated resolve; then K2 against its plain
+    # round on that plan
+    t0 = time.perf_counter()
+    fused_halo_round_cuda.launches = 0
+    evolve_halo_launches = 0
+    x_rng = np.random.default_rng(EVOLVE_SEED)
+    for name, gh in (("sssp", hg_ss), ("pagerank", hg_pr)):
+        replicated_solver = Solver(gh, h_probs[name], n_workers=P, delta=EVOLVE_HALO_DELTA)
+        halo = Solver(gh, h_probs[name], n_workers=P, delta=EVOLVE_HALO_DELTA, frontier="halo", n_shards=SHARDS)
+        replicated_solver.solve()
+        before = fused_halo_round_cuda.launches
+        halo.solve()
+        evolve_halo_launches += fused_halo_round_cuda.launches - before
+        batch = events[name](gh, EVOLVE_BATCHES[0], np.random.default_rng(EVOLVE_SEED))
+        plans = halo.stats["plan_builds"]
+        before = fused_halo_round_cuda.launches
+        t1 = time.perf_counter()
+        rh = halo.resolve(updates=batch)
+        secs = time.perf_counter() - t1
+        k2 = fused_halo_round_cuda.launches - before
+        evolve_halo_launches += k2
+        rr = replicated_solver.resolve(updates=batch)
+        row = {
+            "problem": name,
+            "scale": HALO_SCALE,
+            "k": EVOLVE_BATCHES[0],
+            "delta": rh.delta,
+            "D": SHARDS,
+            "rounds": rh.rounds,
+            "replicated_rounds": rr.rounds,
+            "total_s": secs,
+            "launches": k2,
+            "plan_builds": halo.stats["plan_builds"] - plans,
+            "equals_replicated": bool(
+                (rh.rounds, rh.flushes, rh.flush_bytes) == (rr.rounds, rr.flushes, rr.flush_bytes)
+                and np.array_equal(rh.x, rr.x)
+            ),
+        }
+        log(f"[3] evolve halo {json.dumps(row)}")
+        if not (row["equals_replicated"] and k2 == rh.rounds and row["plan_builds"] == 1 and rh.converged):
+            raise AssertionError(f"the halo resolve failed: {row}")
+        sched = halo.schedule()
+        if name == "sssp":
+            x_i = torch.tensor(x_rng.integers(0, 5000, gh.n + 1).astype(np.int32))
+            x_i[torch.tensor(x_rng.random(gh.n + 1) < 0.3)] = 2**30 - 1
+            compare_halo(f"s{HALO_SCALE} evolved sssp min_old δ={sched.delta}", halo, sched, halo.row_update(), x_i)
+        else:
+            x_f = torch.tensor(x_rng.random(gh.n + 1).astype(np.float32))
+            compare_halo(f"s{HALO_SCALE} evolved pagerank add_const δ={sched.delta}", halo, sched,
+                         halo.row_update(), x_f, quant_rounds=1)
+    if evolve_halo_launches == 0:
+        raise AssertionError("the halo resolve never launched K2")
+    log(f"[3] halo resolve: {evolve_halo_launches} K2 launches; done in {time.perf_counter() - t0:.1f} s")
+
     # ---------------------------------------------------------------- 4 ---
     t0 = time.perf_counter()
     timings = []
@@ -1920,6 +2188,7 @@ def smoke(scale: int, gen: subprocess.Popen, npz: str) -> int:
                 "source": "src/repro_torch/kernels/csrc/round_block.cu",
                 "replaces": "src/repro/kernels/round_block.py:204",
                 "launches": halo_launches,
+                "resolve_launches": evolve_halo_launches,
                 "max_abs_err": halo_err,
                 "ms": halo_timings[0]["ms"],
                 "plain_ms": halo_timings[0]["plain_ms"],
@@ -2009,6 +2278,7 @@ def smoke(scale: int, gen: subprocess.Popen, npz: str) -> int:
             },
         ]
     }
+    next(k for k in kernels["kernels"] if k["name"] == "round_block_solve")["resolve_launches"] = evolve_launches
     for k in kernels["kernels"]:
         if k["name"] in off_path:
             k["on_path"] = False

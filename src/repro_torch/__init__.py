@@ -6,6 +6,14 @@ and numpy, never ``jax``, and nothing of ``repro``.  Its modules mirror
 on).  Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """
 
+from repro_torch.algorithms import (
+    connected_components,
+    jacobi_graph,
+    jacobi_solve,
+    pagerank,
+    sssp,
+)
+from repro_torch.evolve import EdgeBatch, UpdateReport
 from repro_torch.solve import (
     Problem,
     Solver,
@@ -19,13 +27,20 @@ from repro_torch.solve import (
 )
 
 __all__ = [
+    "EdgeBatch",
     "Problem",
     "Solver",
+    "UpdateReport",
     "cc_problem",
+    "connected_components",
+    "jacobi_graph",
     "jacobi_problem",
+    "jacobi_solve",
     "label_propagation_problem",
+    "pagerank",
     "pagerank_problem",
     "ppr_problem",
     "rwr_embedding_problem",
+    "sssp",
     "sssp_problem",
 ]

@@ -36,6 +36,8 @@ from repro_torch.graphs.partition import balanced_blocks
 __all__ = [
     "DeltaModel",
     "fit_delta_model",
+    "refit_delta_model",
+    "refit_delta_models",
     "TPUCostParams",
 ]
 
@@ -63,6 +65,10 @@ class DeltaModel:
     hw: TPUCostParams
 
     def rounds(self, delta: int) -> float:
+        # Exactly the linear-in-(r_sync, r_async) form that
+        # refit_delta_model's least squares inverts — any change to the
+        # interpolation must go through _freshness_weight or the refit
+        # silently fits a different curve than best_delta evaluates.
         w = self._freshness_weight(delta)
         return float(self.r_sync) * (1.0 - w) + float(self.r_async) * w
 
@@ -141,3 +147,59 @@ def fit_delta_model(
         bytes_per_elem=bytes_per_elem,
         hw=hw or TPUCostParams(),
     )
+
+
+def refit_delta_model(model: DeltaModel, observations) -> DeltaModel:
+    """Re-fit ``(r_sync, r_async)`` from production-observed ``(δ, rounds)``.
+
+    The freshness model is *linear* in its two round counts:
+    ``rounds(δ) = r_sync·(1 − w) + r_async·w`` with
+    ``w(δ) = (1 − locality)·(1 − frac(δ))`` — so observations accumulated from
+    real :class:`~repro_torch.core.engine.EngineResult` runs refit by least squares,
+    no re-probing solves required.  The current model's own predictions at the
+    two anchor points (δ_min and B) join as prior pseudo-observations, keeping
+    the fit well-posed from a single observed δ and the migration smooth
+    (new data *pulls* the curve rather than replacing it).
+
+    ``observations`` is an iterable of ``(delta, rounds)`` pairs; non-positive
+    round counts are discarded.  Returns a new model (the input is frozen);
+    topology-derived fields (locality, B, cost params) are unchanged — only
+    the round-count curve moves.
+    """
+    obs = [(int(d), float(r)) for d, r in observations if r > 0]
+    anchors = [
+        (model.delta_min, model.rounds(model.delta_min)),
+        (model.B, model.rounds(model.B)),
+    ]
+    pts = obs + anchors
+    w = np.array([model._freshness_weight(d) for d, _ in pts])
+    design = np.stack([1.0 - w, w], axis=1)
+    target = np.array([r for _, r in pts])
+    (r_sync, r_async), *_ = np.linalg.lstsq(design, target, rcond=None)
+    return dataclasses.replace(
+        model, r_sync=max(float(r_sync), 1.0), r_async=max(float(r_async), 1.0)
+    )
+
+
+def refit_delta_models(model: DeltaModel, rows) -> dict:
+    """Per-regime refits from tagged observation rows.
+
+    ``rows`` are observation dicts, each carrying ``delta``, ``rounds`` and
+    ``regime`` (the rows the reference's persistent store logs).  Incremental
+    warm restarts converge in far fewer rounds than cold solves at the same δ,
+    so one pooled fit would drag the cold curve down and push the incremental
+    curve up; instead each regime refits independently, seeded from the same
+    base ``model`` (whose anchors keep a sparsely observed regime well-posed).
+    Returns ``{regime: refitted_model}`` — only regimes with ≥ 1 usable
+    observation appear.
+    """
+    by_regime: dict[str, list] = {}
+    for row in rows:
+        by_regime.setdefault(row.get("regime", "cold"), []).append(
+            (row["delta"], row["rounds"])
+        )
+    return {
+        regime: refit_delta_model(model, pairs)
+        for regime, pairs in by_regime.items()
+        if any(r > 0 for _, r in pairs)
+    }

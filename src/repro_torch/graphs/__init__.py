@@ -1,1 +1,2 @@
-# numpy graph formats, partitions and generators (copies of repro.graphs).
+# numpy graph formats, partitions, generators and edge-update batches
+# (copies of repro.graphs).

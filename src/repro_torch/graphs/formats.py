@@ -1,7 +1,6 @@
 """Graph storage formats (numpy; a copy of ``repro.graphs.formats``).
 
 The port keeps its own copy so that it imports nothing of ``repro``.
-``CSRGraph.apply_updates`` (evolving graphs) is left for a later slice.
 
 Two layouts:
 
@@ -111,6 +110,19 @@ class CSRGraph:
     def with_values(self, values: np.ndarray, name: str | None = None) -> "CSRGraph":
         assert values.shape[0] == self.nnz
         return dataclasses.replace(self, values=values, name=name or self.name)
+
+    def apply_updates(self, batch):
+        """Apply an :class:`repro_torch.graphs.updates.EdgeBatch` incrementally.
+
+        Returns ``(new_graph, report)`` where ``report`` is an
+        :class:`repro_torch.graphs.updates.UpdateReport` carrying the
+        affected-vertex frontier and the displaced old values (so
+        ``batch.inverse(report)`` is the exact undo).  The vertex set is
+        immutable — only edges change.
+        """
+        from repro_torch.graphs.updates import apply_edge_batch
+
+        return apply_edge_batch(self, batch)
 
     def stats(self) -> dict:
         ind = self.in_degree

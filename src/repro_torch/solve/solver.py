@@ -37,12 +37,24 @@ Both backends run both frontiers.
 launch of K1's batch entry a round for all Q (:mod:`repro_torch.solve.batch`,
 which also holds the open batch :class:`~repro_torch.solve.batch.BatchStepper`).
 
+Evolving graphs: ``apply_updates(batch)`` applies an
+:class:`~repro_torch.graphs.updates.EdgeBatch` to the bound graph with the
+block bounds pinned, and patches every cached schedule on its device
+(into copies of the same shapes): only the touched workers' stripes are
+rebuilt, at the schedule's ``(S, M)``, and ``row_ptr`` is re-derived from
+the patched ``dst_local`` (the kernels walk the edges through it).  ``resolve(updates=...)`` repairs
+the previous fixed point into a warm state (:mod:`repro_torch.evolve`) and
+solves from it over the patched schedule: on the replicated frontier one
+launch of K1's loop entry, on the halo frontier K2 over a plan rebuilt from
+the patched schedule.
+
 The solver runs on CUDA unless it is given ``device="cpu"``; with no CUDA
 device and no ``device`` it raises.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
@@ -53,13 +65,15 @@ from repro_torch.core.engine import (
     MIN_CHUNK,
     DeviceSchedule,
     EngineResult,
+    _cell_row_ptr,
     extend_frontier,
     fused_loop,
     host_loop,
     make_schedule,
 )
 from repro_torch.dist import engine_sharded
-from repro_torch.graphs.formats import CSRGraph
+from repro_torch.evolve.restart import warm_start_state
+from repro_torch.graphs.formats import CSRGraph, build_worker_stripe
 from repro_torch.graphs.partition import balanced_blocks
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.round_block import Epilogue
@@ -135,6 +149,7 @@ class Solver:
         self.tol = problem.tol if tol is None else tol
         self.max_rounds = problem.max_rounds if max_rounds is None else max_rounds
         self.delta_model = None  # set by the first δ="auto" probe
+        self.delta_model_incremental = None  # per-regime fit (evolving graphs)
         self._sched_graph = (
             graph.with_values(problem.edge_values(graph))
             if problem.edge_values is not None
@@ -147,8 +162,11 @@ class Solver:
         )
         self._bounds = None
         self._auto_delta = None
+        self._auto_delta_incremental = None
         self._schedules: dict[int, DeviceSchedule] = {}
         self._plans: dict[tuple, engine_sharded.FrontierPlan] = {}
+        self._last_x = None  # fixed point of the most recent solve (host copy)
+        self._last_report = None  # UpdateReport of the most recent apply_updates
         self.stats = {"solves": 0, "schedule_builds": 0, "plan_builds": 0}
 
     # ------------------------------------------------------------------ #
@@ -390,13 +408,162 @@ class Solver:
         self.stats["solves"] += 1
         if frontier == "halo":
             rnd = self._halo_round(sched, backend, halo_dtype, row_update, feat)
-            return host_loop(rnd, sched, sr, x_ext, residual, tol, max_rounds, compile_time_s=build_s)
-        loop = ops.fused_solve if backend == "kernel" else ref.fused_solve_ref
+            result = host_loop(rnd, sched, sr, x_ext, residual, tol, max_rounds, compile_time_s=build_s)
+        else:
+            loop = ops.fused_solve if backend == "kernel" else ref.fused_solve_ref
 
-        def solve(x, tol, max_rounds):
-            return loop(x, sched, sr, row_update, residual, tol, max_rounds)
+            def solve(x, tol, max_rounds):
+                return loop(x, sched, sr, row_update, residual, tol, max_rounds)
 
-        return fused_loop(solve, sched, sr, x_ext, tol, max_rounds, compile_time_s=build_s)
+            result = fused_loop(solve, sched, sr, x_ext, tol, max_rounds, compile_time_s=build_s)
+        self._last_x = np.asarray(result.x)
+        return result
+
+    # ------------------------------------------------------------------ #
+    # evolving graphs: apply_updates + incremental resolve
+    # ------------------------------------------------------------------ #
+    def apply_updates(self, batch):
+        """Mutate the bound graph; returns the ``UpdateReport``.
+
+        Rebinds the problem's row update and edge values to the new graph and
+        invalidates only what the batch touched: every cached schedule keeps
+        each stripe whose worker block the affected rows miss, and is patched
+        (same shapes) where they hit; halo plans drop, since their index
+        tensors were built from the old schedule.
+
+        The block bounds are **pinned** across updates: recomputing a
+        degree-sensitive partition on the mutated graph would shift every
+        block boundary and invalidate all stripes for a one-row change.
+        """
+        bounds = self.bounds  # pin pre-mutation bounds before swapping graphs
+        new_graph, report = self.graph.apply_updates(batch)
+        self.graph = new_graph
+        problem = self.problem
+        self._sched_graph = (
+            new_graph.with_values(problem.edge_values(new_graph))
+            if problem.edge_values is not None
+            else new_graph
+        )
+        self._row_update = (
+            None
+            if problem.takes_query
+            else problem.make_row_update(new_graph, None, self.device)
+        )
+        self._bounds = bounds
+        self._plans = {}
+        self._patch_schedules(report)
+        self._last_report = report
+        return report
+
+    def _touched_workers(self, affected_rows) -> np.ndarray:
+        """Worker blocks containing any affected destination row."""
+        affected = np.asarray(affected_rows, dtype=np.int64)
+        if affected.size == 0:
+            return np.zeros(0, dtype=np.int64)
+        return np.unique(np.searchsorted(self.bounds, affected, side="right") - 1)
+
+    def _patch_schedules(self, report):
+        """Rebuild only the touched workers' stripes of every cached schedule.
+
+        A stripe that outgrows the schedule's padded width ``M`` drops that
+        δ's schedule for a lazy full rebuild (global re-padding would touch
+        every worker anyway).  Otherwise the patched tensors are copies on the
+        schedule's device with its shapes, and ``row_ptr`` is derived anew
+        from the patched ``dst_local``: the kernels walk each row's edges
+        through it, and the plain rounds never read it.
+        """
+        bounds = self.bounds
+        graph = self._sched_graph
+        pad_val = self.problem.semiring.pad_edge_val
+        touched = self._touched_workers(report.affected_rows)
+        for delta_eff, sched in list(self._schedules.items()):
+            stripes, fits = {}, True
+            for w in touched:
+                lo, hi = int(bounds[w]), int(bounds[w + 1])
+                st = build_worker_stripe(graph, lo, hi, sched.S, delta_eff, pad_val)
+                if st["src"].shape[1] > sched.M:
+                    fits = False
+                    break
+                stripes[int(w)] = st
+            if not fits:
+                del self._schedules[delta_eff]
+                continue
+            src, val, dst_local = sched.src.clone(), sched.val.clone(), sched.dst_local.clone()
+            for w, st in stripes.items():
+                m = st["src"].shape[1]
+                src[:, w] = 0
+                src[:, w, :m] = torch.from_numpy(st["src"]).to(src.device)
+                val[:, w] = pad_val.item()
+                val[:, w, :m] = torch.from_numpy(st["val"]).to(val.device, val.dtype)
+                dst_local[:, w] = delta_eff
+                dst_local[:, w, :m] = torch.from_numpy(st["dst_local"]).to(dst_local.device)
+                # rows[:, w] is untouched: it depends only on (lo, hi, δ, n)
+            self._schedules[delta_eff] = dataclasses.replace(
+                sched,
+                src=src,
+                val=val,
+                dst_local=dst_local,
+                row_ptr=_cell_row_ptr(dst_local, delta_eff),
+                edges=graph.nnz,
+                padding_overhead=src.numel() / max(graph.nnz, 1),
+            )
+
+    def resolve(
+        self,
+        updates=None,
+        *,
+        x0=None,
+        q=None,
+        delta=None,
+        backend: str | None = None,
+        frontier: str | None = None,
+        tol: float | None = None,
+        max_rounds: int | None = None,
+    ) -> EngineResult:
+        """Incremental re-solve after ``updates`` (an ``EdgeBatch``), seeded
+        from the previous fixed point.
+
+        Applies the batch via :meth:`apply_updates`, repairs the prior fixed
+        point into a valid warm state (:mod:`repro_torch.evolve.restart`: the
+        delete-edge invalidation cone is re-raised for min-plus problems
+        before any re-lowering), and converges on the mutated graph.  The
+        result equals a cold :meth:`solve` on the mutated graph within tol
+        (bit-exact labels for min-plus) in typically far fewer rounds.
+
+        ``x0=`` overrides the warm seed (defaults to this solver's last
+        solve's fixed point).  With ``updates=None`` this is a plain warm
+        re-solve.  ``delta=None``/``"auto"`` prefers the incremental-regime
+        δ* once one is fitted (``_auto_delta_incremental``).
+        """
+        if x0 is None and self._last_x is None:
+            raise ValueError(
+                "resolve() warm-starts from the previous fixed point — "
+                "call solve() first or pass x0="
+            )
+        report = None
+        if updates is not None:
+            report = self.apply_updates(updates)
+        x_prev = np.asarray(x0) if x0 is not None else self._last_x
+        y = warm_start_state(
+            self.problem,
+            self.graph,
+            self._sched_graph,
+            x_prev,
+            batch=updates,
+            report=report,
+        )
+        if (delta is None and self.default_delta == "auto") or delta == "auto":
+            if self._auto_delta_incremental is not None:
+                delta = self._auto_delta_incremental
+        return self.solve(
+            y,
+            q=q,
+            delta=delta,
+            backend=backend,
+            frontier=frontier,
+            tol=tol,
+            max_rounds=max_rounds,
+        )
 
     def solve_batch(
         self,

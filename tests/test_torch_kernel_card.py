@@ -1,7 +1,9 @@
 """K1, K2 and K3 on the card against their plain versions, bit for bit,
 on vector frontiers and on (n + 1, F) matrix frontiers; K1's batch entry on
 (n + 1, Q) and (n + 1, Q, F) batch frontiers; K1's loop entry (whole solves,
-closed batches and open-batch quanta in one launch) against its plain loops.
+closed batches and open-batch quanta in one launch) against its plain loops;
+after ``apply_updates``, K1's loop entry on the patched schedule and K2 over
+the plan rebuilt from it, and ``resolve`` on the card against the CPU.
 
 Imports neither jax nor ``repro``, so it runs on a machine with a CUDA card
 and only the port installed:
@@ -20,6 +22,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import engine  # noqa: E402
+from repro_torch.evolve import EdgeBatch  # noqa: E402
 from repro_torch.core.semiring import INT_INF, MIN_PLUS, PLUS_TIMES  # noqa: E402
 from repro_torch.dist import engine_sharded  # noqa: E402
 from repro_torch.graphs.formats import CSRGraph  # noqa: E402
@@ -838,3 +841,116 @@ def test_solves_launch_the_loop_entry_once(cuda_device):
     while st.occupancy:
         st.run(4)
     assert counts()[1] == before[1] + -(-b.rounds // 2) + st.quanta
+
+
+# --------------------------------------------------------------------------- #
+# evolving graphs: the kernels over patched schedules and rebuilt plans
+# --------------------------------------------------------------------------- #
+def _evolve_batch(g, k, rng, weight):
+    """k/2 deletes, k/4 reweights, the rest inserts, each value from ``weight``."""
+    dst = np.repeat(np.arange(g.n, dtype=np.int64), np.diff(g.indptr))
+    src = g.indices.astype(np.int64)
+    n_del, n_rw = k // 2, k // 4
+    pick = rng.choice(g.nnz, size=n_del + n_rw, replace=False)
+    keys = set((dst * g.n + src).tolist())
+    inserts = []
+    while len(inserts) < k - n_del - n_rw:
+        s, d = (int(v) for v in rng.integers(0, g.n, size=2))
+        if s != d and d * g.n + s not in keys:
+            keys.add(d * g.n + s)
+            inserts.append((s, d, weight()))
+    return EdgeBatch.from_ops(
+        inserts=inserts,
+        deletes=[(int(src[e]), int(dst[e])) for e in pick[:n_del]],
+        reweights=[(int(src[e]), int(dst[e]), weight()) for e in pick[n_del:]],
+    )
+
+
+def _evolved(name, device, mode, delta, **kw):
+    """A solver on ``device`` after a solve and ``resolve(updates=...)`` of a
+    mixed batch of 64 edge operations, and its resolve's result."""
+    rng = np.random.default_rng(8)
+    if name == "sssp":
+        g = make_graph("kron", scale=10, efactor=8, kind="sssp")
+        problem, weight = sssp_problem(source=int(np.argmax(g.out_degree))), lambda: int(rng.integers(1, 256))
+    else:
+        g = make_graph("twitter", scale=10, efactor=8, kind="pagerank")
+        problem, weight = pagerank_problem(), lambda: float(np.float32(rng.random() * 0.1))
+    d = delta if mode == "delayed" else mode
+    solver = Solver(g, problem, n_workers=8, delta=d, min_chunk=32, device=device, **kw)
+    solver.solve()
+    r = solver.resolve(updates=_evolve_batch(g, 64, rng, weight))
+    return solver, r
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,delta", [("sync", None), ("delayed", 96), ("delayed", 3001)])
+@pytest.mark.parametrize("name", ["pagerank", "sssp"])
+def test_loop_entry_on_patched_schedule_matches_plain_loop(cuda_device, name, mode, delta):
+    """After apply_updates: resolve is one launch of the loop entry and equals
+    the CPU solver's resolve; the patched row_ptr is that of the patched
+    dst_local; the loop entry on the patched schedule equals the plain loop
+    (to convergence, and over a budget of 3 rounds)."""
+    before = fused_solve_cuda.launches
+    solver, r = _evolved(name, cuda_device, mode, delta)
+    assert fused_solve_cuda.launches == before + 2  # the solve and the resolve
+    cpu, r_cpu = _evolved(name, "cpu", mode, delta)
+    assert (r.rounds, r.converged, r.flushes) == (r_cpu.rounds, r_cpu.converged, r_cpu.flushes)
+    np.testing.assert_array_equal(r.x, r_cpu.x)
+    sched = solver.schedule()
+    assert torch.equal(sched.row_ptr, engine._cell_row_ptr(sched.dst_local, sched.delta))
+    assert torch.equal(sched.row_ptr.cpu(), cpu.schedule().row_ptr)
+    host = dataclasses.replace(
+        sched, **{f: getattr(sched, f).cpu() for f in ("src", "val", "dst_local", "rows", "row_ptr")}
+    )
+    sr, ep, residual = solver.problem.semiring, solver.row_update(), solver.problem.residual
+    x = engine.extend_frontier(solver.problem.x0(solver.graph), sr, "cpu")
+    for tol, max_rounds in ((solver.tol, 300), (-1.0, 3)):
+        want = ref.fused_solve_ref(x, host, sr, ep.to("cpu"), residual, tol, max_rounds)
+        got = ops.fused_solve(x.to(cuda_device), sched, sr, ep, residual, tol, max_rounds)
+        _assert_loop_equal(got, want, solver.graph.n, batch=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,delta", [("sync", None), ("delayed", 96)])
+@pytest.mark.parametrize("name", ["pagerank", "sssp"])
+def test_halo_round_over_rebuilt_plan_matches_plain_round(cuda_device, name, mode, delta):
+    """After apply_updates the halo resolve runs K2 over a plan rebuilt from
+    the patched schedule, equals the replicated resolve, and K2 over that plan
+    equals the plain halo round, 3 rounds."""
+    solver, r = _evolved(name, cuda_device, mode, delta, frontier="halo", n_shards=4)
+    assert solver.stats["plan_builds"] == 2  # the first solve's plan, and the rebuilt one
+    _, r_rep = _evolved(name, cuda_device, mode, delta)
+    assert (r.rounds, r.flushes) == (r_rep.rounds, r_rep.flushes)
+    np.testing.assert_array_equal(r.x, r_rep.x)
+    sched = solver.schedule()
+    plan = solver.frontier_plan(sched)
+    # the plain side: a fresh schedule of the mutated graph (same bounds, δ)
+    # padded to the patched M, on the CPU, equal to the patched one
+    c_sched = engine.make_schedule(solver._sched_graph, 8, sched.delta, solver.problem.semiring,
+                                   bounds=solver.bounds)
+    pad = sched.M - c_sched.M
+    c_sched = dataclasses.replace(
+        c_sched,
+        M=sched.M,
+        src=torch.nn.functional.pad(c_sched.src, (0, pad), value=0),
+        val=torch.nn.functional.pad(c_sched.val, (0, pad), value=solver.problem.semiring.pad_edge_val.item()),
+        dst_local=torch.nn.functional.pad(c_sched.dst_local, (0, pad), value=sched.delta),
+    )
+    for f in ("src", "val", "dst_local", "rows", "row_ptr"):
+        assert torch.equal(getattr(sched, f).cpu(), getattr(c_sched, f)), f
+    sr, ep = solver.problem.semiring, solver.row_update()
+    plain = engine_sharded.frontier_round_ext_fn(c_sched, engine_sharded.make_frontier_plan(c_sched, 4), sr,
+                                                 ep.to("cpu"))
+    kernel = engine_sharded.frontier_kernel_round_ext_fn(sched, plan, sr, ep)
+    x = engine.extend_frontier(solver.problem.x0(solver.graph), sr, "cpu")
+    ef = engine_sharded.frontier_ef_init(plan)
+    launches = fused_halo_round_cuda.launches
+    for _ in range(3):
+        want = plain(x)
+        got, ef = kernel(x.to(cuda_device), ef)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu()[:-1], want[:-1])
+        x = want
+    assert fused_halo_round_cuda.launches == launches + 3
+
