@@ -113,6 +113,27 @@ smaller graphs:
    scale 16 a halo resolve (f32, D = 4, δ = 128, k = 64) must rebuild its
    plan once, launch K2 once a round and equal the replicated resolve, and
    K2 must equal its plain round over the rebuilt plan.
+   Then the restart path: this process fills a fresh store
+   (``tempfile.mkdtemp()``, removed at the end) through
+   ``Solver(cache_dir=...)``: PageRank at scale 22 with ``delta="auto"``
+   (two probes, three schedules built in stripes, all written), a halo
+   PageRank at scale 16 (D = 4, auto), and an SSSP solver at scale 16
+   with equal bounds whose ``resolve`` of a batch of deletes and reweights
+   pushes its patched stripes; then a second process (this script with
+   ``--restart-warm``) builds the same solvers on that store, each with
+   its launch counts reset before and read after.  Each must build no
+   schedule, stripe or plan, run no probe (the δ-model loaded), launch
+   K1's loop entry once (K2 once a round on the halo path) and give the
+   first process's x bit for bit; the mutated graph's solver must load
+   all its stripes.  Prints each process's time to first answer in its
+   parts (the graph's hash, the store's ``np.load``, the stripes' digests
+   and assembly on the host, the store's writes, the copy to the card,
+   the solve), the bytes and files written (the first process's split
+   into whole schedules, stripes, whole plans and plan shards) and read,
+   the scale-22 schedule's load from its stripes alone beside its whole
+   entry's, and the free space before the phase; then K1's loop entry must
+   equal its plain loop over the stored schedule, and K2 its plain round
+   over the stored plan.
 4. K1's time per round at the full-size shapes, at sync, 128, 1024 and
    auto's δ* (CUDA events), beside its byte bound, the same round with no
    edges to walk (barriers, epilogues and publishes alone), the plain round's
@@ -148,7 +169,8 @@ smaller graphs:
    (sync) and of Q = 32 (δ*).
 5. the ``kernels`` line (every kernel's launches on its path must be
    nonzero; ``resolve_launches`` of the loop entry and of K2 are the
-   evolving-graph path's; K1's single-round entries, which no path launches now, show the
+   evolving-graph path's, ``restart_launches`` the restart path's second
+   process's; K1's single-round entries, which no path launches now, show the
    main path's 0 with ``on_path: false``, the loop entry that superseded
    each, and their launches in phase 3's host-loop comparisons, which must
    be nonzero), the card's name and power limit, and the result line.
@@ -176,6 +198,7 @@ import dataclasses
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -222,6 +245,8 @@ LOOP_TIMED_DEFAULT = 16  # δ*
 EVOLVE_BATCHES = (64, 4096)
 EVOLVE_SEED = 22
 EVOLVE_HALO_DELTA = 128
+# The restart path (phase 3): the second process's time limit.
+RESTART_TIMEOUT_S = 600
 
 
 def log(msg: str) -> None:
@@ -567,6 +592,149 @@ def time_vector(graph_npz: str, root: str) -> int:
     return 0
 
 
+def restart_warm(work: str) -> int:
+    """The restart path's second process: the solvers that
+    ``work/restart.json`` names, each on its graph's ``.npz`` and the store
+    at ``work/cache``, each answering its first query with its launch
+    counts reset before the constructor and read after the solve.  Times
+    the constructor (the graph's hash, the δ-models' load), the schedule's
+    load and the solve.  The load splits into ``np.load`` of the store's
+    files, the stripes' digests and their assembly on the host, the
+    store's writes (a schedule assembled from stripes is saved whole), and
+    the rest: the copy to the card and ``row_ptr`` derived there.  On the
+    replicated graph it then times the schedule's load from its stripes
+    alone, to the card, and checks it against the whole one.  Saves each x
+    to ``work/warm_<name>.npy`` and prints one JSON row a solver."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.core.engine import DeviceSchedule, stripe_schedule_arrays
+    from repro_torch.graphs.formats import CSRGraph
+    from repro_torch.kernels import build
+    from repro_torch.kernels.round_block import fused_halo_round_cuda, fused_round_cuda, fused_solve_cuda
+    from repro_torch.persist import store as persist_store
+    from repro_torch.solve import Solver, pagerank_problem, sssp_problem
+    from repro_torch.solve import solver as solver_mod
+
+    t0 = time.perf_counter()
+    torch.cuda.init()
+    build.load("round_block")  # built in this checkout by the first process
+    setup_s = time.perf_counter() - t0
+    timed = {k: {"s": 0.0, "bytes": 0} for k in ("read", "write", "digest", "assemble")}
+
+    def timer(kind, fn, nbytes):
+        def wrapped(*a):
+            t1 = time.perf_counter()
+            out = fn(*a)
+            timed[kind]["s"] += time.perf_counter() - t1
+            timed[kind]["bytes"] += nbytes(a, out)
+            return out
+        return wrapped
+
+    persist_store._load_npz = timer(
+        "read", persist_store._load_npz, lambda a, out: sum(v.nbytes for v in out.values()) if out else 0)
+    persist_store._save_npz = timer(
+        "write", persist_store._save_npz, lambda a, out: a[0].stat().st_size if a[0].exists() else 0)
+    solver_mod.stripe_fingerprint = timer("digest", solver_mod.stripe_fingerprint, lambda a, out: 0)
+    solver_mod.assemble_stripe_schedule = timer(
+        "assemble", solver_mod.assemble_stripe_schedule, lambda a, out: out.src.nbytes)
+    spec = json.loads((Path(work) / "restart.json").read_text())
+    for part in spec:
+        t0 = time.perf_counter()
+        a = np.load(part["graph"])
+        g = CSRGraph(int(a["n"]), a["indptr"], a["indices"], a["values"], name=part["name"])
+        graph_s = time.perf_counter() - t0
+        problem = pagerank_problem() if part["problem"] == "pagerank" else sssp_problem(source=part["source"])
+        for t in timed.values():
+            t.update(s=0.0, bytes=0)
+        fused_solve_cuda.launches = fused_round_cuda.launches = fused_halo_round_cuda.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver = Solver(g, problem, n_workers=P, cache_dir=str(Path(work) / "cache"), **part["kw"])
+        t1 = time.perf_counter()
+        sched = solver.schedule()
+        if part["kw"].get("frontier") == "halo":
+            solver.frontier_plan(sched)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        r = solver.solve()
+        t3 = time.perf_counter()
+        np.save(Path(work) / f"warm_{part['name']}.npy", r.x)
+        row = {
+            "name": part["name"],
+            "n": g.n,
+            "nnz": g.nnz,
+            "delta": r.delta,
+            "rounds": r.rounds,
+            "converged": r.converged,
+            "flushes": r.flushes,
+            "flush_bytes": r.flush_bytes,
+            "time_to_first_answer_s": t3 - t0,
+            "construct_s": t1 - t0,
+            "load_s": t2 - t1,
+            "npz_read_s": timed["read"]["s"],
+            "npz_read_bytes": timed["read"]["bytes"],
+            "stripe_digest_s": timed["digest"]["s"],
+            "host_assemble_s": timed["assemble"]["s"],
+            "write_s": timed["write"]["s"],
+            "written_bytes": timed["write"]["bytes"],
+            "to_card_s": t2 - t1 - sum(t["s"] for t in timed.values()),
+            "solve_s": t3 - t2,
+            "loop_s": r.total_time_s,
+            "graph_load_s": graph_s,
+            "process_setup_s": setup_s,
+            "stats": solver.stats,
+            "probe_model_loaded": solver.delta_model is not None,
+            "loop_launches": fused_solve_cuda.launches,
+            "k1_launches": fused_round_cuda.launches,
+            "k2_launches": fused_halo_round_cuda.launches,
+        }
+        if part["name"] == "replicated":
+            row.update(stripes_only_load(solver, sched, timed, stripe_schedule_arrays, DeviceSchedule))
+        print(json.dumps(row), flush=True)
+        del solver, sched, g, a
+    return 0
+
+
+def stripes_only_load(solver, whole, timed, stripe_schedule_arrays, DeviceSchedule) -> dict:
+    """The restarted solver's schedule loaded from its P stripes alone (no
+    whole-schedule entry), as far as the card, without saving it: what a
+    store of stripes only would cost its warm first answer.  The result
+    must equal the whole entry's schedule."""
+    from repro_torch.graphs.formats import assemble_stripe_schedule
+    from repro_torch.persist.keys import stripe_fingerprint
+
+    for t in timed.values():
+        t.update(s=0.0, bytes=0)
+    bounds, graph, pad_val = solver.bounds, solver._sched_graph, solver.problem.semiring.pad_edge_val
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stripes = []
+    for w in range(solver.n_workers):
+        lo, hi = int(bounds[w]), int(bounds[w + 1])
+        t1 = time.perf_counter()
+        digest = stripe_fingerprint(graph, lo, hi, whole.S, whole.delta, pad_val)
+        timed["digest"]["s"] += time.perf_counter() - t1
+        stripes.append(solver.persist.load_stripe(digest))
+    if any(st is None for st in stripes):
+        return {"stripes_only_misses": sum(st is None for st in stripes)}
+    t1 = time.perf_counter()
+    host = assemble_stripe_schedule(graph, bounds, whole.delta, pad_val, stripes)
+    t2 = time.perf_counter()
+    sched = DeviceSchedule.from_host_arrays(stripe_schedule_arrays(host), whole.device)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    return {
+        "stripes_only_misses": 0,
+        "stripes_only_load_s": t3 - t0,
+        "stripes_only_npz_read_s": timed["read"]["s"],
+        "stripes_only_npz_read_bytes": timed["read"]["bytes"],
+        "stripes_only_digest_s": timed["digest"]["s"],
+        "stripes_only_assemble_s": t2 - t1,
+        "stripes_only_to_card_s": t3 - t2,
+        "stripes_only_equal": all(torch.equal(getattr(sched, f), getattr(whole, f))
+                                  for f in ("src", "val", "dst_local", "rows", "row_ptr")),
+    }
+
+
 def ab(others: list[str], scale: int) -> int:
     """The vector kernels of this checkout and of ``others`` (other
     checkouts, such as the parent commit's) on one card, in turns: the
@@ -605,6 +773,7 @@ def main() -> int:
     ap.add_argument("--ab", nargs="+", metavar="CHECKOUT", help="only time the vector kernels against other checkouts'")
     ap.add_argument("--time-vector", nargs=2, metavar=("GRAPH_NPZ", "CHECKOUT"), help=argparse.SUPPRESS)
     ap.add_argument("--write-graph", nargs=2, metavar=("GRAPH_NPZ", "SCALE"), help=argparse.SUPPRESS)
+    ap.add_argument("--restart-warm", metavar="WORK", help=argparse.SUPPRESS)
     args = ap.parse_args()
     scale = args.scale
     if args.write_graph:
@@ -614,6 +783,8 @@ def main() -> int:
         return 1
     if args.time_vector:
         return time_vector(*args.time_vector)
+    if args.restart_warm:
+        return restart_warm(args.restart_warm)
     if args.ab:
         return ab(args.ab, scale)
     # the full-size graph is generated in a child process meanwhile
@@ -655,6 +826,7 @@ def smoke(scale: int, gen: subprocess.Popen, npz: str) -> int:
         fused_solve_cuda,
     )
     from repro_torch.kernels.spmv_ell import spmv_ell_cuda
+    from repro_torch.persist import store as persist_store
     from repro_torch.solve import (
         BatchStepper,
         Solver,
@@ -1728,6 +1900,174 @@ def smoke(scale: int, gen: subprocess.Popen, npz: str) -> int:
         raise AssertionError("the halo resolve never launched K2")
     log(f"[3] halo resolve: {evolve_halo_launches} K2 launches; done in {time.perf_counter() - t0:.1f} s")
 
+    # the restart path: this process (cold) fills a fresh store; a second
+    # process on the same cache_dir must answer warm: no probe, no schedule,
+    # stripe or plan build, one launch of K1's loop entry over a loaded
+    # schedule (K2 over a loaded plan on the halo path), x bit for bit this
+    # process's.  A miss fails the phase.
+    t0 = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="restart-"))
+    save_npz = persist_store._save_npz
+    try:
+        cache = work / "cache"
+        free_before = shutil.disk_usage(work).free
+        writes = {"s": 0.0, "bytes": 0, "files": 0}
+        kinds = ("schedule", "stripes", "plan", "planshards")
+        by_kind = {k: dict(writes) for k in kinds}
+
+        def timed_save(path, arrays):
+            t1 = time.perf_counter()
+            save_npz(path, arrays)
+            dt, nbytes = time.perf_counter() - t1, path.stat().st_size if path.exists() else 0
+            kind = path.parent.name if path.parent.name in kinds else "schedule" if path.name.startswith("sched_") else "plan"
+            for w in (writes, by_kind[kind]):
+                w["s"] += dt
+                w["files"] += 1
+                w["bytes"] += nbytes
+
+        persist_store._save_npz = timed_save
+        fused_solve_cuda.launches = fused_halo_round_cuda.launches = 0
+        cold_rows, spec = {}, []
+        np.savez(work / "s16.npz", n=hg_pr.n, indptr=hg_pr.indptr, indices=hg_pr.indices, values=hg_pr.values)
+        h_hub = int(np.argmax(hg_pr.out_degree))
+        for name, graph, problem, kw, npz_path in (
+            ("replicated", g_pr, pagerank_problem(), dict(delta="auto"), npz),
+            ("halo", hg_pr, pagerank_problem(), dict(delta="auto", frontier="halo", n_shards=SHARDS),
+             str(work / "s16.npz")),
+        ):
+            for w in (writes, *by_kind.values()):
+                w.update(s=0.0, bytes=0, files=0)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            cold = Solver(graph, problem, n_workers=P, cache_dir=str(cache), **kw)
+            t2 = time.perf_counter()
+            r = cold.solve()
+            t3 = time.perf_counter()
+            np.save(work / f"cold_{name}.npy", r.x)
+            cold_rows[name] = {
+                "name": name,
+                "n": graph.n,
+                "nnz": graph.nnz,
+                "delta": r.delta,
+                "rounds": r.rounds,
+                "time_to_first_answer_s": t3 - t1,
+                "construct_s": t2 - t1,
+                "solve_s": t3 - t2,
+                "write_s": writes["s"],
+                "written_bytes": writes["bytes"],
+                "written_files": writes["files"],
+                "writes_by_kind": {k: dict(w) for k, w in by_kind.items()},
+                "stats": dict(cold.stats),
+                "result": r,
+                "solver": cold,
+            }
+            spec.append({"name": name, "graph": npz_path, "problem": "pagerank", "kw": kw})
+            log(f"[3] restart cold {json.dumps({k: v for k, v in cold_rows[name].items() if k not in ('result', 'solver')})}")
+        # an evolving graph: one resolve(updates=...) patches the schedule
+        # and pushes its patched stripes (deletes and reweights: no cell
+        # outgrows M, so the patch keeps the schedule); a fresh process on
+        # the mutated graph (equal bounds) must load every stripe
+        kw = dict(delta=EVOLVE_HALO_DELTA, partition_method="equal")
+        inc = Solver(hg_ss, h_probs["sssp"], n_workers=P, cache_dir=str(cache), **kw)
+        inc.solve()
+        batch = sssp_event(hg_ss, EVOLVE_BATCHES[0], np.random.default_rng(EVOLVE_SEED))
+        batch = dataclasses.replace(batch, insert_src=batch.insert_src[:0], insert_dst=batch.insert_dst[:0],
+                                    insert_val=batch.insert_val[:0])
+        builds = inc.stats["schedule_builds"]
+        inc.resolve(updates=batch)
+        if inc.stats["schedule_builds"] != builds:
+            raise AssertionError("the resolve dropped its schedule instead of patching it")
+        r_mut = inc.solve()
+        g_mut = inc.graph
+        np.save(work / "cold_evolved.npy", r_mut.x)
+        np.savez(work / "evolved.npz", n=g_mut.n, indptr=g_mut.indptr, indices=g_mut.indices, values=g_mut.values)
+        spec.append({"name": "evolved", "graph": str(work / "evolved.npz"), "problem": "sssp",
+                     "source": int(np.argmax(hg_pr.out_degree)), "kw": kw})
+        log(f"[3] restart evolve s{HALO_SCALE} sssp: resolve of {batch.n_deletes} deletes and "
+            f"{batch.n_reweights} reweights touching {inc._touched_workers(inc._last_report.affected_rows).size} "
+            f"workers, δ={r_mut.delta}, cold rounds {r_mut.rounds}")
+        persist_store._save_npz = save_npz
+        cold_launches = (fused_solve_cuda.launches, fused_halo_round_cuda.launches)
+        files = [f for f in cache.rglob("*") if f.is_file()]
+        store_bytes = sum(f.stat().st_size for f in files)
+        (work / "restart.json").write_text(json.dumps(spec))
+        log(f"[3] restart store: {store_bytes} bytes in {len(files)} files; free before the phase "
+            f"{free_before} bytes ({work}); cold launches: loop entry {cold_launches[0]}, K2 {cold_launches[1]}")
+
+        t1 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--restart-warm", str(work)],
+            capture_output=True, text=True, timeout=RESTART_TIMEOUT_S,
+        )
+        warm_process_s = time.perf_counter() - t1
+        if out.returncode != 0:
+            log(out.stderr[-4000:])
+            raise AssertionError(f"the restart's second process failed ({out.returncode})")
+        warm_rows = {row["name"]: row for row in map(json.loads, out.stdout.strip().splitlines())}
+        restart_launches = {"loop": 0, "k2": 0}
+        restart_rows = []
+        for name, warm in warm_rows.items():
+            st = warm["stats"]
+            same_x = bool(np.array_equal(np.load(work / f"warm_{name}.npy"), np.load(work / f"cold_{name}.npy")))
+            halo = name == "halo"
+            ok = (
+                same_x
+                and warm["converged"]
+                and st["schedule_builds"] == st["stripe_builds"] == st["plan_builds"] == 0
+                and st["plan_shard_builds"] == 0
+                and st["solves"] == 1
+                and st["cache_loads"] >= 1
+                and warm["k1_launches"] == 0
+                and (warm["k2_launches"] == warm["rounds"] and warm["loop_launches"] == 0 if halo
+                     else warm["loop_launches"] == 1 and warm["k2_launches"] == 0)
+                and (name == "evolved" or warm["probe_model_loaded"])
+                and (name != "evolved" or st["stripe_loads"] == P)
+                and (name != "replicated" or warm["stripes_only_misses"] == 0 and warm["stripes_only_equal"])
+            )
+            restart_launches["loop"] += warm["loop_launches"]
+            restart_launches["k2"] += warm["k2_launches"]
+            row = dict(warm, x_equals_cold=same_x)
+            if name in cold_rows:
+                c = cold_rows[name]
+                row.update(
+                    cold_time_to_first_answer_s=c["time_to_first_answer_s"],
+                    cold_over_warm=c["time_to_first_answer_s"] / warm["time_to_first_answer_s"],
+                    cold_rounds=c["rounds"],
+                    rounds_equal=c["rounds"] == warm["rounds"],
+                )
+                ok = ok and row["rounds_equal"]
+            restart_rows.append(row)
+            log(f"[3] restart warm {json.dumps(row)}")
+            if not ok:
+                raise AssertionError(f"the restarted process did not answer warm: {row}")
+        log(f"[3] restart: second process {warm_process_s:.1f} s in all; time to first answer, cold over warm: "
+            + ", ".join(f"{r['name']} {r['cold_over_warm']:.1f}x ({r['cold_time_to_first_answer_s']:.2f} s / "
+                        f"{r['time_to_first_answer_s']:.2f} s)" for r in restart_rows if "cold_over_warm" in r))
+
+        # the loaded schedule and plan against the plain versions: K1's loop
+        # entry over the schedule the store holds, K2 over its plan
+        rc = cold_rows["replicated"]
+        loaded = rc["solver"].persist.load_schedule(rc["delta"], rc["solver"].bounds, dev)
+        if loaded is None or not torch.equal(loaded.row_ptr, engine._cell_row_ptr(loaded.dst_local, loaded.delta)):
+            raise AssertionError("the store's schedule did not load with its row_ptr")
+        x = engine.extend_frontier(pagerank_problem().x0(g_pr), PLUS_TIMES, "cpu")
+        compare_loop(f"s{scale} restart pagerank loaded δ={loaded.delta}", "solve", loaded, PLUS_TIMES,
+                     rc["solver"].row_update(), l1_residual, x, -1.0, LOOP_BUDGET)
+        del loaded, x
+        hp = Solver(hg_pr, pagerank_problem(), n_workers=P, cache_dir=str(cache), **spec[1]["kw"])
+        hsched = hp.schedule()
+        x_f = torch.tensor(np.random.default_rng(EVOLVE_SEED).random(hg_pr.n + 1).astype(np.float32))
+        compare_halo(f"s{HALO_SCALE} restart pagerank loaded plan δ={hsched.delta}", hp, hsched, hp.row_update(),
+                     x_f, quant_rounds=1)
+        if hp.stats["plan_builds"] or hp.stats["schedule_builds"] or hp.stats["cache_loads"] < 3:
+            raise AssertionError(f"the halo plan did not load: {hp.stats}")
+        del hp, hsched, cold_rows, inc
+    finally:
+        persist_store._save_npz = save_npz
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"[3] restart path: {restart_launches['loop']} loop-entry and {restart_launches['k2']} K2 launches in the "
+        f"second process; done in {time.perf_counter() - t0:.1f} s")
+
     # ---------------------------------------------------------------- 4 ---
     t0 = time.perf_counter()
     timings = []
@@ -2279,6 +2619,8 @@ def smoke(scale: int, gen: subprocess.Popen, npz: str) -> int:
         ]
     }
     next(k for k in kernels["kernels"] if k["name"] == "round_block_solve")["resolve_launches"] = evolve_launches
+    next(k for k in kernels["kernels"] if k["name"] == "round_block_solve")["restart_launches"] = restart_launches["loop"]
+    next(k for k in kernels["kernels"] if k["name"] == "halo_round")["restart_launches"] = restart_launches["k2"]
     for k in kernels["kernels"]:
         if k["name"] in off_path:
             k["on_path"] = False

@@ -93,7 +93,7 @@ class DeltaModel:
         return int(min(grid, key=self.total_time_s))
 
     # ------------------------------------------------------------------ #
-    # a JSON-safe dict, as the reference's persist layer stores it
+    # persistence (repro_torch.persist stores the fitted model as JSON)
     # ------------------------------------------------------------------ #
     def to_dict(self) -> dict:
         return {
@@ -107,6 +107,20 @@ class DeltaModel:
             "bytes_per_elem": int(self.bytes_per_elem),
             "hw": dataclasses.asdict(self.hw),
         }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "DeltaModel":
+        return cls(
+            P=int(d["P"]),
+            B=int(d["B"]),
+            delta_min=int(d["delta_min"]),
+            r_sync=d["r_sync"],
+            r_async=d["r_async"],
+            locality=float(d["locality"]),
+            edges=int(d["edges"]),
+            bytes_per_elem=int(d["bytes_per_elem"]),
+            hw=TPUCostParams(**d["hw"]),
+        )
 
     def _freshness_weight(self, delta: int) -> float:
         """w(δ) with rounds(δ) = r_sync·(1 − w) + r_async·w (linear form).
@@ -184,8 +198,8 @@ def refit_delta_model(model: DeltaModel, observations) -> DeltaModel:
 def refit_delta_models(model: DeltaModel, rows) -> dict:
     """Per-regime refits from tagged observation rows.
 
-    ``rows`` are observation dicts, each carrying ``delta``, ``rounds`` and
-    ``regime`` (the rows the reference's persistent store logs).  Incremental
+    ``rows`` are :meth:`repro_torch.persist.store.SolverCache.load_observations`
+    dicts (each carrying ``delta``, ``rounds``, ``regime``).  Incremental
     warm restarts converge in far fewer rounds than cold solves at the same δ,
     so one pooled fit would drag the cold curve down and push the incremental
     curve up; instead each regime refits independently, seeded from the same

@@ -38,6 +38,7 @@ __all__ = [
     "EngineResult",
     "DeviceSchedule",
     "make_schedule",
+    "stripe_schedule_arrays",
     "round_fn",
     "host_loop",
     "fused_loop",
@@ -103,10 +104,29 @@ class DeviceSchedule:
     def device(self) -> torch.device:
         return self.src.device
 
+    def to_host_arrays(self) -> dict:
+        """Flat ``{name: ndarray}`` dict round-trippable through ``np.savez``:
+        the reference's keys.  ``row_ptr`` is left out: it is derived."""
+        return {
+            "n": np.int64(self.n),
+            "P": np.int64(self.P),
+            "delta": np.int64(self.delta),
+            "S": np.int64(self.S),
+            "M": np.int64(self.M),
+            "src": self.src.cpu().numpy(),
+            "val": self.val.cpu().numpy(),
+            "dst_local": self.dst_local.cpu().numpy(),
+            "rows": self.rows.cpu().numpy(),
+            "edges": np.int64(self.edges),
+            "padding_overhead": np.float64(self.padding_overhead),
+            "block_bounds": np.asarray(self.block_bounds if self.block_bounds is not None else []),
+        }
+
     @classmethod
     def from_host_arrays(cls, arrays, device) -> "DeviceSchedule":
-        """Build from the dict ``repro``'s ``DeviceSchedule.to_host_arrays()``
-        returns (shape-validated), with the tensors on ``device``."""
+        """Build from :meth:`to_host_arrays` output (or ``repro``'s, which has
+        the same keys), shape-validated, with the tensors on ``device`` and
+        ``row_ptr`` derived there from ``dst_local``."""
         n, P = int(arrays["n"]), int(arrays["P"])
         delta, S, M = int(arrays["delta"]), int(arrays["S"]), int(arrays["M"])
         src = np.asarray(arrays["src"])
@@ -177,7 +197,13 @@ def make_schedule(
     else:
         raise ValueError(f"unknown mode {mode!r}")
     host = build_stripe_schedule(graph, bounds, delta_eff, semiring.pad_edge_val)
-    arrays = {
+    return DeviceSchedule.from_host_arrays(stripe_schedule_arrays(host), device)
+
+
+def stripe_schedule_arrays(host) -> dict:
+    """A host :class:`~repro_torch.graphs.formats.StripeSchedule` as the dict
+    :meth:`DeviceSchedule.to_host_arrays` gives (the arrays not copied)."""
+    return {
         "n": host.n,
         "P": host.P,
         "delta": host.delta,
@@ -191,7 +217,6 @@ def make_schedule(
         "padding_overhead": host.padding_overhead,
         "block_bounds": host.block_bounds,
     }
-    return DeviceSchedule.from_host_arrays(arrays, device)
 
 
 def chunk_reduce(x, src_s, val_s, dst_s, delta: int, semiring: Semiring):

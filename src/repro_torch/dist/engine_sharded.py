@@ -122,6 +122,63 @@ class FrontierPlan:
     # leaves there, which K2's quantized wire writes
     dump_last: torch.Tensor
 
+    # ------------------------------------------------------------------ #
+    # persistence (repro_torch.persist stores plans as plain npz archives)
+    # ------------------------------------------------------------------ #
+    def to_host_arrays(self) -> dict:
+        """Flat ``{name: ndarray}`` dict round-trippable through ``np.savez``:
+        the reference's keys, without the derived ``owned_flat`` (and the
+        port's ``dump_last``)."""
+        out = {}
+        for f in dataclasses.fields(self):
+            if f.name in _DERIVED:
+                continue
+            v = getattr(self, f.name)
+            out[f.name] = v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+        return out
+
+    @classmethod
+    def from_host_arrays(cls, arrays, device) -> "FrontierPlan":
+        """Rebuild from :meth:`to_host_arrays` output (shape-validated), with
+        the tensors on ``device`` and ``owned_flat`` and ``dump_last``
+        derived there (:func:`_derived_tensors`)."""
+        D, S, H, L = (int(arrays[k]) for k in ("D", "S", "H", "L"))
+        P_loc, delta, n = int(arrays["P_loc"]), int(arrays["delta"]), int(arrays["n"])
+        vb = np.asarray(arrays["vertex_bounds"], dtype=np.int64)
+        t = {k: torch.tensor(np.asarray(arrays[k]), device=device)
+             for k in ("src_loc", "rows_loc", "send_idx", "recv_idx", "gather_index")}
+        if (
+            vb.shape != (D + 1,)
+            or vb[0] != 0
+            or vb[-1] != n
+            or t["send_idx"].shape != (S, D, H)
+            or t["recv_idx"].shape != (S, D, D * H)
+            or t["gather_index"].shape != (D, L)
+            or t["src_loc"].shape[:3] != (D, S, P_loc)
+            or t["rows_loc"].shape != (D, S, P_loc, delta)
+            or any(v.dtype != torch.int32 for v in t.values())
+        ):
+            raise ValueError("plan arrays inconsistent with (S, D, H, L)")
+        owned_flat, dump_last = _derived_tensors(vb, L, t["recv_idx"])
+        if not torch.equal(t["gather_index"].reshape(-1)[owned_flat.long()],
+                           torch.arange(n, dtype=torch.int32, device=device)):
+            raise ValueError("plan gather_index disagrees with its vertex bounds")
+        return cls(
+            D=D,
+            P_loc=P_loc,
+            L=L,
+            H=H,
+            S=S,
+            delta=delta,
+            n=n,
+            vertex_bounds=vb,
+            halo_sizes=np.asarray(arrays["halo_sizes"], dtype=np.int64),
+            boundary_entries_per_round=int(arrays["boundary_entries_per_round"]),
+            owned_flat=owned_flat,
+            dump_last=dump_last,
+            **t,
+        )
+
     def halo_bytes_per_round(self, bytes_per_elem: int = 4) -> int:
         """Bytes each shard receives a round from the halo exchanges."""
         return self.S * self.D * self.H * bytes_per_elem
@@ -144,6 +201,26 @@ class FrontierPlan:
         if dump is None:
             dump = flat[-1:]
         return torch.cat([_take_rows(flat, self.owned_flat), dump])
+
+
+# FrontierPlan fields derived from the others, never stored.
+_DERIVED = ("owned_flat", "dump_last")
+
+
+def _derived_tensors(vertex_bounds: np.ndarray, L: int, recv_idx: torch.Tensor) -> tuple:
+    """A plan's derived tensors, on ``recv_idx``'s device: ``owned_flat``
+    ``(n,)``, the flat ``(D·L)`` slot owning each vertex (shard ``d`` keeps
+    its owned block first), and ``dump_last`` ``(S, D)``, per (step,
+    receiving shard) the last ``recv_idx`` entry that lands in the dump slot
+    ``L - 1`` (-1: none)."""
+    device = recv_idx.device
+    owned = np.diff(vertex_bounds)
+    owned_flat = torch.cat([
+        d * L + torch.arange(int(o), dtype=torch.int32, device=device) for d, o in enumerate(owned)
+    ])
+    m = torch.arange(recv_idx.shape[-1], dtype=torch.int32, device=device)
+    dump_last = torch.where(recv_idx == L - 1, m, torch.full_like(m, -1)).amax(dim=2)
+    return owned_flat, dump_last.to(torch.int32)
 
 
 # One element of these dtypes holds a whole 4-, 8- or 16-byte row.
@@ -278,19 +355,16 @@ def assemble_frontier_plan(
         hit = (hit_slot >= 0) & (d_i != e)
         recv_idx[s_i[hit], e, d_i[hit] * H + k[hit]] = hit_slot[hit]
 
-    at_dump = recv_idx == dump
-    m = np.arange(D * H, dtype=np.int32)
-    dump_last = np.where(at_dump, m, -1).max(axis=2)
-
     gather_index = np.full((D, L), n, dtype=np.int32)  # unused slots → dump
-    owned_flat = np.zeros(n, dtype=np.int32)
     for d in range(D):
         gather_index[d, : owned[d]] = np.arange(vb[d], vb[d + 1])
         gather_index[d, owned[d] : owned[d] + halo[d].size] = halo[d]
-        owned_flat[vb[d] : vb[d + 1]] = d * L + np.arange(owned[d])
 
     def t(a):
         return torch.from_numpy(a).to(device)
+
+    recv = t(recv_idx)
+    owned_flat, dump_last = _derived_tensors(vb, L, recv)
 
     return FrontierPlan(
         D=D,
@@ -306,10 +380,10 @@ def assemble_frontier_plan(
         src_loc=t(src_loc),
         rows_loc=t(rows_loc),
         send_idx=t(send_idx),
-        recv_idx=t(recv_idx),
+        recv_idx=recv,
         gather_index=t(gather_index),
-        owned_flat=t(owned_flat),
-        dump_last=t(dump_last.astype(np.int32)),
+        owned_flat=owned_flat,
+        dump_last=dump_last,
     )
 
 

@@ -258,6 +258,7 @@ class BatchStepper:
         occ = self._occupied.copy()
         if not occ.any():
             return []
+        t0 = time.perf_counter()
         if self._epilogue is None:
             self._epilogue = self.solver.batch_row_update(self._qb, self.capacity, self._feat)
         _build_s(self.solver, self.backend)
@@ -293,6 +294,13 @@ class BatchStepper:
             self._occupied[slot] = False
             self._tags[slot] = None
         self.solver.stats["solves"] += len(retired)
+        finished = [q.rounds for q in retired if q.converged]
+        if finished:
+            # one (δ, rounds) datapoint a quantum with retirees, the slowest
+            # finisher's — the conservative convention of solve_batch
+            self.solver._record_observation(
+                self.sched.delta, max(finished), time.perf_counter() - t0, self.backend, kind="batch"
+            )
         return retired
 
 
@@ -373,6 +381,11 @@ def solve_batch(
             epilogue = _columns(epilogue, keep)
             compactions += 1
     total = time.perf_counter() - t0
+    # a batch's rounds are its slowest query's (tagged "batch" for the
+    # refit), routed through the solver so that served traffic advances
+    # reprobe_every's count: in a serving process, batches are the
+    # production observations
+    solver._record_observation(sched.delta, rounds_done, total, backend, kind="batch")
     return BatchResult(
         x=x_out,
         rounds=rounds_done,

@@ -48,6 +48,17 @@ solves from it over the patched schedule: on the replicated frontier one
 launch of K1's loop entry, on the halo frontier K2 over a plan rebuilt from
 the patched schedule.
 
+Persistence: ``cache_dir=`` extends the solver's caches across processes
+(:mod:`repro_torch.persist`).  Schedules (whole, and each worker's stripe),
+halo plans (whole, and each shard's piece) and the fitted δ-model of each
+regime go to a content-addressed store, so a second process on the same
+directory answers warm: no probe, no schedule or plan build, its first
+solve one launch of K1's loop entry over a loaded schedule, bit for bit the
+cold answer.  Every solve logs its ``(δ, rounds, time)`` there;
+:meth:`Solver.reprobe_delta` refits the δ-model from that log, and
+``reprobe_every=N`` does so every N observations.  ``partition_method``
+names the block partitioner (:data:`~repro_torch.graphs.partition.PARTITION_METHODS`).
+
 The solver runs on CUDA unless it is given ``device="cpu"``; with no CUDA
 device and no ``device`` it raises.
 """
@@ -60,7 +71,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.core.delta_model import fit_delta_model
+from repro_torch.core.delta_model import fit_delta_model, refit_delta_models
 from repro_torch.core.engine import (
     MIN_CHUNK,
     DeviceSchedule,
@@ -70,13 +81,16 @@ from repro_torch.core.engine import (
     fused_loop,
     host_loop,
     make_schedule,
+    stripe_schedule_arrays,
 )
 from repro_torch.dist import engine_sharded
 from repro_torch.evolve.restart import warm_start_state
-from repro_torch.graphs.formats import CSRGraph, build_worker_stripe
-from repro_torch.graphs.partition import balanced_blocks
+from repro_torch.graphs.formats import CSRGraph, assemble_stripe_schedule, build_worker_stripe
+from repro_torch.graphs.partition import PARTITION_METHODS
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.round_block import Epilogue
+from repro_torch.persist import SolverCache
+from repro_torch.persist.keys import plan_shard_fingerprint, stripe_fingerprint
 from repro_torch.solve import batch
 from repro_torch.solve.problem import Problem
 
@@ -113,6 +127,7 @@ class Solver:
     ``solve()`` answers a query; ``delta=`` / ``backend=`` per call override
     the construction defaults.  Schedules are cached per δ on the instance,
     so a second ``solve()`` at the same δ builds nothing (see ``stats``).
+    ``cache_dir=`` extends the caches across processes (module docstring).
     """
 
     def __init__(
@@ -125,14 +140,22 @@ class Solver:
         frontier: str = "replicated",
         halo_dtype: str = "f32",
         n_shards: int = 1,
+        partition_method: str = "balanced",
         min_chunk: int = MIN_CHUNK,
         tol: float | None = None,
         max_rounds: int | None = None,
+        cache_dir=None,
+        reprobe_every: int | None = None,
         device=None,
     ):
         self._check_backend(backend)
         self._check_frontier(frontier)
         self._check_halo_dtype(halo_dtype)
+        if partition_method not in PARTITION_METHODS:
+            raise ValueError(
+                f"partition_method must be one of {sorted(PARTITION_METHODS)}, "
+                f"got {partition_method!r}"
+            )
         self._check_delta(delta)
         if n_shards < 1 or n_workers % n_shards:
             raise ValueError(f"P={n_workers} not divisible by D={n_shards}")
@@ -145,6 +168,7 @@ class Solver:
         self.default_frontier = frontier
         self.default_halo_dtype = halo_dtype
         self.n_shards = n_shards
+        self.partition_method = partition_method
         self.min_chunk = min_chunk
         self.tol = problem.tol if tol is None else tol
         self.max_rounds = problem.max_rounds if max_rounds is None else max_rounds
@@ -167,16 +191,78 @@ class Solver:
         self._plans: dict[tuple, engine_sharded.FrontierPlan] = {}
         self._last_x = None  # fixed point of the most recent solve (host copy)
         self._last_report = None  # UpdateReport of the most recent apply_updates
-        self.stats = {"solves": 0, "schedule_builds": 0, "plan_builds": 0}
+        self.stats = {
+            "solves": 0,
+            "schedule_builds": 0,
+            "plan_builds": 0,
+            "stripe_builds": 0,
+            "stripe_loads": 0,
+            "plan_shard_builds": 0,
+            "plan_shard_loads": 0,
+            "cache_loads": 0,
+        }
+        self.reprobe_every = reprobe_every
+        self._obs_since_refit = 0
+        self._reprobing = False
+        self._cache_dir = cache_dir
+        self.persist = None
+        if cache_dir is not None:
+            self.persist = self._make_persist()
+            self._warm_from_persist()
+
+    def _make_persist(self) -> SolverCache:
+        """The content-addressed store namespace for the *current* graph.
+
+        A query problem's row update is hashed at its template query (the
+        default query, as the reference traces at it), on the host."""
+        problem = self.problem
+        q = None
+        if problem.takes_query:
+            q = (
+                problem.default_query(self.graph)
+                if problem.default_query is not None
+                else np.zeros(self.graph.n, dtype=problem.semiring.dtype)
+            )
+        return SolverCache.for_solver(
+            self._cache_dir,
+            self._sched_graph,
+            problem,
+            problem.make_row_update(self.graph, q, "cpu"),
+            self.n_workers,
+            self.partition_method,
+            self.min_chunk,
+            self.tol,
+            self.max_rounds,
+        )
+
+    def _warm_from_persist(self):
+        """Load the δ-models eagerly — the one entry with no lazy fallback.
+
+        ``delta="auto"`` then resolves to the persisted δ* without a single
+        probe solve.  Schedules and halo plans stay lazy: :meth:`schedule`
+        and :meth:`frontier_plan` consult the store on an in-memory miss, so
+        a warm process loads only the δ it serves.
+        """
+        loaded = self.persist.load_delta_model()
+        if loaded is not None:
+            self.delta_model, best = loaded
+            self._auto_delta = int(min(best, self.block_size))
+            self.stats["cache_loads"] += 1
+        loaded_inc = self.persist.load_delta_model(regime="incremental")
+        if loaded_inc is not None:
+            self.delta_model_incremental, best_inc = loaded_inc
+            self._auto_delta_incremental = int(min(best_inc, self.block_size))
 
     # ------------------------------------------------------------------ #
     # δ resolution + schedule cache
     # ------------------------------------------------------------------ #
     @property
     def bounds(self) -> np.ndarray:
-        """The (P + 1,) contiguous in-degree-balanced block bounds."""
+        """The (P + 1,) contiguous block bounds of ``partition_method``."""
         if self._bounds is None:
-            self._bounds = balanced_blocks(self._sched_graph, self.n_workers)
+            self._bounds = PARTITION_METHODS[self.partition_method](
+                self._sched_graph, self.n_workers
+            )
         return self._bounds
 
     @property
@@ -266,12 +352,85 @@ class Solver:
             delta_min=min(self.min_chunk, self.block_size),
             bytes_per_elem=np.dtype(self.problem.semiring.dtype).itemsize,
         )
-        return min(self.delta_model.best_delta(), self.block_size)
+        best = min(self.delta_model.best_delta(), self.block_size)
+        if self.persist is not None:
+            self.persist.save_delta_model(self.delta_model, best)
+        return best
+
+    def reprobe_delta(self) -> tuple[int, int]:
+        """Refit the δ-model from logged observations and migrate δ*.
+
+        Pulls every production ``(δ, rounds)`` row of the persistent store —
+        single solves and batches alike (a batch's rounds are its slowest
+        query's, an upper bound that still orders δ) — refits each regime
+        (:func:`~repro_torch.core.delta_model.refit_delta_models`), and
+        repoints ``delta="auto"`` at the new δ* (a resolve's at the
+        incremental one).  Nothing is dropped: schedules are keyed by
+        numeric δ, so the old δ*'s stay warm in memory and on disk.
+        Returns ``(old_delta_star, new_delta_star)``.
+        """
+        if self.persist is None:
+            raise ValueError("reprobe_delta requires a Solver(cache_dir=...)")
+        self._reprobing = True
+        try:
+            old = self.resolve_delta("auto")  # probes or loads the base model
+            models = refit_delta_models(self.delta_model, self.persist.load_observations())
+            self.delta_model = models.get("cold", self.delta_model)
+            new = int(min(self.delta_model.best_delta(), self.block_size))
+            self._auto_delta = new
+            self._obs_since_refit = 0
+            self.persist.save_delta_model(self.delta_model, new)
+            if "incremental" in models:
+                inc = models["incremental"]
+                self.delta_model_incremental = inc
+                self._auto_delta_incremental = int(min(inc.best_delta(), self.block_size))
+                self.persist.save_delta_model(inc, self._auto_delta_incremental, regime="incremental")
+            return old, new
+        finally:
+            self._reprobing = False
+
+    def _record_observation(
+        self, delta: int, rounds: int, total_time_s: float, backend: str,
+        kind: str = "solve", regime: str = "cold",
+    ):
+        """Log one observed ``(δ, rounds, time)``; maybe trigger a refit."""
+        if self.persist is None:
+            return
+        self.persist.record_observation(
+            delta, rounds, total_time_s, backend=backend, kind=kind, regime=regime
+        )
+        self._obs_since_refit += 1
+        if (
+            self.reprobe_every is not None
+            and self.default_delta == "auto"
+            and self._obs_since_refit >= self.reprobe_every
+            # never recurse out of the δ="auto" probe solves (no fitted model
+            # yet) or out of a refit already in flight
+            and self._auto_delta is not None
+            and not self._reprobing
+        ):
+            self.reprobe_delta()
 
     def schedule(self, delta=None) -> DeviceSchedule:
-        """The cached device schedule for ``delta`` (built on first use)."""
+        """The cached device schedule for ``delta`` (built on first use).
+
+        Resolution order: in memory → the store's whole schedule at this
+        solver's bounds → the store's **per-worker stripes** (after a mutation the namespace
+        changes, so the whole schedule misses, but every stripe whose block
+        the batch did not touch still hits by its content digest; only the
+        touched stripes build) → a fresh build.  ``schedule_builds`` counts
+        schedules with at least one built stripe; ``stripe_builds`` and
+        ``stripe_loads`` count workers.
+        """
         delta_eff = self.resolve_delta(delta)
         sched = self._schedules.get(delta_eff)
+        if sched is None and self.persist is not None:
+            sched = self.persist.load_schedule(delta_eff, self.bounds, self.device)
+            if sched is not None:
+                self._schedules[delta_eff] = sched
+                self.stats["cache_loads"] += 1
+            else:
+                sched = self._schedule_from_stripes(delta_eff)
         if sched is None:
             sched = make_schedule(
                 self._sched_graph,
@@ -287,15 +446,84 @@ class Solver:
             self.stats["schedule_builds"] += 1
         return sched
 
+    def _schedule_from_stripes(self, delta_eff: int) -> DeviceSchedule:
+        """Assemble the schedule stripe by stripe through the shared store,
+        and store it whole."""
+        bounds = self.bounds
+        graph = self._sched_graph
+        pad_val = self.problem.semiring.pad_edge_val
+        delta_eff = int(min(delta_eff, self.block_size))
+        S = -(-self.block_size // delta_eff)  # ceil, as build_stripe_schedule
+        stripes, built = [], 0
+        for w in range(self.n_workers):
+            lo, hi = int(bounds[w]), int(bounds[w + 1])
+            digest = stripe_fingerprint(graph, lo, hi, S, delta_eff, pad_val)
+            stripe = self.persist.load_stripe(digest)
+            if stripe is None:
+                stripe = build_worker_stripe(graph, lo, hi, S, delta_eff, pad_val)
+                self.persist.save_stripe(digest, stripe)
+                self.stats["stripe_builds"] += 1
+                built += 1
+            else:
+                self.stats["stripe_loads"] += 1
+            stripes.append(stripe)
+        arrays = stripe_schedule_arrays(
+            assemble_stripe_schedule(graph, bounds, delta_eff, pad_val, stripes)
+        )
+        sched = DeviceSchedule.from_host_arrays(arrays, self.device)
+        self._schedules[delta_eff] = sched
+        self.stats["schedule_builds" if built else "cache_loads"] += 1
+        self.persist.save_schedule(arrays)
+        return sched
+
     def frontier_plan(self, sched: DeviceSchedule) -> engine_sharded.FrontierPlan:
         """The cached owner-computes halo plan for ``sched`` over
-        ``n_shards`` (built on first use; ``stats["plan_builds"]``)."""
-        key = (sched.delta, self.n_shards)
+        ``n_shards`` (built on first use; ``stats["plan_builds"]``).
+
+        Mirrors :meth:`schedule`'s tiers: in memory → the store's whole
+        plan over ``sched``'s layout → per-shard pieces from the shared store (only the shards whose
+        workers a mutation touched rebuild; the exchange indices are
+        assembled again either way) → a fresh build.  ``plan_builds`` counts
+        plans with at least one built shard.
+        """
+        D = self.n_shards
+        key = (sched.delta, D)
         plan = self._plans.get(key)
+        if plan is None and self.persist is not None:
+            plan = self.persist.load_plan(sched, D)
+            if plan is not None:
+                self._plans[key] = plan
+                self.stats["cache_loads"] += 1
+            else:
+                plan = self._plan_from_shards(sched, D)
         if plan is None:
-            plan = engine_sharded.make_frontier_plan(sched, self.n_shards)
+            plan = engine_sharded.make_frontier_plan(sched, D)
             self._plans[key] = plan
             self.stats["plan_builds"] += 1
+        return plan
+
+    def _plan_from_shards(self, sched: DeviceSchedule, D: int) -> engine_sharded.FrontierPlan:
+        """Assemble the plan shard by shard through the shared store, and
+        store it whole."""
+        vb = engine_sharded.plan_shard_bounds(sched, D)
+        P_loc = sched.P // D
+        pieces, built = [], 0
+        for d in range(D):
+            lo, hi, w0, w1 = int(vb[d]), int(vb[d + 1]), d * P_loc, (d + 1) * P_loc
+            digest = plan_shard_fingerprint(sched, lo, hi, w0, w1)
+            piece = self.persist.load_plan_shard(digest)
+            if piece is None:
+                piece = engine_sharded.build_plan_shard(sched, lo, hi, w0, w1)
+                self.persist.save_plan_shard(digest, piece)
+                self.stats["plan_shard_builds"] += 1
+                built += 1
+            else:
+                self.stats["plan_shard_loads"] += 1
+            pieces.append(piece)
+        plan = engine_sharded.assemble_frontier_plan(sched, D, pieces)
+        self._plans[(sched.delta, D)] = plan
+        self.stats["plan_builds" if built else "cache_loads"] += 1
+        self.persist.save_plan(plan, sched)
         return plan
 
     # ------------------------------------------------------------------ #
@@ -383,8 +611,14 @@ class Solver:
         halo_dtype: str | None = None,
         tol: float | None = None,
         max_rounds: int | None = None,
+        regime: str = "cold",
     ) -> EngineResult:
-        """Run to convergence; returns the engine's instrumented result."""
+        """Run to convergence; returns the engine's instrumented result.
+
+        ``regime`` tags the persisted observation row (``"cold"`` for
+        from-scratch solves, ``"incremental"`` when :meth:`resolve` seeds
+        from a prior fixed point), so the δ-model learns each curve apart.
+        """
         backend = backend or self.default_backend
         self._check_backend(backend)
         frontier = self.resolve_frontier(frontier)
@@ -417,6 +651,7 @@ class Solver:
 
             result = fused_loop(solve, sched, sr, x_ext, tol, max_rounds, compile_time_s=build_s)
         self._last_x = np.asarray(result.x)
+        self._record_observation(sched.delta, result.rounds, result.total_time_s, backend, regime=regime)
         return result
 
     # ------------------------------------------------------------------ #
@@ -429,7 +664,11 @@ class Solver:
         invalidates only what the batch touched: every cached schedule keeps
         each stripe whose worker block the affected rows miss, and is patched
         (same shapes) where they hit; halo plans drop, since their index
-        tensors were built from the old schedule.
+        tensors were built from the old schedule.  With a store, the
+        namespace is derived again from the new graph, the observation log
+        and the fitted δ-models carry over to it, and every patched stripe
+        goes to the shared store, so a restarted process on the mutated
+        graph builds no stripe the batch did not touch.
 
         The block bounds are **pinned** across updates: recomputing a
         degree-sensitive partition on the mutated graph would shift every
@@ -451,9 +690,31 @@ class Solver:
         )
         self._bounds = bounds
         self._plans = {}
+        if self.persist is not None:
+            self._carry_persist_over()
         self._patch_schedules(report)
         self._last_report = report
         return report
+
+    def _carry_persist_over(self):
+        """Point the store at the mutated graph's namespace, carrying the
+        observation log over (``reprobe_delta`` needs rounds-against-δ data
+        gathered over many small batches, each of which changes the
+        namespace but barely moves the curve) and both fitted δ-models."""
+        old_obs = self.persist.dir / "observations.jsonl"
+        self.persist = self._make_persist()
+        new_obs = self.persist.dir / "observations.jsonl"
+        if old_obs.exists() and not new_obs.exists():
+            try:
+                new_obs.write_bytes(old_obs.read_bytes())
+            except OSError:
+                pass
+        if self.delta_model is not None and self._auto_delta is not None:
+            self.persist.save_delta_model(self.delta_model, self._auto_delta)
+        if self.delta_model_incremental is not None and self._auto_delta_incremental is not None:
+            self.persist.save_delta_model(
+                self.delta_model_incremental, self._auto_delta_incremental, regime="incremental"
+            )
 
     def _touched_workers(self, affected_rows) -> np.ndarray:
         """Worker blocks containing any affected destination row."""
@@ -470,7 +731,8 @@ class Solver:
         every worker anyway).  Otherwise the patched tensors are copies on the
         schedule's device with its shapes, and ``row_ptr`` is derived anew
         from the patched ``dst_local``: the kernels walk each row's edges
-        through it, and the plain rounds never read it.
+        through it, and the plain rounds never read it.  With a store, each
+        rebuilt stripe is saved under its digest.
         """
         bounds = self.bounds
         graph = self._sched_graph
@@ -507,6 +769,11 @@ class Solver:
                 edges=graph.nnz,
                 padding_overhead=src.numel() / max(graph.nnz, 1),
             )
+            if self.persist is not None:
+                for w, st in stripes.items():
+                    lo, hi = int(bounds[w]), int(bounds[w + 1])
+                    digest = stripe_fingerprint(graph, lo, hi, sched.S, delta_eff, pad_val)
+                    self.persist.save_stripe(digest, st)
 
     def resolve(
         self,
@@ -563,6 +830,7 @@ class Solver:
             frontier=frontier,
             tol=tol,
             max_rounds=max_rounds,
+            regime="incremental",
         )
 
     def solve_batch(

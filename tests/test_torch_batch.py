@@ -233,7 +233,16 @@ def test_batch_stats_and_schedule_cache():
     ts.solve_batch(x0, delta=24)
     ts.solve(x0[0], delta=24)
     ts.solve_batch(x0, delta="async")
-    assert ts.stats == {"solves": 4, "schedule_builds": 2, "plan_builds": 0}
+    assert ts.stats == {
+        "solves": 4,
+        "schedule_builds": 2,
+        "plan_builds": 0,
+        "stripe_builds": 0,  # no store: nothing built in stripes or loaded
+        "stripe_loads": 0,
+        "plan_shard_builds": 0,
+        "plan_shard_loads": 0,
+        "cache_loads": 0,
+    }
 
 
 # --------------------------------------------------------------------------- #

@@ -3,7 +3,9 @@ on vector frontiers and on (n + 1, F) matrix frontiers; K1's batch entry on
 (n + 1, Q) and (n + 1, Q, F) batch frontiers; K1's loop entry (whole solves,
 closed batches and open-batch quanta in one launch) against its plain loops;
 after ``apply_updates``, K1's loop entry on the patched schedule and K2 over
-the plan rebuilt from it, and ``resolve`` on the card against the CPU.
+the plan rebuilt from it, and ``resolve`` on the card against the CPU; after
+a restart on a ``cache_dir``, K1's loop entry (whole and batch) over a
+loaded schedule and K2 over a loaded plan.
 
 Imports neither jax nor ``repro``, so it runs on a machine with a CUDA card
 and only the port installed:
@@ -954,3 +956,115 @@ def test_halo_round_over_rebuilt_plan_matches_plain_round(cuda_device, name, mod
         x = want
     assert fused_halo_round_cuda.launches == launches + 3
 
+
+
+# --------------------------------------------------------------------------- #
+# warm restarts: the kernels over a loaded schedule and a loaded plan
+# --------------------------------------------------------------------------- #
+def _warm_pair(device, cache_dir, **kw):
+    """A cold solver's solve on ``device`` with ``cache_dir``, then a second
+    solver on the same directory (a restarted process), which must load its
+    δ-model, schedule and plan: no probe, no build."""
+    g = make_graph("twitter", scale=10, efactor=8, kind="pagerank")
+    kw = dict(dict(n_workers=8, delta="auto", min_chunk=32, cache_dir=cache_dir, device=device), **kw)
+    cold = Solver(g, pagerank_problem(), **kw)
+    r_cold = cold.solve()
+    warm = Solver(g, pagerank_problem(), **kw)
+    assert warm.stats["solves"] == 0
+    assert (warm.delta_model is not None) == (kw["delta"] == "auto")
+    return cold, r_cold, warm
+
+
+def _assert_loaded(solver, loads):
+    """No build, and ``loads`` entries loaded (δ-model, schedule, plan)."""
+    s = solver.stats
+    assert s["schedule_builds"] == s["stripe_builds"] == s["plan_builds"] == s["plan_shard_builds"] == 0, s
+    assert s["cache_loads"] == loads, s
+
+
+def _on_cpu(sched):
+    return dataclasses.replace(sched, **{f: getattr(sched, f).cpu() for f in ("src", "val", "dst_local", "rows",
+                                                                            "row_ptr")})
+
+
+@pytest.mark.gpu
+def test_warm_solver_runs_the_loop_entry_once_over_a_loaded_schedule(cuda_device, tmp_path):
+    """The restarted solver's first solve is one launch of K1's loop entry
+    over the schedule it loaded, equal to the cold solve, and the loop entry
+    on that schedule equals the plain loop on it (row_ptr derived on the
+    card)."""
+    cold, r_cold, warm = _warm_pair(cuda_device, tmp_path)
+    before = (fused_solve_cuda.launches, fused_round_cuda.launches)
+    r = warm.solve()
+    assert (fused_solve_cuda.launches, fused_round_cuda.launches) == (before[0] + 1, before[1])
+    _assert_loaded(warm, 2)
+    assert (r.delta, r.rounds, r.converged, r.flushes, r.flush_bytes) == (
+        r_cold.delta, r_cold.rounds, r_cold.converged, r_cold.flushes, r_cold.flush_bytes)
+    np.testing.assert_array_equal(r.x, r_cold.x)
+    sched = warm.schedule()
+    assert torch.equal(sched.row_ptr, engine._cell_row_ptr(sched.dst_local, sched.delta))
+    for f in ("src", "val", "dst_local", "rows", "row_ptr"):
+        assert torch.equal(getattr(sched, f), getattr(cold.schedule(), f)), f
+    sr, ep, residual = warm.problem.semiring, warm.row_update(), warm.problem.residual
+    x = engine.extend_frontier(warm.problem.x0(warm.graph), sr, "cpu")
+    for tol, max_rounds in ((warm.tol, 300), (-1.0, 3)):
+        want = ref.fused_solve_ref(x, _on_cpu(sched), sr, ep.to("cpu"), residual, tol, max_rounds)
+        got = ops.fused_solve(x.to(cuda_device), sched, sr, ep, residual, tol, max_rounds)
+        _assert_loop_equal(got, want, warm.graph.n, batch=False)
+
+
+@pytest.mark.gpu
+def test_warm_batch_runs_the_batch_entry_over_a_loaded_schedule(cuda_device, tmp_path):
+    """A restarted solver's batch is one launch of K1's loop entry in its
+    batch form over the loaded schedule, equal to the cold solver's batch
+    and to the plain batch loop on that schedule."""
+    cold, _, warm = _warm_pair(cuda_device, tmp_path, delta=96)
+    g = warm.graph
+    x0 = np.full((4, g.n), 1.0 / g.n, np.float32)
+    b_cold = cold.solve_batch(x0)
+    before = (fused_batch_solve_cuda.launches, fused_batch_round_cuda.launches)
+    b = warm.solve_batch(x0)
+    assert (fused_batch_solve_cuda.launches, fused_batch_round_cuda.launches) == (before[0] + 1, before[1])
+    _assert_loaded(warm, 1)
+    assert (b.rounds, b.flush_bytes) == (b_cold.rounds, b_cold.flush_bytes)
+    np.testing.assert_array_equal(b.x, b_cold.x)
+    sched, sr = warm.schedule(), warm.problem.semiring
+    ep, residual = warm.batch_row_update(None, 4, ()), warm.problem.residual
+    X = torch.as_tensor(np.concatenate([x0.T, np.zeros((1, 4), np.float32)])).contiguous()
+    want = ref.fused_batch_solve_ref(X, _on_cpu(sched), sr, ep.to("cpu"), residual, warm.tol, 300)
+    got = ops.fused_batch_solve(X.to(cuda_device), sched, sr, ep, residual, warm.tol, 300)
+    _assert_loop_equal(got, want, g.n, batch=True)
+
+
+@pytest.mark.gpu
+def test_warm_halo_solve_runs_k2_over_a_loaded_plan(cuda_device, tmp_path):
+    """A restarted halo solver loads its plan (the derived owned_flat and
+    dump_last derived on the card) and runs K2 over it, one launch a round,
+    bit for bit the cold plan's solve; K2 over the loaded plan equals the
+    plain round, 3 rounds."""
+    kw = dict(delta=96, frontier="halo", n_shards=4)
+    cold, r_cold, warm = _warm_pair(cuda_device, tmp_path, **kw)
+    launches = fused_halo_round_cuda.launches
+    r = warm.solve()
+    assert fused_halo_round_cuda.launches == launches + r.rounds
+    _assert_loaded(warm, 2)  # the schedule and the plan
+    assert (r.rounds, r.flushes, r.flush_bytes) == (r_cold.rounds, r_cold.flushes, r_cold.flush_bytes)
+    np.testing.assert_array_equal(r.x, r_cold.x)
+    sched = warm.schedule()
+    plan, fresh = warm.frontier_plan(sched), engine_sharded.make_frontier_plan(sched, 4)
+    for f in ("src_loc", "rows_loc", "send_idx", "recv_idx", "gather_index", "owned_flat", "dump_last"):
+        assert torch.equal(getattr(plan, f), getattr(fresh, f)), f
+    sr, ep = warm.problem.semiring, warm.row_update()
+    host = _on_cpu(sched)
+    plain = engine_sharded.frontier_round_ext_fn(host, engine_sharded.make_frontier_plan(host, 4), sr, ep.to("cpu"))
+    kernel = engine_sharded.frontier_kernel_round_ext_fn(sched, plan, sr, ep)
+    x = engine.extend_frontier(warm.problem.x0(warm.graph), sr, "cpu")
+    ef = engine_sharded.frontier_ef_init(plan)
+    launches = fused_halo_round_cuda.launches
+    for _ in range(3):
+        want = plain(x)
+        got, ef = kernel(x.to(cuda_device), ef)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu()[:-1], want[:-1])
+        x = want
+    assert fused_halo_round_cuda.launches == launches + 3

@@ -116,7 +116,16 @@ def test_schedule_cache_and_stats():
     ts.solve(delta=24)
     ts.solve(delta=24)
     ts.solve(delta="async")
-    assert ts.stats == {"solves": 3, "schedule_builds": 2, "plan_builds": 0}
+    assert ts.stats == {
+        "solves": 3,
+        "schedule_builds": 2,
+        "plan_builds": 0,
+        "stripe_builds": 0,  # no store: nothing built in stripes or loaded
+        "stripe_loads": 0,
+        "plan_shard_builds": 0,
+        "plan_shard_loads": 0,
+        "cache_loads": 0,
+    }
     assert fused_round_cuda.launches == launches  # the CPU never launches K1
 
 
