@@ -134,6 +134,28 @@ smaller graphs:
    entry's, and the free space before the phase; then K1's loop entry must
    equal its plain loop over the stored schedule, and K2 its plain round
    over the stored plan.
+   Then the serving path (``serve_phase``): two ``GraphService`` tenants
+   in one ``ContinuousScheduler`` on twitter scale 22, ``"road"`` (SSSP)
+   and ``"social"`` (ppr), P = 8, lanes of 8 slots, δ* as an int (no
+   probe); the seed-7 Poisson traces at 0.4 and 0.1 queries a round over
+   200 rounds, each through ``replay_fixed`` and ``replay_continuous``
+   (a fresh scheduler), with an ``UpdateRequest`` of 64 SSSP edge
+   operations at clock 80 of the 0.1 trace; K1's loop entry's launches
+   reset before the replays and read after.  Every accepted query must
+   complete with no lane fault or failure, the continuous replays' launches
+   must equal the lanes' quanta, four answers a tenant must equal fresh
+   one-query batches bit for bit, no query admitted before the update may
+   finish after it, and the first SSSP answer after it must equal a fresh
+   one-query batch on the mutated graph.  Prints both reports of each
+   trace, the update's record and, a tenant, a quantum's wall split (the
+   loop entry by CUDA events, admissions, the query table's rebuild, the
+   retirees' copies).  At scale 16 a trace replayed with kernel lanes
+   must equal the same trace with ``ClassPolicy(backend="torch")`` lanes
+   (SSSP's on the card, ppr's on the CPU) in every round-clock field and
+   answer; then ``python -m repro_torch.launch.serve_graph`` at scale 16
+   runs cold on an empty ``--cache-dir``, then with ``--assert-warm``
+   (must exit 0), and with ``--assert-warm`` on another empty directory
+   (must fail).
 4. K1's time per round at the full-size shapes, at sync, 128, 1024 and
    auto's δ* (CUDA events), beside its byte bound, the same round with no
    edges to walk (barriers, epilogues and publishes alone), the plain round's
@@ -170,7 +192,10 @@ smaller graphs:
 5. the ``kernels`` line (every kernel's launches on its path must be
    nonzero; ``resolve_launches`` of the loop entry and of K2 are the
    evolving-graph path's, ``restart_launches`` the restart path's second
-   process's; K1's single-round entries, which no path launches now, show the
+   process's, ``serve_launches`` of the loop entry at C = 8 the serving
+   path's replays', beside ``serve_ms_a_round``; a loop entry's
+   ``library_ms`` is phase 4's library call for a round of its workload;
+   K1's single-round entries, which no path launches now, show the
    main path's 0 with ``on_path: false``, the loop entry that superseded
    each, and their launches in phase 3's host-loop comparisons, which must
    be nonzero), the card's name and power limit, and the result line.
@@ -197,6 +222,7 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -247,6 +273,18 @@ EVOLVE_SEED = 22
 EVOLVE_HALO_DELTA = 128
 # The restart path (phase 3): the second process's time limit.
 RESTART_TIMEOUT_S = 600
+# The serving path (end of phase 3): lanes of SERVE_BATCH slots (the
+# serving default --queries 8), the admission queue of
+# benchmarks/serve_load.py, its seed-7 Poisson traces (queries a round) over
+# SERVE_DURATION rounds; the update's k, clock and trace; the answers
+# sampled a tenant; the kernel-vs-plain replay at HALO_SCALE; the CLI gate.
+SERVE_BATCH, SERVE_QUEUE, SERVE_SEED, SERVE_DURATION = 8, 16, 7, 200
+SERVE_RATES = (0.4, 0.1)
+SERVE_UPDATE_RATE, SERVE_UPDATE_AT, SERVE_UPDATE_K = 0.1, 80, 64
+SERVE_SAMPLE = 4
+SERVE_HALO_RATE, SERVE_HALO_DELTA = 0.4, 128
+SERVE_CLI_DELTA, SERVE_CLI_TIMEOUT_S = 128, 300
+SERVE_CLI_EXTRA: tuple = ()  # more arguments for the CLI gate (none on the card)
 
 
 def log(msg: str) -> None:
@@ -733,6 +771,347 @@ def stripes_only_load(solver, whole, timed, stripe_schedule_arrays, DeviceSchedu
         "stripes_only_equal": all(torch.equal(getattr(sched, f), getattr(whole, f))
                                   for f in ("src", "val", "dst_local", "rows", "row_ptr")),
     }
+
+
+def serve_phase(dev, g_pr, g_ss, hg_pr, hg_ss, dstar: dict) -> dict:
+    """The serving path (end of phase 3): two tenants in one
+    ``ContinuousScheduler`` on the full-size graphs, ``"road"`` (SSSP on
+    ``g_ss``) and ``"social"`` (ppr on ``g_pr``), each a ``GraphService``
+    of P workers, lanes of SERVE_BATCH slots and its problem's δ* (an int:
+    no probe), as ``benchmarks/serve_load.py``'s ``TENANTS``.  The seed-7
+    Poisson traces at SERVE_RATES over SERVE_DURATION rounds go through
+    ``replay_continuous`` (a fresh scheduler over the warm services) and
+    ``replay_fixed``; an ``UpdateRequest`` of SERVE_UPDATE_K SSSP edge
+    operations (``sssp_event``, seed EVOLVE_SEED) goes to ``"road"`` at
+    clock SERVE_UPDATE_AT of the SERVE_UPDATE_RATE trace.  K1's loop entry's
+    launches are reset before the replays and read after: the continuous
+    replays' must equal the lanes' quanta.  Every accepted query must
+    complete with no lane fault and no failure; SERVE_SAMPLE answers a
+    tenant must equal a fresh one-query ``solve_batch`` bit for bit; no
+    query admitted before the update may finish after it, and the first
+    SSSP answer admitted after it must equal a fresh one-query
+    ``solve_batch`` on the mutated solver.  Each lane quantum's wall time
+    is split (CUDA events around the loop entry and its read-back; the
+    admissions' x0, teleport and column writes; the query table's rebuild;
+    the rest of ``run``, the retirees' copies back).  At HALO_SCALE one
+    trace is replayed with kernel lanes and with ``ClassPolicy(backend=
+    "torch")`` lanes, SSSP's on the card (min-plus is order-free) and
+    ppr's on the CPU (the float plain version in its fixed order): every
+    round-clock field and every answer must be equal.  Then
+    ``python -m repro_torch.launch.serve_graph`` at HALO_SCALE, cold on an
+    empty ``--cache-dir``, then warm with ``--assert-warm`` (must exit 0),
+    and ``--assert-warm`` on another empty directory (must fail).  Returns
+    the kernels line's serving numbers."""
+    from repro_torch.kernels.round_block import fused_batch_solve_cuda
+    from repro_torch.launch.serve_graph import GraphService
+    from repro_torch.launch.service import (
+        DEFAULT_CLASSES,
+        ContinuousScheduler,
+        UpdateRequest,
+        poisson_trace,
+        replay_continuous,
+        replay_fixed,
+    )
+    from repro_torch.launch.service import scheduler as serve_scheduler
+    from repro_torch.solve import Solver, multi_source_x0, ppr_teleport, solve_batch
+    from repro_torch.solve import batch as batch_module
+
+    graph_for = {"sssp": ("road",), "ppr": ("social",)}
+
+    def tenants(g_road, g_social, delta, devices=(dev, dev)):
+        kw = dict(n_workers=P, batch_size=SERVE_BATCH, queue_capacity=SERVE_QUEUE)
+        services = {
+            "road": GraphService(g_road, delta=delta["sssp"], algos=("sssp",), device=devices[0], **kw),
+            "social": GraphService(g_social, delta=delta["ppr"], algos=("ppr",), device=devices[1], **kw),
+        }
+        for svc in services.values():  # set-up: the schedules, before any count
+            svc.solver(svc.algos[0]).schedule()
+        return services
+
+    def trace_for(services, rate):
+        n = {name: svc.graph.n for name, svc in services.items()}
+        return poisson_trace(rate, SERVE_DURATION, n, seed=SERVE_SEED, graph_for=graph_for)
+
+    def fresh(service, r):
+        """A fresh one-query solve_batch of the retired query ``r``."""
+        g = service.graph
+        if r.algo == "sssp":
+            return solve_batch(service.solver("sssp"), multi_source_x0(g, [r.payload]))
+        x0 = np.full((1, g.n), 1.0 / g.n, np.float32)
+        return solve_batch(service.solver("ppr"), x0, q=ppr_teleport(g, [r.payload], service.damping))
+
+    def same(a, b) -> bool:
+        return a.shape == b.shape and bool(np.array_equal(a.view(np.int32), b.view(np.int32)))
+
+    class UpdateAt:
+        """``sched``, submitting ``req`` at its first pump at or after clock ``at``."""
+
+        def __init__(self, sched, at, req):
+            self.sched, self.at, self.req, self.admission = sched, at, req, None
+
+        def __getattr__(self, name):
+            return getattr(self.sched, name)
+
+        def pump(self):
+            if self.admission is None and self.sched.clock_rounds >= self.at:
+                self.admission = self.sched.submit_update(self.req)
+            return self.sched.pump()
+
+    # the wall split of every lane quantum, by (rate, tenant)
+    split, lanes, current = {}, [], {"rate": None, "sums": None}
+    names: dict[int, str] = {}
+    orig = (serve_scheduler._Lane.__init__, serve_scheduler._Lane.admit, serve_scheduler._Lane.run_quantum,
+            batch_module._solve, Solver.batch_row_update)
+    keys = ("quanta", "rounds", "admissions", "retired", "tables", "quantum_ms", "launch_ms", "launch_wall_ms",
+            "table_ms", "admit_ms")
+
+    def sums(lane):
+        return split.setdefault((current["rate"], names[id(lane.service)]), dict.fromkeys(keys, 0))
+
+    def lane_init(self, *a, **k):
+        orig[0](self, *a, **k)
+        lanes.append(self)
+
+    def admit(self, request_id, req):
+        s = sums(self)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        orig[1](self, request_id, req)
+        torch.cuda.synchronize()
+        s["admit_ms"] += (time.perf_counter() - t1) * 1e3
+        s["admissions"] += 1
+
+    def run_quantum(self):
+        s = current["sums"] = sums(self)
+        before = self.stepper.rounds_executed
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        try:
+            out = orig[2](self)
+        finally:
+            current["sums"] = None
+        torch.cuda.synchronize()
+        s["quantum_ms"] += (time.perf_counter() - t1) * 1e3
+        s["quanta"] += 1
+        s["rounds"] += self.stepper.rounds_executed - before
+        s["retired"] += len(out)
+        return out
+
+    def loop(*a, **k):
+        s = current["sums"]
+        if s is None:
+            return orig[3](*a, **k)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t1 = time.perf_counter()
+        e0.record()
+        out = orig[3](*a, **k)
+        e1.record()
+        e1.synchronize()
+        s["launch_ms"] += e0.elapsed_time(e1)
+        s["launch_wall_ms"] += (time.perf_counter() - t1) * 1e3
+        return out
+
+    def table(self, *a, **k):
+        s = current["sums"]
+        t1 = time.perf_counter()
+        out = orig[4](self, *a, **k)
+        if s is not None:
+            torch.cuda.synchronize()
+            s["table_ms"] += (time.perf_counter() - t1) * 1e3
+            s["tables"] += 1
+        return out
+
+    def check_samples(rate, results) -> int:
+        """SERVE_SAMPLE answers a tenant against fresh one-query batches."""
+        for tenant, svc in services.items():
+            mine = [r for r in results if r.graph == tenant][:SERVE_SAMPLE]
+            for r in mine:
+                f = fresh(svc, r)
+                if not (r.converged and r.rounds == f.rounds and same(r.x, f.x[0])):
+                    raise AssertionError(f"served {tenant} query {r.request_id} differs from a fresh solve_batch")
+            if len(mine) < SERVE_SAMPLE:
+                raise AssertionError(f"rate {rate}: only {len(mine)} {tenant} answers to sample")
+        return SERVE_SAMPLE * len(services)
+
+    t0 = time.perf_counter()
+    services = tenants(g_ss, g_pr, {"sssp": int(dstar["sssp"]), "ppr": int(dstar["pagerank"])})
+    names.update({id(svc): name for name, svc in services.items()})
+    setup_s = time.perf_counter() - t0
+    reports, out, checked = {}, {}, 0
+    update_batch = sssp_event(services["road"].graph, SERVE_UPDATE_K, np.random.default_rng(EVOLVE_SEED))
+    launches = {"continuous": 0, "fixed": 0}
+    fused_batch_solve_cuda.launches = 0
+    (serve_scheduler._Lane.__init__, serve_scheduler._Lane.admit, serve_scheduler._Lane.run_quantum,
+     batch_module._solve, Solver.batch_row_update) = (lane_init, admit, run_quantum, loop, table)
+    try:
+        for rate in SERVE_RATES:  # the update's trace last: it mutates the road graph
+            trace = trace_for(services, rate)
+            for kind in ("fixed", "continuous"):
+                before = fused_batch_solve_cuda.launches
+                current["rate"] = rate
+                if kind == "fixed":
+                    rep = replay_fixed(services, trace, batch_size=SERVE_BATCH, queue_capacity=SERVE_QUEUE)
+                else:
+                    sched = ContinuousScheduler(services, queue_capacity=SERVE_QUEUE)
+                    drive = sched
+                    if rate == SERVE_UPDATE_RATE:
+                        drive = UpdateAt(sched, SERVE_UPDATE_AT, UpdateRequest(batch=update_batch, graph="road"))
+                    n_lanes = len(lanes)
+                    rep = replay_continuous(drive, trace)
+                    rep["stats"] = sched.stats()
+                    rep["quanta"] = sum(lane.stepper.quanta for lane in lanes[n_lanes:])
+                    rep["updates"] = sched.take_update_results()
+                    rep["update_admission"] = getattr(drive, "admission", None)
+                launches[kind] += fused_batch_solve_cuda.launches - before
+                rep["launches"] = fused_batch_solve_cuda.launches - before
+                reports[(rate, kind)] = rep
+                if kind == "continuous" and rate != SERVE_UPDATE_RATE:
+                    # before the update mutates the road graph: sampled answers
+                    # against fresh one-query batches (their launches apart)
+                    checked += check_samples(rate, rep["results"])
+    finally:
+        (serve_scheduler._Lane.__init__, serve_scheduler._Lane.admit, serve_scheduler._Lane.run_quantum,
+         batch_module._solve, Solver.batch_row_update) = orig
+    serve_launches = launches["continuous"] + launches["fixed"]
+    replay_s = time.perf_counter() - t0 - setup_s
+    card = card_line()
+    for (rate, kind), rep in reports.items():
+        r = rep["report"]
+        row = {"card": card, "rate": rate, "replay": kind, **{k: r[k] for k in (
+            "offered", "completed", "rejected", "rejected_by_reason", "unconverged", "clock_rounds", "p50_rounds",
+            "p99_rounds", "mean_rounds", "worst_rounds", "completed_per_kround", "wall_s")}, "launches": rep["launches"]}
+        if kind == "continuous":
+            c = rep["stats"]["counters"]
+            row.update(quanta=rep["quanta"], counters=c)
+            updates = c["updates_applied"]
+            ok = (c["lane_faults"] == 0 and c["failed"] == 0 and c["accepted"] == c["completed"] + updates
+                  and r["completed"] + r["rejected"] == r["offered"] and rep["launches"] == rep["quanta"] > 0)
+        else:
+            ok = r["completed"] + r["rejected"] == r["offered"] and rep["launches"] > 0
+        log(f"[3] serve replay {json.dumps(row)}")
+        if not ok:
+            raise AssertionError(f"the {kind} replay at rate {rate} did not serve every accepted query "
+                                 f"through the loop entry: {row}")
+    # the update at a quiesced boundary
+    rep = reports[(SERVE_UPDATE_RATE, "continuous")]
+    adm, updates = rep["update_admission"], rep["updates"]
+    if adm is None or not adm.accepted or len(updates) != 1:
+        raise AssertionError(f"the update was not applied once: {adm}, {updates}")
+    (ur,) = updates
+    road = services["road"]
+    road_results = sorted((r for r in rep["results"] if r.graph == "road"), key=lambda r: r.admit_seq)
+    before = [r for r in road_results if r.admitted_clock < ur.applied_clock]
+    after = [r for r in road_results if r.admitted_clock >= ur.applied_clock]
+    upd = {
+        "card": card,
+        **{k: getattr(ur, k) for k in ("request_id", "inserted", "deleted", "reweighted", "affected_rows",
+                                       "submitted_clock", "applied_clock", "latency_s")},
+        "barrier_rounds": ur.barrier_rounds,
+        "admitted_before": len(before),
+        "admitted_after": len(after),
+        "finished_after_it": sum(r.finished_clock > ur.applied_clock for r in before),
+        "nnz": road.graph.nnz,
+    }
+    ok = ((ur.inserted, ur.deleted, ur.reweighted) == (update_batch.n_inserts, update_batch.n_deletes,
+                                                       update_batch.n_reweights)
+          and ur.submitted_clock >= SERVE_UPDATE_AT and ur.applied_clock >= ur.submitted_clock
+          and ur.affected_rows > 0 and upd["finished_after_it"] == 0 and after
+          and road.graph.nnz == g_ss.nnz + update_batch.n_inserts - update_batch.n_deletes)
+    if ok:
+        first = after[0]
+        f = fresh(road, first)
+        upd.update(first_after=first.request_id, first_after_rounds=first.rounds, fresh_rounds=f.rounds,
+                   equal_fresh_on_mutated=bool(first.rounds == f.rounds and same(first.x, f.x[0])))
+        ok = upd["equal_fresh_on_mutated"]
+    log(f"[3] serve update {json.dumps(upd)}")
+    if not ok:
+        raise AssertionError(f"the update was not applied at a quiesced boundary: {upd}")
+    # the per-quantum wall split, by tenant
+    for (rate, tenant), s in split.items():
+        if s["quanta"] == 0:
+            continue
+        q = s["quanta"]
+        row = {
+            "card": card,
+            "rate": rate,
+            "tenant": tenant,
+            **{k: s[k] for k in ("quanta", "rounds", "admissions", "retired", "tables")},
+            "quantum_ms": s["quantum_ms"] / q,
+            "launch_ms": s["launch_ms"] / q,
+            "launch_wall_ms": s["launch_wall_ms"] / q,
+            "admit_ms": s["admit_ms"] / q,
+            "table_ms": s["table_ms"] / q,
+            "retire_and_rest_ms": (s["quantum_ms"] - s["launch_wall_ms"] - s["table_ms"]) / q,
+            "ms_a_round": s["launch_ms"] / max(s["rounds"], 1),
+            "admit_ms_each": s["admit_ms"] / max(s["admissions"], 1),
+            "table_ms_each": s["table_ms"] / max(s["tables"], 1),
+            "retire_and_rest_ms_each": (s["quantum_ms"] - s["launch_wall_ms"] - s["table_ms"]) / max(s["retired"], 1),
+            "launch_share_with_admissions": s["launch_ms"] / (s["quantum_ms"] + s["admit_ms"]),
+        }
+        log(f"[3] serve quantum split {json.dumps(row)}")
+    out["serve_launches"] = serve_launches
+    out["serve_ms_a_round"] = (sum(s["launch_ms"] for s in split.values())
+                               / max(sum(s["rounds"] for s in split.values()), 1))
+    log(f"[3] serving s{int(np.log2(g_pr.n))}: set-up {setup_s:.1f} s, replays {replay_s:.1f} s, {serve_launches} loop launches "
+        f"({launches}), {checked} sampled answers equal fresh solves")
+    del services, reports, lanes
+
+    # kernel lanes against plain lanes at HALO_SCALE, over one trace
+    t0 = time.perf_counter()
+    hdelta = {"sssp": SERVE_HALO_DELTA, "ppr": SERVE_HALO_DELTA}
+    kernel_svc = tenants(hg_ss, hg_pr, hdelta)
+    plain_svc = tenants(hg_ss, hg_pr, hdelta, devices=(dev, "cpu"))
+    trace = trace_for(kernel_svc, SERVE_HALO_RATE)
+    plain_classes = {name: dataclasses.replace(p, backend="torch") for name, p in DEFAULT_CLASSES.items()}
+    before = fused_batch_solve_cuda.launches
+    k_rep = replay_continuous(ContinuousScheduler(kernel_svc, queue_capacity=SERVE_QUEUE), trace)
+    k_launches = fused_batch_solve_cuda.launches - before
+    p_sched = ContinuousScheduler(plain_svc, classes=plain_classes, queue_capacity=SERVE_QUEUE)
+    p_rep = replay_continuous(p_sched, trace)
+    p_launches = fused_batch_solve_cuda.launches - before - k_launches
+    kr, pr = dict(k_rep["report"]), dict(p_rep["report"])
+    k_wall, p_wall = kr.pop("wall_s"), pr.pop("wall_s")
+    kres = {r.request_id: r for r in k_rep["results"]}
+    pres = {r.request_id: r for r in p_rep["results"]}
+    clock = ("rounds", "converged", "admit_seq", "submitted_clock", "admitted_clock", "finished_clock", "delta")
+    diff = [rid for rid in kres if rid not in pres or not same(kres[rid].x, pres[rid].x)
+            or any(getattr(kres[rid], f) != getattr(pres[rid], f) for f in clock)]
+    row = {"card": card, "scale": HALO_SCALE, "rate": SERVE_HALO_RATE, "delta": SERVE_HALO_DELTA, "kernel": kr,
+           "plain": pr, "kernel_wall_s": k_wall, "plain_wall_s": p_wall, "kernel_launches": k_launches,
+           "plain_launches": p_launches, "answers": len(kres), "differ": diff[:8],
+           "plain_backends": sorted({r.backend for r in p_rep["results"]})}
+    log(f"[3] serve kernel vs plain {json.dumps(row)}")
+    if kr != pr or diff or len(kres) != len(pres) or k_launches == 0 or p_launches != 0 \
+            or row["plain_backends"] != ["torch"]:
+        raise AssertionError(f"the kernel lanes' replay differs from the plain lanes': {row}")
+    log(f"[3] serving kernel vs plain s{HALO_SCALE} done in {time.perf_counter() - t0:.1f} s")
+    del kernel_svc, plain_svc
+
+    # the CLI and its warm-restart gate
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    work = Path(tempfile.mkdtemp(prefix="serve-"))
+    cli = [sys.executable, "-m", "repro_torch.launch.serve_graph", "--graph", "twitter", "--scale",
+           str(HALO_SCALE), "--algo", "both", "--queries", str(SERVE_BATCH), "--repeats", "2", "--delta",
+           str(SERVE_CLI_DELTA), *SERVE_CLI_EXTRA]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    runs = {}
+    try:
+        for label, store, warm in (("cold", "store", False), ("warm", "store", True), ("empty", "empty", True)):
+            t1 = time.perf_counter()
+            res = subprocess.run(cli + ["--cache-dir", str(work / store)] + (["--assert-warm"] if warm else []),
+                                 env=env, cwd=root, capture_output=True, text=True, timeout=SERVE_CLI_TIMEOUT_S)
+            runs[label] = {"rc": res.returncode, "s": time.perf_counter() - t1,
+                           "stdout": res.stdout.strip().splitlines()[-3:], "stderr": res.stderr.strip()[-300:]}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"[3] serve_graph CLI {json.dumps(runs)}")
+    if not (runs["cold"]["rc"] == 0 and runs["warm"]["rc"] == 0 and runs["empty"]["rc"] != 0
+            and any("warm restart verified" in ln for ln in runs["warm"]["stdout"])
+            and "--assert-warm" in runs["empty"]["stderr"]):
+        raise AssertionError(f"the serve_graph warm-restart gate did not pass warm and fail cold: {runs}")
+    log(f"[3] serve_graph CLI gate done in {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def ab(others: list[str], scale: int) -> int:
@@ -2068,6 +2447,14 @@ def smoke(scale: int, gen: subprocess.Popen, npz: str) -> int:
     log(f"[3] restart path: {restart_launches['loop']} loop-entry and {restart_launches['k2']} K2 launches in the "
         f"second process; done in {time.perf_counter() - t0:.1f} s")
 
+    # the serving path: GraphService tenants in one ContinuousScheduler,
+    # both load replays, an update mid-trace, kernel lanes against plain
+    # ones, and the serve_graph CLI's warm-restart gate
+    t0 = time.perf_counter()
+    serve = serve_phase(dev, g_pr, g_ss, hg_pr, hg_ss, dstar)
+    log(f"[3] serving path: {serve['serve_launches']} loop-entry launches (C = {SERVE_BATCH}); "
+        f"done in {time.perf_counter() - t0:.1f} s")
+
     # ---------------------------------------------------------------- 4 ---
     t0 = time.perf_counter()
     timings = []
@@ -2593,14 +2980,18 @@ def smoke(scale: int, gen: subprocess.Popen, npz: str) -> int:
                     "plain_ms": row["plain_ms"],
                     "bound_ms": row["bound_ms"],
                     "bound_by": row["bound_by"],
-                    "library_ms": None,  # no PyTorch call runs a solve
+                    # a round of the loop computes what one K1 round does: the
+                    # library call a round that phase 4 timed for that workload
+                    "library_ms": lib["library_ms"],
                 }
-                for name, key, launches, row in (
-                    ("round_block_solve", "solve", main_launches, loop_timings[0]),  # PageRank at sync
-                    ("round_block_solve_f4", "solve_f4", matrix_launches["round_block_solve"], loop_f4),
-                    ("round_block_batch_solve_c8", "batch", batch_launches_by_c.get(BATCH_Q, 0), loop_batch[BATCH_Q]),
+                for name, key, launches, row, lib in (
+                    ("round_block_solve", "solve", main_launches, loop_timings[0], head),  # PageRank at sync
+                    ("round_block_solve_f4", "solve_f4", matrix_launches["round_block_solve"], loop_f4,
+                     matrix_timings[0]),  # rwr at sync
+                    ("round_block_batch_solve_c8", "batch", batch_launches_by_c.get(BATCH_Q, 0), loop_batch[BATCH_Q],
+                     batch_timings[0]),  # ppr Q = 8 at sync
                     ("round_block_batch_solve_c32", "batch", batch_launches_by_c.get(BATCH_Q_WIDE, 0),
-                     loop_batch[BATCH_Q_WIDE]),
+                     loop_batch[BATCH_Q_WIDE], batch_timings[-1]),  # ppr Q = 32 at δ*
                 )
             ),
             {
@@ -2621,11 +3012,13 @@ def smoke(scale: int, gen: subprocess.Popen, npz: str) -> int:
     next(k for k in kernels["kernels"] if k["name"] == "round_block_solve")["resolve_launches"] = evolve_launches
     next(k for k in kernels["kernels"] if k["name"] == "round_block_solve")["restart_launches"] = restart_launches["loop"]
     next(k for k in kernels["kernels"] if k["name"] == "halo_round")["restart_launches"] = restart_launches["k2"]
+    next(k for k in kernels["kernels"] if k["name"] == f"round_block_batch_solve_c{SERVE_BATCH}").update(serve)
     for k in kernels["kernels"]:
         if k["name"] in off_path:
             k["on_path"] = False
             k["superseded_by"], k["host_loop_launches"] = off_path[k["name"]]
     unused = [k["name"] for k in kernels["kernels"] if k["launches"] == 0 and k["name"] not in off_path]
+    unused += [f"{k['name']} (serving)" for k in kernels["kernels"] if k.get("serve_launches", 1) == 0]
     if unused or min(k["host_loop_launches"] for k in kernels["kernels"] if k["name"] in off_path) == 0:
         raise AssertionError(f"kernels never launched on their paths: {unused}, or off them: {off_path}")
     log(f"[5] total {time.perf_counter() - t_all:.1f} s; {compare_launches} comparison launches")

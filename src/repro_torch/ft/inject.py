@@ -2,8 +2,10 @@
 
 A copy of ``repro.ft.inject`` (pure Python), so the port imports nothing of
 ``repro``.  The port wires the ``persist.write`` and ``persist.read`` sites
-(:mod:`repro_torch.persist.store`); the other sites below are the
-reference's and come with the port's serving and fault-tolerance modules.
+(:mod:`repro_torch.persist.store`) and ``scheduler.lane``
+(:meth:`repro_torch.launch.service.scheduler.ContinuousScheduler.pump`);
+the other sites below are the reference's and come with the port's
+fault-tolerance modules (ROADMAP queue A, A11).
 
 A :class:`FaultPlan` is a list of :class:`FaultSpec` rules evaluated at
 instrumented *sites* across the stack.  Sites call :func:`fire` with a site

@@ -1068,3 +1068,86 @@ def test_warm_halo_solve_runs_k2_over_a_loaded_plan(cuda_device, tmp_path):
         assert torch.equal(got.cpu()[:-1], want[:-1])
         x = want
     assert fused_halo_round_cuda.launches == launches + 3
+
+
+# --------------------------------------------------------------------------- #
+# the serving tier: lanes of K1's loop entry
+# --------------------------------------------------------------------------- #
+def _serve_tenants(devices, **kw):
+    """The two tenants of ``benchmarks/serve_load.py`` at scale 10: road
+    (SSSP, kron) and social (ppr, twitter), lanes of 4 slots."""
+    from repro_torch.launch.serve_graph import GraphService
+
+    common = dict(n_workers=4, delta=96, batch_size=4, min_chunk=8, queue_capacity=16, **kw)
+    return {
+        "road": GraphService(make_graph("kron", scale=10, efactor=8, kind="sssp"), algos=("sssp",),
+                             device=devices[0], **common),
+        "social": GraphService(make_graph("twitter", scale=10, efactor=8, kind="pagerank"), algos=("ppr",),
+                               device=devices[1], **common),
+    }
+
+
+def _serve_trace(services, rate=0.2):
+    from repro_torch.launch.service import poisson_trace
+
+    n = {name: svc.graph.n for name, svc in services.items()}
+    return poisson_trace(rate, 300, n, seed=7, graph_for={"sssp": ("road",), "ppr": ("social",)})
+
+
+@pytest.mark.gpu
+def test_two_tenant_replay_on_the_card_equals_plain_lanes(cuda_device):
+    """A two-tenant continuous replay with kernel lanes on the card equals
+    the same replay with ``ClassPolicy(backend="torch")`` lanes in every
+    report field but wall time and in every answer bit for bit: SSSP's
+    plain lanes on the card (min-plus is order-free), ppr's on the CPU."""
+    from repro_torch.launch.service import DEFAULT_CLASSES, ContinuousScheduler, replay_continuous
+
+    kernel = _serve_tenants((cuda_device, cuda_device))
+    plain = _serve_tenants((cuda_device, "cpu"))
+    trace = _serve_trace(kernel)
+    classes = {name: dataclasses.replace(p, backend="torch") for name, p in DEFAULT_CLASSES.items()}
+    launches = fused_batch_solve_cuda.launches
+    k_sched = ContinuousScheduler(kernel, queue_capacity=16)
+    k = replay_continuous(k_sched, trace)
+    k_launches = fused_batch_solve_cuda.launches - launches
+    p = replay_continuous(ContinuousScheduler(plain, classes=classes, queue_capacity=16), trace)
+    assert fused_batch_solve_cuda.launches == launches + k_launches  # the plain lanes launch nothing
+    kr, pr = dict(k["report"]), dict(p["report"])
+    kr.pop("wall_s"), pr.pop("wall_s")
+    assert kr == pr and kr["completed"] > 0 and kr["unconverged"] == 0
+    pres = {r.request_id: r for r in p["results"]}
+    assert len(pres) == len(k["results"])
+    for r in k["results"]:
+        q = pres[r.request_id]
+        assert (r.backend, q.backend) == ("kernel", "torch")
+        for f in ("rounds", "converged", "admit_seq", "submitted_clock", "admitted_clock", "finished_clock"):
+            assert getattr(r, f) == getattr(q, f), f
+        np.testing.assert_array_equal(r.x.view(np.int32), q.x.view(np.int32))
+    lanes = k_sched.stats()["lanes"]
+    assert k_launches == sum(lane["quanta"] for lane in lanes.values()) > 0
+
+
+@pytest.mark.gpu
+def test_lane_quanta_equal_loop_entry_launches(cuda_device):
+    """Every lane quantum on the card is one launch of K1's loop entry (no
+    single-round launch), and a served answer equals a fresh one-query
+    batch on the card."""
+    services = _serve_tenants((cuda_device, cuda_device))
+    sched = services["social"].scheduler
+    counts = (fused_batch_solve_cuda.launches, fused_batch_round_cuda.launches, fused_round_cuda.launches)
+    from repro_torch.launch.service import QueryRequest
+
+    for v in (3, 11, 40, 5, 77, 9):
+        assert sched.submit(QueryRequest(algo="ppr", payload=v)).accepted
+    results = sched.drain()
+    (lane,) = sched.stats()["lanes"].values()
+    assert fused_batch_solve_cuda.launches - counts[0] == lane["quanta"] > 0
+    assert (fused_batch_round_cuda.launches, fused_round_cuda.launches) == counts[1:]
+    c = sched.stats()["counters"]
+    assert (c["completed"], c["lane_faults"], c["failed"]) == (6, 0, 0)
+    svc = services["social"]
+    g = svc.graph
+    r = results[0]
+    fresh = svc.solver("ppr").solve_batch(np.full((1, g.n), 1.0 / g.n, np.float32), q=ppr_teleport(g, [r.payload]))
+    assert r.converged and r.rounds == fresh.rounds
+    np.testing.assert_array_equal(r.x.view(np.int32), fresh.x[0].view(np.int32))
