@@ -45,6 +45,11 @@ smaller graphs:
    (``tol = -1``) at scale 22 (sync and, after phase 3, PageRank and SSSP
    at δ*), where SSSP's int32 plain loop runs on the card to convergence
    (min-plus is order-free).
+   K2's rank entry and receive (``halo_entries_check``: a rank's commit
+   step over shards [0, 2) and [2, 4) and the receive of the joined send
+   blocks) against their plain versions a step at a time, and K2's batch
+   entry one round (ppr Q = 8 and 32, sssp Q = 8, rwr Q = 2 at F = 4), at
+   scale 16 at δ = sync and 128, bit for bit.
 3. the main path, ``Solver(...).solve()`` with ``backend="kernel"`` at sync,
    async, 1024 and auto (twice: cold, then warm): PageRank on ``twitter``
    scale 22 (4.2 M vertices, 64.3 M edges) and SSSP on the same topology
@@ -98,8 +103,9 @@ smaller graphs:
    takes mixed batches (the recipe of ``benchmarks/incremental.py``: k/2
    deletes, k/4 reweights, the rest inserts, weights in [1, 255]) and
    PageRank mass-conserving deletes (each touched source's surviving
-   out-edges reweighted to ``0.85 / outdeg``), k = 64 and 4,096, seeded,
-   each batch after the last on the same solver.  Each
+   out-edges reweighted to ``0.85 / outdeg``), k = 64 and 4,096 (PageRank
+   k = 64 alone: its 4,096 is cut for time), seeded, each batch after the
+   last on the same solver.  Each
    ``resolve(updates=batch)`` must be one loop-entry launch; the patched
    ``row_ptr`` must equal ``_cell_row_ptr`` of the patched ``dst_local``
    (recomputed on the card), and the patched schedule a fresh build of the
@@ -156,6 +162,25 @@ smaller graphs:
    runs cold on an empty ``--cache-dir``, then with ``--assert-warm``
    (must exit 0), and with ``--assert-warm`` on another empty directory
    (must fail).
+   Then the batched halo path (``halo_batch_phase``): ``solve_batch(
+   frontier="halo")`` over D = 4 shards, ppr and multi-source sssp at Q = 8
+   and δ*, ppr at Q = 32 at sync, one launch of K2's batch entry a round,
+   x and ``rounds_per_query`` equal to the replicated batch's; one K2 batch
+   round against the plain batch halo round; K2's batch round timed beside
+   K1's batch entry, its plain round, ``torch.sparse.mm`` and its bound; and
+   one continuous replay of the 0.1 trace through ``GraphService(frontier=
+   "halo")`` lanes (no lane fault, one K2 batch launch a lane round, sampled
+   answers equal to replicated one-query batches).  Then the halo solve
+   across processes (``halo_rank_phase``): this script with ``--halo-rank
+   one`` solves in one process, then two processes (``--halo-rank 0``,
+   ``1``) share the card over a ``gloo`` group, each holding 2 of the 4
+   shards: PageRank at sync and δ* and SSSP at δ* on the full-size graph
+   (read from the ``--write-graph`` file), int8 and fp8 PageRank at scale
+   16; each rank's x, rounds, flushes and flush_bytes must equal the
+   one-process K2 solve's, its rank entry and receive launch once a step,
+   and its peak device memory stay below the one-process solve's.  Two
+   processes on one card through pinned host memory: no number there is a
+   cross-card wire time.
 4. K1's time per round at the full-size shapes, at sync, 128, 1024 and
    auto's δ* (CUDA events), beside its byte bound, the same round with no
    edges to walk (barriers, epilogues and publishes alone), the plain round's
@@ -188,13 +213,17 @@ smaller graphs:
    round (``loop_over_k1``), the same loop publishing without its residual
    (``no_residual_ms``), the plain loop's time a round on the card and the
    round's bound; and likewise for rwr at F = 4, a ppr batch of Q = 8
-   (sync) and of Q = 32 (δ*).
+   (sync) and of Q = 32 (δ*).  K2's rank entry and receive a launch
+   (``halo_rank_timing``: PageRank at δ*, shards [0, 2)) beside their bounds
+   (``halo_rank_bounds``), plain versions and a library call a step.
 5. the ``kernels`` line (every kernel's launches on its path must be
    nonzero; ``resolve_launches`` of the loop entry and of K2 are the
    evolving-graph path's, ``restart_launches`` the restart path's second
    process's, ``serve_launches`` of the loop entry at C = 8 the serving
    path's replays', beside ``serve_ms_a_round``; a loop entry's
    ``library_ms`` is phase 4's library call for a round of its workload;
+   K2's batch entry at C = 8 and 32 with its batch-path and serving
+   launches, its rank entry and receive with the cross-process path's;
    K1's single-round entries, which no path launches now, show the
    main path's 0 with ``on_path: false``, the loop entry that superseded
    each, and their launches in phase 3's host-loop comparisons, which must
@@ -269,6 +298,10 @@ LOOP_TIMED_DEFAULT = 16  # δ*
 # Evolving graphs (phase 3): edge operations a batch, the batches' seed, and
 # the δ of the halo resolve at HALO_SCALE.
 EVOLVE_BATCHES = (64, 4096)
+# PageRank's k = 4,096 batch (25.5 M reweights, some 50 s of the host's
+# merge) is cut to keep the smoke within its time limit: SSSP still runs
+# both, and PageRank k = 64.
+EVOLVE_PAGERANK_BATCHES = EVOLVE_BATCHES[:1]
 EVOLVE_SEED = 22
 EVOLVE_HALO_DELTA = 128
 # The restart path (phase 3): the second process's time limit.
@@ -285,6 +318,11 @@ SERVE_SAMPLE = 4
 SERVE_HALO_RATE, SERVE_HALO_DELTA = 0.4, 128
 SERVE_CLI_DELTA, SERVE_CLI_TIMEOUT_S = 128, 300
 SERVE_CLI_EXTRA: tuple = ()  # more arguments for the CLI gate (none on the card)
+# The halo solve across processes (end of phase 3): processes sharing the
+# card, each holding SHARDS / RANKS shards, and their time limit.
+RANKS = 2
+RANK_TIMEOUT_S = 900
+REFRESH_REPS = 20  # timed calls of a quantized rank round's refresh
 
 
 def log(msg: str) -> None:
@@ -310,7 +348,8 @@ def ptxas_summary(nvcc_log: str) -> list[dict]:
         if m:
             mangled = m.group(1)
             base = next(
-                (k for k in ("halo_round_kernel", "solve_kernel", "round_kernel", "spmv_tiles") if k in mangled),
+                (k for k in ("halo_round_kernel", "halo_local_kernel", "halo_recv_kernel", "solve_kernel",
+                             "round_kernel", "spmv_tiles") if k in mangled),
                 mangled,
             )
             args = re.findall(r"PlusTimes|MinPlus|(?<=Li)\d+(?=E)", mangled.split(base, 1)[-1])
@@ -332,15 +371,16 @@ def top_out_degree(graph, k: int) -> np.ndarray:
     return np.argsort(-graph.out_degree, kind="stable")[:k]
 
 
-def step_blocks(graph, sched, device) -> list:
+def step_blocks(graph, sched, device, workers=None) -> list:
     """The rows of each commit step of ``sched`` as a CSR matrix ``(rows, n)``:
-    S matrices, whose SpMVs do a round's work as S library calls."""
+    S matrices, whose SpMVs do a round's work as S library calls (the rows of
+    the ``workers`` slice alone, if given)."""
     indptr = torch.tensor(graph.indptr, device=device)
     indices = torch.tensor(graph.indices.astype(np.int64), device=device)
     values = torch.tensor(graph.values, device=device)
     mats = []
     for s in range(sched.S):
-        r = sched.rows[s].reshape(-1)
+        r = (sched.rows[s] if workers is None else sched.rows[s, workers]).reshape(-1)
         r = r[r < graph.n].long()
         counts = indptr[r + 1] - indptr[r]
         crow = torch.zeros(r.numel() + 1, dtype=torch.int64, device=device)
@@ -517,6 +557,659 @@ def pagerank_event(graph, k: int, rng, damping: float = 0.85):
         reweight_dst=dst[kept],
         reweight_val=damping / outdeg[src[kept]],
     )
+
+
+# ------------------------------------------------------------------------- #
+# K2's batch entry and rank entries: the halo batch path, the serving halo
+# lanes, and the halo solve across processes
+# ------------------------------------------------------------------------- #
+def halo_rank_bounds(sched, plan, tag: str, wire: str, d0: int, d1: int, F: int = 1) -> tuple:
+    """Least time for one launch of K2's rank entry (a commit step of shards
+    ``[d0, d1)``) and of its receive, each averaged over the round's S steps:
+    ``halo_round_bound``'s walk restricted to those shards (their real edges,
+    the distinct local slots they gather and, for ``min_old`` and
+    ``labelprop``, their rows' old slots, F values each; per chunk row its
+    edge range and slot, and for a table its global id and row; each real
+    row written once), plus the send block: ``send_idx`` read (4 B) and the
+    rows written (4F B, or F B and the scales for int8/fp8, whose ``ef`` is
+    read and written); the receive reads the gathered ``(D, H)`` block once
+    (and the scales), the shards' ``recv_idx`` once and writes each real
+    halo slot once.  Returns ``((local_ms, by), (recv_ms, by))``."""
+    D, L, H, P_loc, S, M = plan.D, plan.L, plan.H, plan.P_loc, sched.S, sched.M
+    dev = plan.src_loc.device
+    Dr = d1 - d0
+    real = sched.row_ptr[:, :, -1].reshape(S, D, P_loc).permute(1, 0, 2)[d0:d1]  # (Dr, S, P_loc)
+    edges = int(real.sum())
+    base = (torch.arange(Dr * S, device=dev, dtype=torch.int64) * L).view(Dr, S, 1, 1)
+    keys = (base + plan.src_loc[d0:d1])[torch.arange(M, device=dev) < real[..., None]]
+    live = plan.rows_loc[d0:d1] != L - 1
+    if tag in ("min_old", "labelprop"):
+        keys = torch.cat([keys, (base + plan.rows_loc[d0:d1])[live]])
+    distinct = int(torch.unique(keys).numel())
+    del keys
+    rows = Dr * P_loc * sched.delta * S
+    per_row = 12 + 4 * F if tag in ("add_table", "labelprop") else 8
+    wire_b = 4 * F if wire == "f32" else F
+    local = edges * 8 + distinct * 4 * F + rows * per_row + int(live.sum()) * 4 * F + S * Dr * H * (4 + wire_b)
+    recv = S * D * H * wire_b + S * Dr * D * H * 4 + int((plan.recv_idx[:, d0:d1] != L - 1).sum()) * 4 * F
+    if wire != "f32":
+        local += S * Dr * (H * 8 + 4) * F
+        recv += S * D * 4 * F
+    is_f32 = sched.val.dtype == torch.float32
+    return (bound_ms(local / S, (2 * edges + rows) * F / S, is_f32),
+            bound_ms(recv / S, (S * D * H * F if wire != "f32" else 0) / S, is_f32))
+
+
+def rank_round_check(dev, sv, sched, plan, ep, x_ext, wire: str, ranges, label: str) -> tuple:
+    """One round of K2's rank entry (``ops.halo_local_step``) over each
+    shard range of ``ranges``, a step at a time, each step followed by its
+    receive (``ops.halo_recv``) of the gathered send blocks into every range,
+    against their plain versions from the same frontier ``x_ext`` (``(n +
+    1,)+feat`` on the host): the send blocks, their scales, x_loc (the dump
+    slots too on a quantized wire) and ef bit for bit.  The plain versions
+    run on the CPU for f32 (the card's plain sums are unordered) and on the
+    card for int32 min-plus (order-free).  Returns ``(rank-entry
+    max_abs_err, receive max_abs_err, launches of each)``."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.dist import engine_sharded
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.round_block import halo_local_step_cuda, halo_recv_cuda
+
+    sr = sv.problem.semiring
+    feat = tuple(x_ext.shape[1:])
+    p_dev = "cpu" if sr.torch_dtype == torch.float32 else dev
+    p_sched, p_plan, p_ep = on(sched, p_dev), on(plan, p_dev), ep.to(p_dev)
+    want_x, want_ef = p_plan.scatter_x(x_ext.to(p_dev)), engine_sharded.frontier_ef_init(p_plan, feat)
+    got_x, got_ef = plan.scatter_x(x_ext.to(dev)), engine_sharded.frontier_ef_init(plan, feat)
+
+    def err_of(a, b):
+        return float((a.double() - b.double()).abs().max().item()) if a.numel() else 0.0
+
+    def bits(t):
+        return t.view(torch.uint8) if t.element_size() == 1 else t
+
+    local_err = 0.0
+    before = (halo_local_step_cuda.launches, halo_recv_cuda.launches)
+    for s in range(sched.S):
+        want = [ref.halo_local_step_ref(want_x[a:b], want_ef[a:b], p_sched, p_plan, sr, p_ep, wire, s, a, b)
+                for a, b in ranges]
+        got = [ops.halo_local_step(got_x[a:b], got_ef[a:b], sched, plan, sr, ep, wire, s, a, b) for a, b in ranges]
+        for (wr, ws), (gr, gs) in zip(want, got):
+            wr, ws = wr.cpu(), None if ws is None else ws.cpu()
+            gr, gs = gr.cpu(), None if gs is None else gs.cpu()
+            local_err = max(local_err, err_of(gr.float(), wr.float()))
+            if not torch.equal(bits(gr), bits(wr)) or (ws is not None and not torch.equal(gs, ws)):
+                raise AssertionError(f"K2's rank entry disagrees with its plain version: {label} {wire} s={s}")
+        rows_w, rows_g = torch.cat([w[0] for w in want]), torch.cat([g[0] for g in got])
+        sc_w = None if wire == "f32" else torch.cat([w[1] for w in want])
+        sc_g = None if wire == "f32" else torch.cat([g[1] for g in got])
+        for a, b in ranges:
+            ref.halo_recv_ref(want_x[a:b], rows_w, sc_w, p_plan, s, a, b)
+            ops.halo_recv(got_x[a:b], rows_g, sc_g, plan, s, a, b)
+    gx, wx = got_x.cpu(), want_x.cpu()
+    cols = slice(None) if wire != "f32" else slice(None, -1)
+    recv_err = err_of(gx[:, cols], wx[:, cols])
+    if not (torch.equal(gx[:, cols], wx[:, cols]) and torch.equal(got_ef.cpu(), want_ef.cpu())):
+        raise AssertionError(f"K2's receive disagrees with its plain version: {label} {wire}")
+    n_local = halo_local_step_cuda.launches - before[0]
+    n_recv = halo_recv_cuda.launches - before[1]
+    if n_local != n_recv or n_local != sched.S * len(ranges):
+        raise AssertionError(f"{n_local} rank-entry and {n_recv} receive launches for {sched.S} steps")
+    return local_err, recv_err, n_local, n_recv
+
+
+def halo_entries_check(dev, hg_pr, hg_ss) -> dict:
+    """Phase 2: K2's rank entry and receive (``ops.halo_local_step``,
+    ``ops.halo_recv``) over the shard ranges [0, 2) and [2, 4), a step at a
+    time, against their plain versions on the CPU: the send blocks, their
+    scales, x_loc (the dump slots too on a quantized wire) and ef bit for
+    bit, for pagerank (f32, int8, fp8), ppr (f32, int8), sssp (f32) and
+    rwr (F = 4, f32) at δ = sync and 128; K2's batch entry
+    (``ops.fused_halo_batch_round``) one round against its plain version for
+    ppr at Q = 8 (C = 8) and 32, multi-source sssp at Q = 8 and rwr at
+    Q = 2, F = 4 (C = 8) at δ = sync and 128 (the int32 plain rounds on the
+    card: min-plus is order-free).  Launches of each: one a range a step,
+    one a round.  Returns the largest errors and the comparison launches."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.core import engine
+    from repro_torch.dist import engine_sharded
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.round_block import fused_halo_batch_round_cuda
+    from repro_torch.solve import Solver, multi_source_x0, pagerank_problem, ppr_problem, ppr_teleport
+    from repro_torch.solve import rwr_embedding_problem, rwr_restart, sssp_problem
+
+    rng = np.random.default_rng(25)
+    errs = {"halo_local": 0.0, "halo_recv": 0.0, f"halo_round_batch_c{BATCH_Q}": 0.0,
+            f"halo_round_batch_c{BATCH_Q_WIDE}": 0.0}
+    launches = {"halo_local": 0, "halo_recv": 0, "halo_round_batch": 0}
+    hub = int(np.argmax(hg_pr.out_degree))
+    solvers = {
+        "pagerank": Solver(hg_pr, pagerank_problem(), n_workers=P, n_shards=SHARDS),
+        "ppr": Solver(hg_pr, ppr_problem(), n_workers=P, n_shards=SHARDS),
+        "sssp": Solver(hg_ss, sssp_problem(source=hub), n_workers=P, n_shards=SHARDS),
+        "rwr": Solver(hg_pr, rwr_embedding_problem(), n_workers=P, n_shards=SHARDS),
+    }
+    ranges = ((0, 2), (2, 4))
+
+    def err_of(a, b):
+        return float((a.double() - b.double()).abs().max().item()) if a.numel() else 0.0
+
+    def rank_case(name, d, wire):
+        sv = solvers[name]
+        sr = sv.problem.semiring
+        sched = sv.schedule(d)
+        plan = sv.frontier_plan(sched)
+        F = sv.problem.feature_dim
+        feat = (F,) if F > 1 else ()
+        if name == "ppr":
+            ep = sv.row_update(ppr_teleport(hg_pr, [hub])[0])
+        elif name == "rwr":
+            ep = sv.row_update(rwr_restart(hg_pr, rng.choice(hg_pr.n, F, replace=False))).for_frontier(feat)
+        else:
+            ep = sv.row_update()
+        if sr.torch_dtype == torch.float32:
+            x0 = rng.random((hg_pr.n,) + feat).astype(np.float32)
+        else:
+            x0 = rng.integers(0, 5000, hg_ss.n).astype(np.int32)
+        el, er, n_local, n_recv = rank_round_check(dev, sv, sched, plan, ep, engine.extend_frontier(x0, sr, "cpu"),
+                                                   wire, ranges, f"s{HALO_SCALE} {name} δ={d}")
+        errs["halo_local"] = max(errs["halo_local"], el)
+        errs["halo_recv"] = max(errs["halo_recv"], er)
+        launches["halo_local"] += n_local
+        launches["halo_recv"] += n_recv
+        log(f"[2] K2 rank entries s{HALO_SCALE} {name} δ={sched.delta} {wire}: S={sched.S} H={plan.H} "
+            f"ranges={list(ranges)} launches={n_local}+{n_recv} equal")
+
+    def batch_case(name, Q, d):
+        sv = solvers["pagerank" if name == "ppr" else name]
+        sr = sv.problem.semiring
+        sched = sv.schedule(d)
+        plan = sv.frontier_plan(sched)
+        seeds = top_out_degree(hg_pr, Q)
+        if name == "ppr":
+            ep, feat = solvers["ppr"].batch_row_update(ppr_teleport(hg_pr, seeds), Q, ()), ()
+            X = torch.tensor(rng.random((hg_pr.n + 1, Q)).astype(np.float32))
+        elif name == "rwr":
+            F = sv.problem.feature_dim
+            q = np.stack([rwr_restart(hg_pr, rng.choice(hg_pr.n, F, replace=False)) for _ in range(Q)])
+            ep, feat = sv.batch_row_update(q, Q, (F,)), (F,)
+            X = torch.tensor(rng.random((hg_pr.n + 1, Q, F)).astype(np.float32))
+        else:
+            ep, feat = sv.batch_row_update(None, Q, ()), ()
+            X = torch.tensor(multi_source_x0(hg_ss, seeds).T.copy())
+            X = torch.cat([X, torch.full((1, Q), 2**30 - 1, dtype=torch.int32)])
+        before = fused_halo_batch_round_cuda.launches
+        got = ops.fused_halo_batch_round(plan.scatter_x(X.to(dev)), sched, plan, sr, ep).cpu()
+        if X.dtype == torch.float32:
+            cpu_sched = on(sched, "cpu")
+            want = ref.fused_halo_batch_round_ref(
+                engine_sharded.make_frontier_plan(cpu_sched, SHARDS).scatter_x(X), cpu_sched,
+                engine_sharded.make_frontier_plan(cpu_sched, SHARDS), sr, ep.to("cpu"))
+        else:
+            want = ref.fused_halo_batch_round_ref(plan.scatter_x(X.to(dev)), sched, plan, sr, ep).cpu()
+        launches["halo_round_batch"] += fused_halo_batch_round_cuda.launches - before
+        err = err_of(got[:, :-1].double(), want[:, :-1].double())
+        C = Q * (feat[0] if feat else 1)
+        errs[f"halo_round_batch_c{C}"] = max(errs[f"halo_round_batch_c{C}"], err)
+        log(f"[2] K2 batch entry s{HALO_SCALE} {name} {ep.tag} Q={Q} C={C} δ={sched.delta}: max_abs_err={err}")
+        if not torch.equal(got[:, :-1], want[:, :-1]):
+            raise AssertionError(f"K2's batch entry disagrees with its plain version: {name} Q={Q} δ={d}")
+
+    for d in ("sync", 128):
+        for name, wires in (("pagerank", ("f32", "int8", "fp8")), ("ppr", ("f32", "int8")), ("sssp", ("f32",)),
+                            ("rwr", ("f32",))):
+            for wire in wires:
+                rank_case(name, d, wire)
+        for name, Q in (("ppr", BATCH_Q), ("ppr", BATCH_Q_WIDE), ("sssp", BATCH_Q), ("rwr", BATCH_Q_MATRIX)):
+            batch_case(name, Q, d)
+    return {"errs": errs, "launches": launches}
+
+
+def halo_batch_phase(dev, g_pr, g_ss, dstar: dict, replicated: dict, sssp_solver=None) -> dict:
+    """Phase 3, the batched halo path: ``Solver.solve_batch(frontier="halo")``
+    over D = SHARDS shards on the full-size graphs, ppr and multi-source sssp
+    at Q = BATCH_Q from the vertices of largest out-degree at δ*, and ppr at
+    Q = BATCH_Q_WIDE at sync, each one launch of K2's batch entry a round
+    (its count reset before and read after): ``x`` and
+    ``rounds_per_query`` must equal the replicated batch's (K1's loop entry;
+    ``replicated[(name, Q, δ)]``, run here where phase 3's batch path did not)
+    bit for bit, and one K2 batch round the plain batch halo round (ppr Q = 8
+    and 32 at sync on the CPU, sssp Q = 8 at δ* on the card, order-free).  Then K2's
+    batch round in ms per round (CUDA events) beside K1's batch entry at the
+    same C, its plain version on the card, ``torch.sparse.mm`` by the ``(n,
+    C)`` frontier (at δ*, one call a commit step) and its bound
+    (``halo_round_bound`` at C values a row), ppr at Q = 8 and 32 at sync and
+    δ*.  Then one ``GraphService(frontier="halo")`` continuous replay of the
+    serving path's SERVE_UPDATE_RATE trace (no update): lane_faults 0, every
+    accepted query completed, K2's batch launches equal to the lanes'
+    rounds, and SERVE_SAMPLE answers a tenant equal to a fresh replicated
+    one-query ``solve_batch``.  ``sssp_solver``: an SSSP solver of D =
+    SHARDS on ``g_ss`` whose schedules and plans to reuse.  Returns the
+    kernels line's numbers."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.round_block import fused_batch_round_cuda, fused_halo_batch_round_cuda
+    from repro_torch.launch.serve_graph import GraphService
+    from repro_torch.launch.service import ContinuousScheduler, poisson_trace, replay_continuous
+    from repro_torch.solve import Solver, multi_source_x0, ppr_problem, ppr_teleport, solve_batch, sssp_problem
+
+    hub = int(np.argmax(g_pr.out_degree))
+    solvers = {
+        "ppr": Solver(g_pr, ppr_problem(), n_workers=P, n_shards=SHARDS),
+        "sssp": sssp_solver or Solver(g_ss, sssp_problem(source=hub), n_workers=P, n_shards=SHARDS),
+    }
+    ds = {"ppr": int(dstar["pagerank"]), "sssp": int(dstar["sssp"])}
+
+    def query(name, Q):
+        seeds = top_out_degree(g_pr, Q)
+        if name == "sssp":
+            return multi_source_x0(g_ss, seeds), None
+        return np.full((Q, g_pr.n), 1.0 / g_pr.n, np.float32), ppr_teleport(g_pr, seeds)
+
+    cases = [("ppr", BATCH_Q, ds["ppr"]), ("sssp", BATCH_Q, ds["sssp"]), ("ppr", BATCH_Q_WIDE, "sync")]
+    t0 = time.perf_counter()
+    for name, Q, d in cases:  # set-up: schedules and plans built before the count
+        sv = solvers[name]
+        sv.frontier_plan(sv.schedule(d))
+    fused_halo_batch_round_cuda.launches = 0
+    rows, by_c = [], {}
+    for name, Q, d in cases:
+        sv = solvers[name]
+        x0, qb = query(name, Q)
+        before = fused_halo_batch_round_cuda.launches
+        t1 = time.perf_counter()
+        b = sv.solve_batch(x0, q=qb, delta=d, frontier="halo")
+        wall = time.perf_counter() - t1
+        launches = fused_halo_batch_round_cuda.launches - before
+        rep = replicated.get((name, Q, sv.resolve_delta(d)))
+        if rep is None:
+            rep = sv.solve_batch(x0, q=qb, delta=d)
+        row = {
+            "problem": name, "Q": Q, "delta": b.delta, "S": sv.schedule(d).S, "D": SHARDS, "rounds": b.rounds,
+            "converged": int(b.converged.sum()), "total_s": wall, "ms_per_round": wall / b.rounds * 1e3,
+            "launches": launches,
+            "equals_replicated": bool(
+                b.rounds == rep.rounds and np.array_equal(b.rounds_per_query, rep.rounds_per_query)
+                and np.array_equal(b.x.view(np.int32), rep.x.view(np.int32))),
+            "replicated_total_s": rep.total_time_s,
+        }
+        log(f"[3] halo batch {json.dumps(row)}")
+        if launches != b.rounds or not row["equals_replicated"] or not b.converged.all():
+            raise AssertionError(f"the halo batch was not one K2 batch launch a round equal to the replicated one: {row}")
+        by_c[Q] = by_c.get(Q, 0) + launches
+        rows.append(row)
+    path_launches = fused_halo_batch_round_cuda.launches
+    log(f"[3] halo batch path: {path_launches} K2 batch launches {by_c}; done in {time.perf_counter() - t0:.1f} s")
+
+    # one round of K2's batch entry against the plain batch halo round
+    t0 = time.perf_counter()
+    err = {BATCH_Q: 0.0, BATCH_Q_WIDE: 0.0}
+    for name, Q, d, where in (("ppr", BATCH_Q, "sync", "cpu"), ("sssp", BATCH_Q, ds["sssp"], "card"),
+                              ("ppr", BATCH_Q_WIDE, "sync", "cpu")):
+        sv = solvers[name]
+        sched = sv.schedule(d)
+        plan = sv.frontier_plan(sched)
+        x0, qb = query(name, Q)
+        ep = sv.batch_row_update(qb, Q, ())
+        X = torch.cat([torch.as_tensor(x0.T.copy()), torch.full((1, Q), sv.problem.semiring.zero.item(),
+                                                                dtype=sv.problem.semiring.torch_dtype)])
+        got = ops.fused_halo_batch_round(plan.scatter_x(X.to(dev)), sched, plan, sv.problem.semiring, ep).cpu()
+        if where == "cpu":
+            cs, cp = on(sched, "cpu"), on(plan, "cpu")
+            want = ref.fused_halo_batch_round_ref(cp.scatter_x(X), cs, cp, sv.problem.semiring, ep.to("cpu"))
+        else:
+            want = ref.fused_halo_batch_round_ref(plan.scatter_x(X.to(dev)), sched, plan, sv.problem.semiring, ep).cpu()
+        e = float((got[:, :-1].double() - want[:, :-1].double()).abs().max().item())
+        err[Q] = max(err[Q], e)
+        log(f"[3] halo batch round full size {name} Q={Q} δ={sched.delta} vs plain ({where}): max_abs_err={e}")
+        if not torch.equal(got[:, :-1], want[:, :-1]):
+            raise AssertionError(f"K2's batch entry disagrees with the plain batch halo round: {name}")
+    log(f"[3] K2 batch entry vs plain at full size: done in {time.perf_counter() - t0:.1f} s")
+
+    # timing: K2's batch round beside K1's batch entry, the plain round and the library
+    t0 = time.perf_counter()
+    card = card_line()
+    timings = []
+    sv = solvers["ppr"]
+    idx = torch.tensor(g_pr.indptr.astype(np.int64), device=dev)
+    csr = torch.sparse_csr_tensor(idx, torch.tensor(g_pr.indices.astype(np.int64), device=dev),
+                                  torch.tensor(g_pr.values, device=dev), size=(g_pr.n, g_pr.n))
+    for Q in (BATCH_Q, BATCH_Q_WIDE):
+        x0, qb = query("ppr", Q)
+        ep = sv.batch_row_update(qb, Q, ())
+        X = torch.cat([torch.as_tensor(x0.T.copy()), torch.zeros((1, Q))]).to(dev)
+        for d in ("sync", ds["ppr"]):
+            sched = sv.schedule(d)
+            plan = sv.frontier_plan(sched)
+            X_loc = plan.scatter_x(X)
+            sr = sv.problem.semiring
+            ms = time_ms(lambda: fused_halo_batch_round_cuda(X_loc, sched, plan, sr, ep))
+            layout_ms = time_ms(lambda: plan.gather_x(fused_halo_batch_round_cuda(
+                plan.scatter_x(X), sched, plan, sr, ep), dump=X[-1:]))
+            k1_ms = time_ms(lambda: fused_batch_round_cuda(X, sched, sr, ep))
+            X_plain = X_loc.clone()
+            plain_ms = time_ms(lambda: ref.fused_halo_batch_round_ref(X_plain, sched, plan, sr, ep), max_iters=3,
+                               min_iters=1)
+            Xn = X[:-1].contiguous()
+            if sched.S == 1:
+                lib_ms = time_ms(lambda: torch.sparse.mm(csr, Xn))
+            else:
+                mats = step_blocks(g_pr, sched, dev)
+                lib_ms = time_ms(lambda: [torch.sparse.mm(m, Xn) for m in mats])
+                del mats
+            bound, by = halo_round_bound(sched, plan, "add_table", "f32", F=Q)
+            row = {"card": card, "problem": "ppr", "Q": Q, "C": Q, "delta": sched.delta, "S": sched.S, "ms": ms,
+                   "halo_round_ms": layout_ms, "k1_batch_ms": k1_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "bound_ms": bound, "bound_by": by, "share_of_bound": bound / ms}
+            log(f"[3] halo batch timing {json.dumps(row)}")
+            timings.append(row)
+            del X_loc, X_plain
+    log(f"[3] halo batch timing: done in {time.perf_counter() - t0:.1f} s")
+
+    # the serving path on halo lanes: the SERVE_UPDATE_RATE trace, continuous
+    t0 = time.perf_counter()
+    kw = dict(n_workers=P, batch_size=SERVE_BATCH, queue_capacity=SERVE_QUEUE, frontier="halo", n_shards=SHARDS)
+    services = {
+        "road": GraphService(g_ss, delta=ds["sssp"], algos=("sssp",), **kw),
+        "social": GraphService(g_pr, delta=ds["ppr"], algos=("ppr",), **kw),
+    }
+    for svc in services.values():  # set-up before the count
+        s = svc.solver(svc.algos[0])
+        s.frontier_plan(s.schedule())
+    n = {name: svc.graph.n for name, svc in services.items()}
+    trace = poisson_trace(SERVE_UPDATE_RATE, SERVE_DURATION, n, seed=SERVE_SEED,
+                          graph_for={"sssp": ("road",), "ppr": ("social",)})
+    sched = ContinuousScheduler(services, queue_capacity=SERVE_QUEUE)
+    fused_halo_batch_round_cuda.launches = 0
+    rep = replay_continuous(sched, trace)
+    serve_launches = fused_halo_batch_round_cuda.launches
+    stats = sched.stats()
+    c, r = stats["counters"], rep["report"]
+    lane_rounds = sum(lane["rounds_executed"] for lane in stats["lanes"].values())
+    row = {"card": card, "rate": SERVE_UPDATE_RATE, **{k: r[k] for k in (
+        "offered", "completed", "rejected", "clock_rounds", "p50_rounds", "p99_rounds", "completed_per_kround",
+        "wall_s")}, "lane_faults": c["lane_faults"], "failed": c["failed"], "launches": serve_launches,
+        "lane_rounds": lane_rounds}
+    log(f"[3] halo serve replay {json.dumps(row)}")
+    if not (c["lane_faults"] == 0 and c["failed"] == 0 and r["completed"] + r["rejected"] == r["offered"]
+            and r["completed"] > 0 and serve_launches == lane_rounds > 0):
+        raise AssertionError(f"the halo lanes did not serve every query at one K2 launch a round: {row}")
+    for tenant, svc in services.items():
+        for res in [x for x in rep["results"] if x.graph == tenant][:SERVE_SAMPLE]:
+            g = svc.graph
+            if res.algo == "sssp":
+                f = solve_batch(svc.solver("sssp"), multi_source_x0(g, [res.payload]), frontier="replicated")
+            else:
+                f = solve_batch(svc.solver("ppr"), np.full((1, g.n), 1.0 / g.n, np.float32),
+                                q=ppr_teleport(g, [res.payload], svc.damping), frontier="replicated")
+            if not (res.converged and res.rounds == f.rounds and np.array_equal(res.x.view(np.int32),
+                                                                               f.x[0].view(np.int32))):
+                raise AssertionError(f"halo-served {tenant} query {res.request_id} differs from a replicated solve")
+    log(f"[3] halo serving path: {serve_launches} K2 batch launches; done in {time.perf_counter() - t0:.1f} s")
+    return {"launches": path_launches, "by_c": by_c, "serve_launches": serve_launches, "max_abs_err": err,  # by C
+            "timings": timings}
+
+
+def halo_rank_child(role: str, npz: str, out: str, init: str, spec: str) -> int:
+    """One process of the cross-process halo path (``--halo-rank``): ``role``
+    ``one`` solves in one process (all SHARDS shards, K2 a round), a rank
+    number joins a ``gloo`` group of RANKS processes on this card and solves
+    its SHARDS/RANKS shards (K2's rank entry and receive a step).  Cases:
+    PageRank at sync and δ* and SSSP at δ* on the full-size graph in
+    ``npz``; int8 and fp8 PageRank at HALO_SCALE and δ = 128.  Per case:
+    rounds, flushes, S, launches, the peak device memory of the solver's
+    construction and solve, ms a step, the bytes a rank gathers a round (the
+    steps' send blocks and scales, and for int8/fp8 the f32 refresh of the
+    halo copies that starts each round) and, for int8/fp8, that refresh
+    alone in ms (REFRESH_REPS calls after the solve, collective); x goes to
+    ``out/<role>.npz``."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.dist import engine_sharded
+    from repro_torch.graphs.formats import CSRGraph
+    from repro_torch.graphs.generators import make_graph, sssp_values
+    from repro_torch.kernels.round_block import fused_halo_round_cuda, halo_local_step_cuda, halo_recv_cuda
+    from repro_torch.solve import Solver, pagerank_problem, sssp_problem
+
+    spec = json.loads(spec)
+    group = None
+    if role != "one":
+        dist.init_process_group("gloo", init_method=init, rank=int(role), world_size=RANKS,
+                                timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+        group = dist.group.WORLD
+    a = np.load(npz)
+    g_pr = CSRGraph(int(a["n"]), a["indptr"], a["indices"], a["values"], name=str(a["name"]))
+    del a
+    g_ss = g_pr.with_values(sssp_values(g_pr.indices), name=f"{g_pr.name}-sssp")
+    hub = int(np.argmax(g_pr.out_degree))
+    hg = make_graph("twitter", scale=HALO_SCALE, efactor=EFACTOR, kind="pagerank")
+    cases = [
+        ("pagerank_sync", g_pr, pagerank_problem(), "sync", "f32", {}),
+        ("pagerank_dstar", g_pr, pagerank_problem(), spec["pagerank"], "f32", {}),
+        ("sssp_dstar", g_ss, sssp_problem(source=hub), spec["sssp"], "f32", {}),
+        (f"pagerank_s{HALO_SCALE}_int8", hg, pagerank_problem(), 128, "int8", {"tol": QUANT_TOL}),
+        (f"pagerank_s{HALO_SCALE}_fp8", hg, pagerank_problem(), 128, "fp8", {"tol": QUANT_TOL}),
+    ]
+    rows, xs = {}, {}
+    for name, g, prob, d, wire, kw in cases:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        before = (fused_halo_round_cuda.launches, halo_local_step_cuda.launches, halo_recv_cuda.launches)
+        t1 = time.perf_counter()
+        sv = Solver(g, prob, n_workers=P, delta=d, frontier="halo", n_shards=SHARDS, halo_dtype=wire,
+                    group=group, **kw)
+        r = sv.solve()
+        wall = time.perf_counter() - t1
+        torch.cuda.synchronize()
+        peak = int(torch.cuda.max_memory_allocated() - base)
+        S = sv.rank_layout()[0].S if group is not None else sv.schedule().S
+        plan = sv.rank_layout()[1] if group is not None else sv.frontier_plan(sv.schedule())
+        # every rank gathers the (D, H) send block of each step (4 B a value,
+        # or 1 B and a 4-B scale a shard), and on int8/fp8 first the (D, S·H)
+        # exact f32 boundary rows of the refresh
+        steps_b = S * plan.D * plan.H * (4 if wire == "f32" else 1) + (0 if wire == "f32" else S * plan.D * 4)
+        refresh_b = 0 if wire == "f32" else plan.D * S * plan.H * 4
+        refresh_ms = None
+        if group is not None and wire != "f32":
+            refresh = engine_sharded._halo_refresh(plan, prob.semiring, sv.group)
+            x_loc = torch.zeros((plan.d1 - plan.d0, plan.L), device=plan.src_loc.device)
+            refresh(x_loc)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            for _ in range(REFRESH_REPS):
+                refresh(x_loc)
+            torch.cuda.synchronize()
+            refresh_ms = (time.perf_counter() - t2) / REFRESH_REPS * 1e3
+            del x_loc
+        rows[name] = {
+            "rounds": r.rounds, "converged": r.converged, "flushes": r.flushes, "flush_bytes": r.flush_bytes,
+            "delta": r.delta, "S": S, "wall_s": wall, "rounds_s": float(np.sum(r.round_times_s)),
+            "ms_per_step": float(np.sum(r.round_times_s)) / (r.rounds * S) * 1e3,
+            "peak_bytes": peak,
+            "k2_launches": fused_halo_round_cuda.launches - before[0],
+            "local_launches": halo_local_step_cuda.launches - before[1],
+            "recv_launches": halo_recv_cuda.launches - before[2],
+            "residual": r.residuals[-1],
+            "transport": sv.group.transport if group is not None else None,
+            "gathered_bytes_per_round": steps_b + refresh_b, "refresh_bytes_per_round": refresh_b,
+            "f32_wire_bytes_per_round": S * plan.D * plan.H * 4, "refresh_ms": refresh_ms,
+        }
+        xs[name] = r.x
+        del sv, r
+    np.savez(Path(out) / f"{role}.npz", **xs)
+    print(json.dumps(rows), flush=True)
+    if group is not None:
+        dist.barrier()
+        dist.destroy_process_group()
+    return 0
+
+
+def halo_rank_phase(npz: str, dstar: dict) -> dict:
+    """Phase 3, the halo solve across processes: this script with
+    ``--halo-rank one`` (the one-process K2 solves), then RANKS processes
+    with ``--halo-rank R`` on this one card over a ``gloo`` group (NCCL
+    takes one rank a card), each holding SHARDS/RANKS shards.  Every rank's
+    x, rounds, flushes and flush_bytes must equal the one-process solve's
+    bit for bit, K2's rank entry and receive must launch once a step a rank
+    (the one-process solve: K2 once a round), and each rank's peak device
+    memory must be below the one-process solve's.  Prints ms a step a rank.
+    Returns the kernels line's launches."""
+    t0 = time.perf_counter()
+    spec = json.dumps({"pagerank": int(dstar["pagerank"]), "sssp": int(dstar["sssp"])})
+    me = str(Path(__file__).resolve())
+    with tempfile.TemporaryDirectory() as work:
+        init = f"file://{Path(work) / 'store'}"
+
+        def run(roles):
+            procs = [subprocess.Popen([sys.executable, me, "--halo-rank", role, npz, work, init, spec],
+                                      stdout=subprocess.PIPE, text=True) for role in roles]
+            outs = []
+            try:
+                for p in procs:
+                    outs.append(p.communicate(timeout=RANK_TIMEOUT_S)[0])
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            for role, p in zip(roles, procs):
+                if p.returncode != 0:
+                    raise RuntimeError(f"--halo-rank {role} failed ({p.returncode})")
+            return [json.loads(o.strip().splitlines()[-1]) for o in outs]
+
+        (one,) = run(["one"])
+        ranks = run([str(r) for r in range(RANKS)])
+        x_one = dict(np.load(Path(work) / "one.npz"))
+        x_ranks = [dict(np.load(Path(work) / f"{r}.npz")) for r in range(RANKS)]
+    card = card_line()
+    log(f"[3] halo ranks: {RANKS} processes share this one card over gloo, through pinned host memory, so no "
+        f"number here is a cross-card wire time ({card})")
+    local = recv = 0
+    for name, o in one.items():
+        if o["k2_launches"] != o["rounds"]:
+            raise AssertionError(f"the one-process halo solve did not launch K2 once a round: {name} {o}")
+        for r, rr in enumerate(ranks):
+            row = rr[name]
+            equal = ((row["rounds"], row["flushes"], row["flush_bytes"]) == (o["rounds"], o["flushes"], o["flush_bytes"])
+                     and np.array_equal(x_ranks[r][name].view(np.int32), x_one[name].view(np.int32)))
+            log(f"[3] halo rank {json.dumps({'card': card, 'case': name, 'rank': r, 'ranks': RANKS, **row, 'equal': equal, 'one_process_peak_bytes': o['peak_bytes'], 'one_process_ms_per_round': o['rounds_s'] / o['rounds'] * 1e3})}")
+            if not equal:
+                raise AssertionError(f"rank {r}'s {name} differs from the one-process K2 solve")
+            if not row["local_launches"] == row["recv_launches"] == row["rounds"] * row["S"] or row["k2_launches"]:
+                raise AssertionError(f"rank {r}'s {name} did not launch the rank entry and receive once a step: {row}")
+            if row["peak_bytes"] >= o["peak_bytes"]:
+                raise AssertionError(f"rank {r}'s {name} peak memory {row['peak_bytes']} is not below the "
+                                     f"one-process solve's {o['peak_bytes']}")
+            local += row["local_launches"]
+            recv += row["recv_launches"]
+    log(f"[3] halo ranks path: {local} rank-entry and {recv} receive launches; done in {time.perf_counter() - t0:.1f} s")
+    return {"local": local, "recv": recv}
+
+
+def halo_rank_full_check(dev, pr, ss, dstar: dict) -> dict:
+    """Phase 3: K2's rank entry and receive at the shapes the halo solve
+    across processes gives them (``rank_round_check``, one round over the
+    ranks' shard ranges [0, SHARDS/RANKS) and [SHARDS/RANKS, SHARDS) from one
+    random frontier): PageRank at sync and δ* and SSSP at δ* on the full-size
+    graphs, bit for bit against their plain versions.  Returns the largest
+    errors and the comparison launches."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.core import engine
+
+    rng = np.random.default_rng(2522)
+    half = SHARDS // RANKS
+    ranges = ((0, half), (half, SHARDS))
+    errs, launches = {"halo_local": 0.0, "halo_recv": 0.0}, 0
+    for name, sv, d in (("pagerank", pr, "sync"), ("pagerank", pr, int(dstar["pagerank"])),
+                        ("sssp", ss, int(dstar["sssp"]))):
+        t0 = time.perf_counter()
+        sr = sv.problem.semiring
+        sched = sv.schedule(d)
+        plan = sv.frontier_plan(sched)
+        if sr.torch_dtype == torch.float32:
+            x0 = rng.random(sv.graph.n).astype(np.float32)
+        else:
+            x0 = rng.integers(0, 5000, sv.graph.n).astype(np.int32)
+            x0[rng.random(sv.graph.n) < 0.3] = 2**30 - 1
+        el, er, n_local, n_recv = rank_round_check(dev, sv, sched, plan, sv.row_update(),
+                                                   engine.extend_frontier(x0, sr, "cpu"), "f32", ranges,
+                                                   f"full size {name} δ={sched.delta}")
+        errs["halo_local"] = max(errs["halo_local"], el)
+        errs["halo_recv"] = max(errs["halo_recv"], er)
+        launches += n_local + n_recv
+        log(f"[3] K2 rank entries full size {name} δ={sched.delta} f32: S={sched.S} H={plan.H} ranges={list(ranges)} "
+            f"launches={n_local}+{n_recv} equal to the plain versions, max_abs_err={el}/{er}; "
+            f"{time.perf_counter() - t0:.1f} s")
+    return {"errs": errs, "launches": launches}
+
+
+def halo_rank_timing(dev, solver, d, card) -> dict:
+    """Phase 4: K2's rank entry and receive a launch (CUDA events over a
+    round's S launches, over S), for the ranks' half [0, SHARDS // RANKS) of
+    the full-size PageRank plan at δ ``d``: beside their bounds
+    (``halo_rank_bounds``), their plain versions on the card, and one library
+    call a step (``torch.sparse.mm`` of the half's rows of the step by x;
+    ``index_copy_`` of the gathered rows into the halo slots)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.core import engine
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.round_block import halo_local_step_cuda, halo_recv_cuda
+
+    sr = solver.problem.semiring
+    sched = solver.schedule(d)
+    plan = solver.frontier_plan(sched)
+    ep = solver.row_update()
+    half = SHARDS // RANKS
+    x_ext = engine.extend_frontier(solver.problem.x0(solver.graph), sr, dev)
+    x_loc = plan.scatter_x(x_ext)
+    mine = x_loc[:half]
+    sends = [[halo_local_step_cuda(x_loc[a:b], None, sched, plan, sr, ep, "f32", s, a, b)[0]
+              for a, b in ((0, half), (half, SHARDS))] for s in range(sched.S)]
+    gathered = [torch.cat(pair) for pair in sends]
+    del sends
+    S = sched.S
+
+    def local_round():
+        for s in range(S):
+            halo_local_step_cuda(mine, None, sched, plan, sr, ep, "f32", s, 0, half)
+
+    def recv_round():
+        for s in range(S):
+            halo_recv_cuda(mine, gathered[s], None, plan, s, 0, half)
+
+    local_ms = time_ms(local_round) / S
+    recv_ms = time_ms(recv_round) / S
+    plain_local = mine.clone()
+    plain_local_ms = time_ms(lambda: [ref.halo_local_step_ref(plain_local, None, sched, plan, sr, ep, "f32", s, 0, half)
+                                      for s in range(S)], max_iters=3, min_iters=1) / S
+    plain_recv_ms = time_ms(lambda: [ref.halo_recv_ref(plain_local, gathered[s], None, plan, s, 0, half)
+                                     for s in range(S)], max_iters=5, min_iters=1) / S
+    del plain_local
+    xn = x_ext[:-1]
+    mats = step_blocks(solver.graph, sched, dev, workers=slice(0, half * plan.P_loc))
+    lib_local_ms = time_ms(lambda: [torch.sparse.mm(m, xn[:, None]) for m in mats]) / S
+    del mats
+    flat = mine.reshape(-1)
+    dests, srcs = [], []
+    for s in range(S):
+        dest = plan.recv_idx[s, :half].long()
+        keep = dest < plan.L - 1
+        offs = (torch.arange(half, device=dev)[:, None] * plan.L).expand_as(dest)
+        dests.append((dest + offs)[keep])
+        srcs.append(gathered[s].reshape(-1).repeat(half)[keep.reshape(-1)])
+    lib_recv_ms = time_ms(lambda: [flat.index_copy_(0, dests[s], srcs[s]) for s in range(S)]) / S
+    (lb, lby), (rb, rby) = halo_rank_bounds(sched, plan, "add_const", "f32", 0, half)
+    row = {"card": card, "problem": "pagerank", "delta": sched.delta, "S": S, "shards": [0, half],
+           "local_ms": local_ms, "local_plain_ms": plain_local_ms, "local_library_ms": lib_local_ms,
+           "local_bound_ms": lb, "local_bound_by": lby, "recv_ms": recv_ms, "recv_plain_ms": plain_recv_ms,
+           "recv_library_ms": lib_recv_ms, "recv_bound_ms": rb, "recv_bound_by": rby}
+    log(f"[4] K2 rank entries {json.dumps(row)}")
+    return row
 
 
 AB_DELTAS = ("sync", 16384)  # δ* of PageRank and of SSSP on twitter scale 22
@@ -1153,6 +1846,7 @@ def main() -> int:
     ap.add_argument("--time-vector", nargs=2, metavar=("GRAPH_NPZ", "CHECKOUT"), help=argparse.SUPPRESS)
     ap.add_argument("--write-graph", nargs=2, metavar=("GRAPH_NPZ", "SCALE"), help=argparse.SUPPRESS)
     ap.add_argument("--restart-warm", metavar="WORK", help=argparse.SUPPRESS)
+    ap.add_argument("--halo-rank", nargs=5, metavar=("ROLE", "GRAPH_NPZ", "OUT", "INIT", "SPEC"), help=argparse.SUPPRESS)
     args = ap.parse_args()
     scale = args.scale
     if args.write_graph:
@@ -1164,6 +1858,8 @@ def main() -> int:
         return time_vector(*args.time_vector)
     if args.restart_warm:
         return restart_warm(args.restart_warm)
+    if args.halo_rank:
+        return halo_rank_child(*args.halo_rank)
     if args.ab:
         return ab(args.ab, scale)
     # the full-size graph is generated in a child process meanwhile
@@ -1542,6 +2238,11 @@ def smoke(scale: int, gen: subprocess.Popen, npz: str) -> int:
     compare_loops(f"s{HALO_SCALE}", mid["pagerank"], mid["sssp"], mid_mat["rwr"], ("sync", 128))
     del mid, mid_mat
     log(f"[2] K1's loop entry at s{HALO_SCALE} done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    entries = halo_entries_check(dev, hg_pr, hg_ss)
+    compare_launches += sum(entries["launches"].values())
+    log(f"[2] K2's rank entries and batch entry at s{HALO_SCALE}: {entries['launches']} comparison launches; "
+        f"done in {time.perf_counter() - t0:.1f} s")
 
     # the quantized halo's rounding must not depend on the device
     t0 = time.perf_counter()
@@ -2134,7 +2835,7 @@ def smoke(scale: int, gen: subprocess.Popen, npz: str) -> int:
         inc.apply_updates = timed(inc.apply_updates, apply_s)
         inc._patch_schedules = timed(inc._patch_schedules, patch_s)
         rng = np.random.default_rng(EVOLVE_SEED)
-        for k in EVOLVE_BATCHES:
+        for k in EVOLVE_BATCHES if name == "sssp" else EVOLVE_PAGERANK_BATCHES:
             t1 = time.perf_counter()
             batch = events[name](inc.graph, k, rng)
             make_s = time.perf_counter() - t1
@@ -2455,6 +3156,22 @@ def smoke(scale: int, gen: subprocess.Popen, npz: str) -> int:
     log(f"[3] serving path: {serve['serve_launches']} loop-entry launches (C = {SERVE_BATCH}); "
         f"done in {time.perf_counter() - t0:.1f} s")
 
+    # the batched halo path (K2's batch entry): solve_batch and halo lanes
+    t0 = time.perf_counter()
+    rep_batches = {(name, Qn, b.delta): b for name, Qn, d, every, x0, qb, b, walls, allocs in batch_runs
+                   if every is None}
+    halo_batch = halo_batch_phase(dev, g_pr, g_ss, dstar, rep_batches, sssp_solver=full["sssp"])
+    del rep_batches
+    torch.cuda.empty_cache()
+    log(f"[3] halo batch and serving: done in {time.perf_counter() - t0:.1f} s")
+    # the halo solve across processes (K2's rank entry and receive)
+    halo_ranks = halo_rank_phase(npz, dstar)
+    t0 = time.perf_counter()
+    rank_full = halo_rank_full_check(dev, full["pagerank"], full["sssp"], dstar)
+    compare_launches += rank_full["launches"]
+    torch.cuda.empty_cache()
+    log(f"[3] K2's rank entries vs plain at full size: done in {time.perf_counter() - t0:.1f} s")
+
     # ---------------------------------------------------------------- 4 ---
     t0 = time.perf_counter()
     timings = []
@@ -2581,6 +3298,9 @@ def smoke(scale: int, gen: subprocess.Popen, npz: str) -> int:
         del x_loc, rnd, ef0
     torch.cuda.synchronize()
     log(f"[4] K2 done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rank_timing = halo_rank_timing(dev, full["pagerank"], dstar["pagerank"], card_line())
+    log(f"[4] K2's rank entries done in {time.perf_counter() - t0:.1f} s")
 
     # K1 and K2 at F = 4: rwr and labelprop at sync and δ*
     t0 = time.perf_counter()
@@ -3009,6 +3729,58 @@ def smoke(scale: int, gen: subprocess.Popen, npz: str) -> int:
             },
         ]
     }
+    hb_rows = {(row["Q"], row["delta"]): row for row in halo_batch["timings"]}
+    kernels["kernels"] += [
+        *(
+            {
+                "name": f"halo_round_batch_c{C}",
+                "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/round_block.cu",
+                "replaces": "src/repro/kernels/round_block.py:204",
+                "launches": launches,
+                "max_abs_err": max(entries["errs"][f"halo_round_batch_c{C}"], halo_batch["max_abs_err"][C]),
+                "ms": row["ms"],
+                "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"],
+            }
+            for C, launches, row in (
+                # ppr Q = 8 at δ* (the path's) and its serving lanes; ppr Q = 32 at sync
+                (BATCH_Q, halo_batch["by_c"][BATCH_Q], hb_rows[(BATCH_Q, full["pagerank"].resolve_delta("auto"))]),
+                (BATCH_Q_WIDE, halo_batch["by_c"][BATCH_Q_WIDE],
+                 hb_rows[(BATCH_Q_WIDE, full["pagerank"].block_size)]),
+            )
+        ),
+        {
+            "name": "halo_local",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/round_block.cu",
+            "replaces": "src/repro/kernels/round_block.py:204",
+            "launches": halo_ranks["local"],
+            "max_abs_err": max(entries["errs"]["halo_local"], rank_full["errs"]["halo_local"]),
+            "ms": rank_timing["local_ms"],
+            "plain_ms": rank_timing["local_plain_ms"],
+            "bound_ms": rank_timing["local_bound_ms"],
+            "bound_by": rank_timing["local_bound_by"],
+            "library_ms": rank_timing["local_library_ms"],
+        },
+        {
+            "name": "halo_recv",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/round_block.cu",
+            "replaces": "src/repro/dist/engine_sharded.py:611",
+            "launches": halo_ranks["recv"],
+            "max_abs_err": max(entries["errs"]["halo_recv"], rank_full["errs"]["halo_recv"]),
+            "ms": rank_timing["recv_ms"],
+            "plain_ms": rank_timing["recv_plain_ms"],
+            "bound_ms": rank_timing["recv_bound_ms"],
+            "bound_by": rank_timing["recv_bound_by"],
+            "library_ms": rank_timing["recv_library_ms"],
+        },
+    ]
+    next(k for k in kernels["kernels"] if k["name"] == f"halo_round_batch_c{BATCH_Q}")["serve_launches"] = (
+        halo_batch["serve_launches"])
     next(k for k in kernels["kernels"] if k["name"] == "round_block_solve")["resolve_launches"] = evolve_launches
     next(k for k in kernels["kernels"] if k["name"] == "round_block_solve")["restart_launches"] = restart_launches["loop"]
     next(k for k in kernels["kernels"] if k["name"] == "halo_round")["restart_launches"] = restart_launches["k2"]

@@ -19,6 +19,7 @@ from repro_torch.graphs.partition import Partition
 __all__ = [
     "access_matrix",
     "locality_fraction",
+    "partition_report",
     "remote_read_fraction",
 ]
 
@@ -54,3 +55,25 @@ def locality_fraction(mat: np.ndarray) -> float:
 def remote_read_fraction(mat: np.ndarray) -> float:
     """Fraction of reads crossing shards — the edge-cut mass the halo pays."""
     return 1.0 - locality_fraction(mat)
+
+
+def partition_report(
+    graph: CSRGraph, partition: Partition, mat: np.ndarray | None = None
+) -> dict:
+    """Fig-5 locality numbers + the halo/cut stats of the same partition.
+
+    ``off_diagonal_reads`` from the access matrix equals ``partition.edge_cut``
+    by construction (each edge is one read) — asserted here so the two
+    instrumentation paths can never drift apart.  Pass a precomputed ``mat``
+    (from :func:`access_matrix` on the same partition) to skip the edge scan.
+    """
+    if mat is None:
+        mat = access_matrix(graph, partition)
+    off_diag = int(mat.sum() - np.trace(mat))
+    assert off_diag == partition.edge_cut, (off_diag, partition.edge_cut)
+    report = {
+        "locality_fraction": round(locality_fraction(mat), 4),
+        "remote_read_fraction": round(remote_read_fraction(mat), 4),
+    }
+    report.update(partition.stats())
+    return report

@@ -104,6 +104,12 @@ class DeviceSchedule:
     def device(self) -> torch.device:
         return self.src.device
 
+    @property
+    def w0(self) -> int:
+        """The first worker of its cells: 0 (a rank's schedule,
+        :class:`repro_torch.dist.engine_sharded.RankSchedule`, holds a range)."""
+        return 0
+
     def to_host_arrays(self) -> dict:
         """Flat ``{name: ndarray}`` dict round-trippable through ``np.savez``:
         the reference's keys.  ``row_ptr`` is left out: it is derived."""
@@ -332,11 +338,16 @@ def host_loop(
     tol: float,
     max_rounds: int,
     compile_time_s: float = 0.0,
+    finish: Callable | None = None,
 ) -> EngineResult:
     """The host-driven convergence loop over a round ``x_ext -> x_ext``.
 
     Each entry of ``round_times_s`` is the round's wall time up to a device
-    synchronise; the residual is read back after it.
+    synchronise; the residual is read back after it.  With ``finish`` the
+    loop's state is any tensor a round maps to the next (a rank's shards,
+    :meth:`repro_torch.solve.Solver.solve` with a group):
+    ``residual_fn(old, new)`` then reads whole states, and ``finish(state)``
+    gives the ``(n + 1,)+feat`` frontier of the result.
     """
     residuals, times = [], []
     converged = False
@@ -347,7 +358,7 @@ def host_loop(
         if x_new.is_cuda:
             torch.cuda.synchronize(x_new.device)
         times.append(time.perf_counter() - t0)
-        res = float(residual_fn(x_ext[:-1], x_new[:-1]))
+        res = float(residual_fn(x_ext, x_new) if finish else residual_fn(x_ext[:-1], x_new[:-1]))
         residuals.append(res)
         x_ext = x_new
         if res <= tol:
@@ -356,7 +367,7 @@ def host_loop(
     return EngineResult.from_run(
         sched,
         semiring,
-        x_ext,
+        finish(x_ext) if finish else x_ext,
         rounds=rounds,
         converged=converged,
         residuals=residuals,

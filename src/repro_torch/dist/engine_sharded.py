@@ -31,6 +31,21 @@ Two rounds over the same plan:
   quantized to int8 or fp8 with error feedback; the counterpart of the
   reference's ``frontier_pallas_round_fn``.
 
+Across processes (:func:`frontier_rank_round_fn`), each rank of a
+:class:`repro_torch.dist.comm.HaloGroup` holds only its own contiguous
+range of shards: its workers' schedule cells (:class:`RankSchedule`), their
+plan blocks (:meth:`FrontierPlan.for_shards`) and their ``(D/W, L)+feat``
+frontier.  A commit step is K2's rank entry over those shards
+(:func:`repro_torch.kernels.ops.halo_local_step`), an all-gather of the
+``(D, H)+feat`` boundary rows across the group (for int8/fp8, the 1-byte
+values and the ``(D,)+feat`` scales), and K2's receive
+(:func:`repro_torch.kernels.ops.halo_recv`): the reference's
+``frontier_pallas_round_fn`` under ``shard_map``, one process a device.
+
+A batch of Q queries runs the halo round over a ``(D, L, Q)+feat`` batch
+frontier (:func:`frontier_batch_round_fn`, one K2 launch a round), the
+reference's vmapped ``frontier_round_ext_fn``.
+
 The plan is built on the host from the schedule's numpy arrays and equals
 the reference's plan array for array.
 """
@@ -43,26 +58,34 @@ from typing import Callable
 import numpy as np
 import torch
 
-from repro_torch.core.engine import DeviceSchedule
+from repro_torch.core.engine import DeviceSchedule, _cell_row_ptr
 from repro_torch.core.semiring import Semiring
+from repro_torch.graphs.formats import CSRGraph, build_worker_stripe
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.ref import halo_exchange, quantize_halo
 
 __all__ = [
     "FrontierPlan",
     "HALO_DTYPES",
+    "RankSchedule",
     "assemble_frontier_plan",
     "build_plan_shard",
+    "frontier_batch_round_fn",
     "frontier_ef_init",
     "frontier_kernel_round_ext_fn",
     "frontier_kernel_round_fn",
+    "frontier_rank_round_fn",
     "frontier_round_ext_fn",
     "frontier_sharded_round_fn",
     "halo_exchange",
     "make_frontier_plan",
     "plan_shard_bounds",
+    "plan_shard_from_cells",
     "quantize_halo",
+    "rank_schedule",
     "resolve_halo_dtype",
+    "schedule_rows",
+    "shard_halos",
 ]
 
 #: Wire dtypes of the halo exchange.  ``"f32"`` ships the committed boundary
@@ -99,6 +122,13 @@ class FrontierPlan:
     ``(P_loc·δ,)`` chunk; padding entries are 0), and every shard scatters
     the gathered ``(D·H,)`` buffer into its halo slots (``recv_idx``;
     entries it keeps no copy of, and padding, land in its dump slot).
+
+    A rank's plan (:meth:`for_shards`) holds the blocks of shards ``[d0,
+    d1)`` alone: the per-shard tensors' shard axis has ``d1 - d0`` entries
+    (``src_loc``, ``rows_loc``, ``gather_index``, and the second axis of
+    ``send_idx``, ``recv_idx`` and ``dump_last``; ``owned_flat`` the rank's
+    owned vertices), while ``D``, ``L``, ``H`` and the bounds stay global.
+    A whole plan has ``d0 = 0``.
     """
 
     D: int
@@ -121,6 +151,37 @@ class FrontierPlan:
     # lands in the dump slot (-1: none): the value a sequential exchange
     # leaves there, which K2's quantized wire writes
     dump_last: torch.Tensor
+    d0: int = 0  # the first shard held (a rank's plan holds [d0, d1))
+
+    @property
+    def d1(self) -> int:
+        """One past the last shard held."""
+        return self.d0 + self.src_loc.shape[0]
+
+    @property
+    def owned_sizes(self) -> np.ndarray:
+        """``(d1 - d0,)``: the vertices each held shard owns."""
+        return np.diff(self.vertex_bounds)[self.d0 : self.d1]
+
+    @classmethod
+    def for_shards(
+        cls, sched, n_shards: int, d0: int, d1: int, pieces: list, halos: list, device=None
+    ) -> "FrontierPlan":
+        """The plan of shards ``[d0, d1)`` alone: a rank's.
+
+        ``pieces`` are those shards' :func:`build_plan_shard` pieces (from
+        the rank's own schedule cells, :func:`plan_shard_from_cells`),
+        ``halos`` every shard's halo (:func:`shard_halos`, from the graph on
+        the host); ``sched`` holds at least the shards' workers and the
+        global block bounds.  ``L``, ``H`` and the exchange indices are
+        computed from the halos and the global rows (:func:`schedule_rows`,
+        from the bounds), and only the shards' blocks go to ``device``: the
+        arrays equal the whole plan's ``[d0, d1)`` slices.
+        """
+        D = int(n_shards)
+        if not 0 <= d0 < d1 <= D or len(pieces) != d1 - d0:
+            raise ValueError(f"need the pieces of shards [{d0}, {d1}) of {D}")
+        return _assemble(sched, D, d0, pieces, halos, device)
 
     # ------------------------------------------------------------------ #
     # persistence (repro_torch.persist stores plans as plain npz archives)
@@ -203,18 +264,20 @@ class FrontierPlan:
         return torch.cat([_take_rows(flat, self.owned_flat), dump])
 
 
-# FrontierPlan fields derived from the others, never stored.
-_DERIVED = ("owned_flat", "dump_last")
+# FrontierPlan fields never stored: derived from the others, and the shard
+# range (a stored plan is whole).
+_DERIVED = ("owned_flat", "dump_last", "d0")
 
 
-def _derived_tensors(vertex_bounds: np.ndarray, L: int, recv_idx: torch.Tensor) -> tuple:
-    """A plan's derived tensors, on ``recv_idx``'s device: ``owned_flat``
-    ``(n,)``, the flat ``(D·L)`` slot owning each vertex (shard ``d`` keeps
-    its owned block first), and ``dump_last`` ``(S, D)``, per (step,
-    receiving shard) the last ``recv_idx`` entry that lands in the dump slot
-    ``L - 1`` (-1: none)."""
+def _derived_tensors(vertex_bounds: np.ndarray, L: int, recv_idx: torch.Tensor, d0: int = 0) -> tuple:
+    """A plan's derived tensors, on ``recv_idx``'s device: ``owned_flat``,
+    the flat ``(D·L)`` slot owning each vertex (shard ``d`` keeps its owned
+    block first), and ``dump_last`` ``(S, D)``, per (step, receiving shard)
+    the last ``recv_idx`` entry that lands in the dump slot ``L - 1`` (-1:
+    none).  A rank's plan (``recv_idx`` of shards ``[d0, d0 + D_r)``) gets
+    those shards' alone."""
     device = recv_idx.device
-    owned = np.diff(vertex_bounds)
+    owned = np.diff(vertex_bounds)[d0 : d0 + recv_idx.shape[1]]
     owned_flat = torch.cat([
         d * L + torch.arange(int(o), dtype=torch.int32, device=device) for d, o in enumerate(owned)
     ])
@@ -234,14 +297,24 @@ def _take_rows(x, idx) -> torch.Tensor:
     as one element of a dtype that wide, a bit-exact copy: indexing the rows
     of an ``(m, F)`` tensor, or ``index_select`` on it, runs tens of times
     slower on the card than indexing a vector of as many bytes, and made a
-    matrix halo round's scatter and gather several times its kernel.
+    matrix halo round's scatter and gather several times its kernel.  A
+    wider row of a multiple of 16 bytes (a batch's Q·F values) is gathered
+    as that many 16-byte elements of a flat vector.
     """
     feat = tuple(x.shape[1:])
-    wide = _ROW_DTYPES.get(x.element_size() * int(np.prod(feat)))
-    if not feat or wide is None or not x.is_contiguous():
+    nbytes = x.element_size() * int(np.prod(feat))
+    wide = _ROW_DTYPES.get(nbytes)
+    if not feat or not x.is_contiguous() or (x.storage_offset() * x.element_size()) % 16:
         return x[idx]
-    rows = x.reshape(x.shape[0], -1).view(wide)[:, 0]
-    return rows[idx].view(x.dtype).reshape(tuple(idx.shape) + feat)
+    if wide is not None:
+        rows = x.reshape(x.shape[0], -1).view(wide)[:, 0]
+        return rows[idx].view(x.dtype).reshape(tuple(idx.shape) + feat)
+    if nbytes % 16:
+        return x[idx]
+    k = nbytes // 16
+    flat = x.reshape(-1).view(torch.complex128)
+    at = (idx.long().reshape(-1, 1) * k + torch.arange(k, device=idx.device)).reshape(-1)
+    return flat[at].view(x.dtype).reshape(tuple(idx.shape) + feat)
 
 
 def plan_shard_bounds(sched: DeviceSchedule, n_shards: int) -> np.ndarray:
@@ -262,14 +335,28 @@ def build_plan_shard(
     """One shard's plan piece (host numpy): its halo and local index arrays.
 
     Reads only the shard's workers ``[w0, w1)`` of the schedule and its owned
-    interval ``[vb_lo, vb_hi)``.  Dump slots are ``-1``: the real dump index
-    ``L - 1`` depends on every shard's halo size and is filled in by
-    :func:`assemble_frontier_plan`.  Membership goes through tables over the
-    ``n`` vertices, so the cost is linear in the shard's edges.
+    interval ``[vb_lo, vb_hi)`` (:func:`plan_shard_from_cells`).
     """
-    n = sched.n
-    src = sched.src[:, w0:w1].cpu().numpy()
-    real = sched.dst_local[:, w0:w1].cpu().numpy() < sched.delta
+    return plan_shard_from_cells(
+        sched.src[:, w0:w1].cpu().numpy(),
+        sched.dst_local[:, w0:w1].cpu().numpy(),
+        sched.rows[:, w0:w1].cpu().numpy(),
+        sched.n,
+        sched.delta,
+        vb_lo,
+        vb_hi,
+    )
+
+
+def plan_shard_from_cells(src, dst_local, rows, n: int, delta: int, vb_lo: int, vb_hi: int) -> dict:
+    """One shard's plan piece from its workers' host cells ``(S, P_loc, ·)``.
+
+    Dump slots are ``-1``: the real dump index ``L - 1`` depends on every
+    shard's halo size and is filled in by :func:`assemble_frontier_plan`.
+    Membership goes through tables over the ``n`` vertices, so the cost is
+    linear in the shard's edges.
+    """
+    real = dst_local < delta
     own = real & (src >= vb_lo) & (src < vb_hi)
     rem = real & ~own
     in_halo = np.zeros(n, dtype=bool)
@@ -281,9 +368,35 @@ def build_plan_shard(
     loc = np.full(src.shape, -1, dtype=np.int32)
     loc[own] = src[own] - vb_lo
     loc[rem] = slot[src[rem]]
-    rows = sched.rows[:, w0:w1].cpu().numpy()
     rows_loc = np.where(rows >= n, -1, rows - vb_lo).astype(np.int32)
     return {"halo": halo, "src_loc": loc, "rows_loc": rows_loc}
+
+
+def shard_halos(graph: CSRGraph, vertex_bounds) -> list:
+    """Every shard's halo (sorted global ids) from the graph on the host: the
+    sources of its owned rows' in-edges outside its owned range, which are
+    what :func:`build_plan_shard` reads from the schedule's real edges."""
+    vb = np.asarray(vertex_bounds, dtype=np.int64)
+    indptr, indices = graph.indptr, graph.indices
+    halos = []
+    for d in range(vb.size - 1):
+        lo, hi = int(vb[d]), int(vb[d + 1])
+        in_halo = np.zeros(graph.n, dtype=bool)
+        in_halo[indices[indptr[lo] : indptr[hi]]] = True
+        in_halo[lo:hi] = False
+        halos.append(np.flatnonzero(in_halo))
+    return halos
+
+
+def schedule_rows(block_bounds, S: int, delta: int, n: int) -> np.ndarray:
+    """The schedule's ``(S, P, δ)`` int32 ``rows`` from its block bounds
+    alone (row ``r`` of worker ``w``'s chunk ``s`` is ``lo_w + s·δ + r``
+    inside the block, else the dump id ``n``), as the stripe builder lays
+    them out."""
+    bb = np.asarray(block_bounds, dtype=np.int64)
+    lo, hi = bb[:-1][None, :, None], bb[1:][None, :, None]
+    base = lo + np.arange(S, dtype=np.int64)[:, None, None] * delta + np.arange(delta, dtype=np.int64)
+    return np.where(base < hi, base, n).astype(np.int32)
 
 
 def make_frontier_plan(sched: DeviceSchedule, n_shards: int, device=None) -> FrontierPlan:
@@ -314,29 +427,39 @@ def assemble_frontier_plan(
     never a boundary row); the reference's per-(step, shard) ``np.isin``
     gives the same arrays.
     """
-    S, delta, n, D = sched.S, sched.delta, sched.n, int(n_shards)
+    return _assemble(sched, int(n_shards), 0, pieces, [p["halo"] for p in pieces], device)
+
+
+def _assemble(sched, D: int, d0: int, pieces: list, halos: list, device) -> FrontierPlan:
+    """The plan of shards ``[d0, d0 + len(pieces))`` from their pieces and
+    every shard's halo; the global ``(S, P, δ)`` rows come from the block
+    bounds (:func:`schedule_rows`), which a rank's schedule holds too."""
+    S, delta, n = sched.S, sched.delta, sched.n
+    rows_all = schedule_rows(sched.block_bounds, S, delta, n)
     P_loc = sched.P // D
+    d1 = d0 + len(pieces)
     vb = plan_shard_bounds(sched, D)
     owned = np.diff(vb)
     device = sched.device if device is None else device
 
-    halo = [np.asarray(p["halo"], dtype=np.int64) for p in pieces]
+    halo = [np.asarray(h, dtype=np.int64) for h in halos]
     halo_sizes = np.array([h.size for h in halo], dtype=np.int64)
     L = int((owned + halo_sizes).max()) + 1
     dump = L - 1
 
-    src_loc = np.empty((D, S, P_loc, sched.M), dtype=np.int32)
-    rows_loc = np.empty((D, S, P_loc, delta), dtype=np.int32)
-    for d, p in enumerate(pieces):
-        src_loc[d] = np.where(p["src_loc"] < 0, dump, p["src_loc"])
-        rows_loc[d] = np.where(p["rows_loc"] < 0, dump, p["rows_loc"])
+    D_r = d1 - d0
+    src_loc = np.empty((D_r, S, P_loc, sched.M), dtype=np.int32)
+    rows_loc = np.empty((D_r, S, P_loc, delta), dtype=np.int32)
+    for i, p in enumerate(pieces):
+        src_loc[i] = np.where(p["src_loc"] < 0, dump, p["src_loc"])
+        rows_loc[i] = np.where(p["rows_loc"] < 0, dump, p["rows_loc"])
 
     # Boundary traffic: per (step, shard), the committed rows some other
     # shard keeps a halo copy of, in chunk order.  H pads to the worst cell.
     is_boundary = np.zeros(n + 1, dtype=bool)
     for h in halo:
         is_boundary[h] = True
-    chunks = sched.rows.cpu().numpy().reshape(S, D, P_loc * delta)
+    chunks = rows_all.reshape(S, D, P_loc * delta)
     member = is_boundary[chunks]
     counts = member.sum(axis=2)
     H = max(1, int(counts.max()))
@@ -346,25 +469,25 @@ def assemble_frontier_plan(
 
     send_idx = np.zeros((S, D, H), dtype=np.int32)
     send_idx[s_i, d_i, k] = pos
-    recv_idx = np.full((S, D, D * H), dump, dtype=np.int32)
+    recv_idx = np.full((S, D_r, D * H), dump, dtype=np.int32)
     shipped = chunks[s_i, d_i, pos]  # global vertex of each shipped row
-    for e in range(D):
+    for e in range(d0, d1):
         slot = np.full(n + 1, -1, dtype=np.int64)
         slot[halo[e]] = owned[e] + np.arange(halo[e].size)
         hit_slot = slot[shipped]
         hit = (hit_slot >= 0) & (d_i != e)
-        recv_idx[s_i[hit], e, d_i[hit] * H + k[hit]] = hit_slot[hit]
+        recv_idx[s_i[hit], e - d0, d_i[hit] * H + k[hit]] = hit_slot[hit]
 
-    gather_index = np.full((D, L), n, dtype=np.int32)  # unused slots → dump
-    for d in range(D):
-        gather_index[d, : owned[d]] = np.arange(vb[d], vb[d + 1])
-        gather_index[d, owned[d] : owned[d] + halo[d].size] = halo[d]
+    gather_index = np.full((D_r, L), n, dtype=np.int32)  # unused slots → dump
+    for e in range(d0, d1):
+        gather_index[e - d0, : owned[e]] = np.arange(vb[e], vb[e + 1])
+        gather_index[e - d0, owned[e] : owned[e] + halo[e].size] = halo[e]
 
     def t(a):
-        return torch.from_numpy(a).to(device)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     recv = t(recv_idx)
-    owned_flat, dump_last = _derived_tensors(vb, L, recv)
+    owned_flat, dump_last = _derived_tensors(vb, L, recv, d0)
 
     return FrontierPlan(
         D=D,
@@ -379,11 +502,12 @@ def assemble_frontier_plan(
         boundary_entries_per_round=int(counts.sum()),
         src_loc=t(src_loc),
         rows_loc=t(rows_loc),
-        send_idx=t(send_idx),
+        send_idx=t(send_idx[:, d0:d1]),
         recv_idx=recv,
         gather_index=t(gather_index),
         owned_flat=owned_flat,
         dump_last=dump_last,
+        d0=d0,
     )
 
 
@@ -459,5 +583,205 @@ def frontier_kernel_round_ext_fn(
     def fn(x_ext, ef):
         x_loc, ef = rnd(plan.scatter_x(x_ext), ef.clone())
         return plan.gather_x(x_loc, dump=x_ext[-1:]), ef
+
+    return fn
+
+
+# --------------------------------------------------------------------------- #
+# a rank's shards: its schedule cells, and the round across processes
+# --------------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class RankSchedule:
+    """A rank's view of a schedule: its workers ``[w0, w1)``'s cells.
+
+    ``val``, ``dst_local`` ``(S, P_r, M)``, ``rows`` ``(S, P_r, δ)`` and
+    ``row_ptr`` ``(S, P_r, δ + 1)`` with ``P_r = w1 - w0``, on the rank's
+    device; the gathers read the plan's local slots (``src_loc``), so the
+    global ``src`` stays on the host.  ``n``, ``P``, ``S``, ``M``, ``δ`` and
+    the block bounds are the whole schedule's (:func:`rank_schedule`).
+    """
+
+    n: int
+    P: int
+    delta: int
+    S: int
+    M: int
+    w0: int
+    w1: int
+    val: torch.Tensor
+    dst_local: torch.Tensor
+    rows: torch.Tensor
+    row_ptr: torch.Tensor
+    edges: int
+    block_bounds: np.ndarray
+
+    @property
+    def n_slots(self) -> int:
+        return self.n + 1
+
+    @property
+    def device(self) -> torch.device:
+        return self.val.device
+
+
+def _stripe_width(indptr, lo: int, hi: int, S: int, delta: int) -> int:
+    """A worker's widest cell (its stripe's natural ``M_w``), from ``indptr``."""
+    s = np.arange(S, dtype=np.int64)
+    r0 = np.minimum(lo + s * delta, hi)
+    r1 = np.minimum(lo + (s + 1) * delta, hi)
+    return int((indptr[r1] - indptr[r0]).max()) if S else 0
+
+
+def rank_schedule(graph: CSRGraph, block_bounds, delta: int, pad_val, w0: int, w1: int, device) -> tuple:
+    """The cells of workers ``[w0, w1)`` of the schedule
+    :func:`repro_torch.core.engine.make_schedule` builds at ``delta`` over
+    ``block_bounds``, built from those workers' stripes alone (the global
+    ``M`` from ``indptr``).  Returns ``(RankSchedule on device, host
+    arrays)``: the host ``src``, ``dst_local`` and ``rows`` of those
+    workers, from which the rank's plan pieces are cut."""
+    bb = np.asarray(block_bounds, dtype=np.int64)
+    B = int(np.diff(bb).max())
+    delta = int(min(max(int(delta), 1), B))
+    S = -(-B // delta)
+    P = bb.size - 1
+    M = max(1, max(_stripe_width(graph.indptr, int(bb[w]), int(bb[w + 1]), S, delta) for w in range(P)))
+    P_r = w1 - w0
+    src = np.zeros((S, P_r, M), dtype=np.int32)
+    val = np.full((S, P_r, M), pad_val, dtype=graph.values.dtype)
+    dst_local = np.full((S, P_r, M), delta, dtype=np.int32)
+    rows = np.full((S, P_r, delta), graph.n, dtype=np.int32)
+    for i, w in enumerate(range(w0, w1)):
+        st = build_worker_stripe(graph, int(bb[w]), int(bb[w + 1]), S, delta, pad_val)
+        m = st["src"].shape[1]
+        src[:, i, :m] = st["src"]
+        val[:, i, :m] = st["val"]
+        dst_local[:, i, :m] = st["dst_local"]
+        rows[:, i] = st["rows"]
+    dst_t = torch.from_numpy(dst_local).to(device)
+    sched = RankSchedule(
+        n=graph.n,
+        P=P,
+        delta=delta,
+        S=S,
+        M=M,
+        w0=w0,
+        w1=w1,
+        val=torch.from_numpy(val).to(device),
+        dst_local=dst_t,
+        rows=torch.from_numpy(rows).to(device),
+        row_ptr=_cell_row_ptr(dst_t, delta),
+        edges=graph.nnz,
+        block_bounds=bb,
+    )
+    return sched, {"src": src, "dst_local": dst_local, "rows": rows}
+
+
+def rank_plan(graph: CSRGraph, sched: RankSchedule, host: dict, n_shards: int, device=None) -> FrontierPlan:
+    """The plan of the rank's shards (those of its workers ``[w0, w1)``),
+    from its own cells (``host``, :func:`rank_schedule`'s) and every
+    shard's halo read from the graph (:meth:`FrontierPlan.for_shards`)."""
+    D = int(n_shards)
+    P_loc = sched.P // D
+    if sched.w0 % P_loc or sched.w1 % P_loc:
+        raise ValueError(f"workers [{sched.w0}, {sched.w1}) are not whole shards of {P_loc}")
+    d0, d1 = sched.w0 // P_loc, sched.w1 // P_loc
+    vb = plan_shard_bounds(sched, D)
+    pieces = []
+    for d in range(d0, d1):
+        w = slice((d - d0) * P_loc, (d - d0 + 1) * P_loc)
+        pieces.append(
+            plan_shard_from_cells(
+                host["src"][:, w], host["dst_local"][:, w], host["rows"][:, w],
+                sched.n, sched.delta, int(vb[d]), int(vb[d + 1]),
+            )
+        )
+    return FrontierPlan.for_shards(sched, D, d0, d1, pieces, shard_halos(graph, vb), device)
+
+
+def frontier_rank_round_fn(sched, plan: FrontierPlan, semiring: Semiring, row_update, group,
+                           halo_dtype: str = "f32", plain: bool = False) -> Callable:
+    """One rank's halo round ``(x_loc, ef) -> (x_loc, ef)``, in place on its
+    shards' ``(d1 - d0, L)+feat`` frontier and ``(d1 - d0, S, H)+feat``
+    residuals, collectively over ``group``
+    (:class:`repro_torch.dist.comm.HaloGroup`).  Each commit step is K2's
+    rank entry over the rank's shards
+    (:func:`repro_torch.kernels.ops.halo_local_step`), the group's
+    all-gather of the send blocks (and scales) in shard order, and K2's
+    receive (:func:`repro_torch.kernels.ops.halo_recv`); ``plain`` runs the
+    plain versions instead.  Over all ranks a round equals the
+    one-process K2 round (:func:`frontier_kernel_round_ext_fn`) bit for
+    bit.
+
+    That round starts from the global frontier scattered into the layout,
+    so its halo copies start each round at their owners' exact values and
+    its dump slots at the frontier's dump row, the ⊕-identity.  On the f32
+    wire a rank's halo copies already hold them; an int8/fp8 wire leaves
+    them at the dequantized values, so a quantized round starts with one
+    more all-gather, of the ``(S, H)+feat`` exact boundary rows of every
+    shard, written into the halo slots (and the dump slots reset)."""
+    resolve_halo_dtype(halo_dtype, semiring)
+    if (plan.S, plan.delta) != (sched.S, sched.delta):
+        raise ValueError("plan built for another schedule")
+    if (plan.d0, plan.d1) != (group.d0, group.d1):
+        raise ValueError(f"plan holds shards [{plan.d0}, {plan.d1}), the rank [{group.d0}, {group.d1})")
+    local = ref.halo_local_step_ref if plain else ops.halo_local_step
+    recv = ref.halo_recv_ref if plain else ops.halo_recv
+    d0, d1 = plan.d0, plan.d1
+    refresh = None if halo_dtype == "f32" else _halo_refresh(plan, semiring, group)
+
+    def rnd(x_loc, ef):
+        if refresh is not None:
+            refresh(x_loc)
+        for s in range(sched.S):
+            rows, scales = local(x_loc, ef, sched, plan, semiring, row_update, halo_dtype, s, d0, d1)
+            rows = group.all_gather(rows)
+            if scales is not None:
+                scales = group.all_gather(scales)
+            recv(x_loc, rows, scales, plan, s, d0, d1)
+        return x_loc, ef
+
+    return rnd
+
+
+def _halo_refresh(plan: FrontierPlan, semiring: Semiring, group) -> Callable:
+    """``x_loc -> None``: every held shard's halo slots set to their
+    owners' exact values, and its dump slot to the ⊕-identity, in place
+    (one all-gather).  Owner ``d``'s boundary row ``(s, k)`` is its owned
+    slot ``rows_loc[d, s, send_idx[s, d, k]]``; the receiver writes it where
+    step ``s``'s exchange does."""
+    D_r, S, H, L = plan.d1 - plan.d0, plan.S, plan.H, plan.L
+    chunk = plan.rows_loc.reshape(D_r, S, -1)
+    slots = torch.gather(chunk, 2, plan.send_idx.permute(1, 0, 2).long()).long()  # (D_r, S, H)
+    dest = plan.recv_idx.permute(1, 0, 2).reshape(D_r, -1).long()  # (D_r, S·D·H)
+    keep = dest < L - 1
+    zero = semiring.zero.item()
+
+    def refresh(x_loc):
+        feat = tuple(x_loc.shape[2:])
+        exact = torch.stack([x_loc[i][slots[i].reshape(-1)] for i in range(D_r)])  # (D_r, S·H)+feat
+        every = group.all_gather(exact).reshape((plan.D, S, H) + feat)
+        rows = every.permute((1, 0, 2) + tuple(range(3, 3 + len(feat)))).reshape((-1,) + feat)  # (S·D·H)+feat
+        for i in range(D_r):
+            x_loc[i][dest[i][keep[i]]] = rows[keep[i]]
+        x_loc[:, L - 1] = zero
+
+    return refresh
+
+
+def frontier_batch_round_fn(
+    sched: DeviceSchedule, plan: FrontierPlan, semiring: Semiring, epilogue, plain: bool = False
+) -> Callable:
+    """The halo round of a batch, ``X_ext -> X_ext`` over the ``(n + 1,
+    Q)+feat`` batch frontier: scattered into the ``(D, L, Q)+feat`` layout
+    (:meth:`FrontierPlan.scatter_x`), one round of K2's batch entry
+    (:func:`repro_torch.kernels.ops.fused_halo_batch_round`; ``plain``: its
+    plain version), gathered back (the dump row passes through).  The
+    reference's vmapped ``frontier_round_ext_fn``; f32/int32 wire only."""
+    _check_plan(sched, plan)
+    rnd = ref.fused_halo_batch_round_ref if plain else ops.fused_halo_batch_round
+
+    def fn(X):
+        X_loc = rnd(plan.scatter_x(X), sched, plan, semiring, epilogue)
+        return plan.gather_x(X_loc, dump=X[-1:])
 
     return fn

@@ -326,8 +326,12 @@ constexpr int kMaxDevices = 64;
 constexpr int kMaxShards = 64;   // D of a halo launch
 constexpr int kMaxScales = 512;  // D * F of a quantized halo launch (a block keeps D*F maxima)
 // K2 asks for K1's occupancy: at 76 registers (its f32 build's own choice)
-// 3 blocks fit an SM, at 64 four, and the round is faster (PERF.md).
+// 3 blocks fit an SM, at 64 four, and the round is faster (PERF.md).  A
+// batch's C = 16 and 32 builds hold C sums in registers and ask for one
+// block, as K1's batch entry does.
 constexpr int kHaloBlocksPerSm = 4;
+template <int kF>
+constexpr int kHaloMinBlocks = kF > 8 ? 1 : kHaloBlocksPerSm;
 
 // torch.clamp's rule: a NaN passes through (fmaxf and fminf would drop it).
 __device__ __forceinline__ float clamp_nan(float v, float lo, float hi) {
@@ -965,8 +969,77 @@ cudaError_t launch_solve(void* x, void* scratch, const void* src, const void* va
 // A cross-card exchange (NCCL, one process per card) would run the same
 // kernel one step at a time, s1 = s0 + 1, with the exchange restricted to
 // the card's own shards and the all-gather between launches.
+// K2's phase A: every tile of commit step s over the launch's P = D * P_loc
+// workers (worker w is shard d = w / P_loc's), K1's tile walk (tile_rows)
+// with the shard's local slots, into scratch (P * delta rows, shard d's chunk
+// at d * P_loc * delta).  The schedule's cells of step s are s * Ps + w (Ps:
+// its workers; a rank's pointers start at the launch's first worker), the
+// plan's (d * S + s) * P_loc + w - d * P_loc (a rank's start at its first
+// shard).  G: the epilogue's group width (finish()).
+template <class Sr, int kF>
+__device__ __forceinline__ void halo_tiles(
+    const typename Sr::T* x, typename Sr::T* scratch, const int32_t* __restrict__ src_loc,
+    const typename Sr::T* __restrict__ val, const int32_t* __restrict__ row_ptr,
+    const int32_t* __restrict__ rows, const int32_t* __restrict__ rows_loc,
+    const typename Sr::T* __restrict__ table, typename Sr::T c, float mix, float one_minus_mix,
+    int tag, int s, int S, int P, int Ps, int P_loc, int M, int delta, int R, int F, int G,
+    long long shard, typename Sr::T* prod) {
+  using T = typename Sr::T;
+  const int tid = threadIdx.x;
+  const int tiles_per_cell = (delta + R - 1) / R;
+  const long long tiles = static_cast<long long>(P) * tiles_per_cell;
+  const long long step_cell = static_cast<long long>(s) * Ps;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int w = static_cast<int>(t / tiles_per_cell);
+    const int r0 = static_cast<int>(t - static_cast<long long>(w) * tiles_per_cell) * R;
+    const int rn = min(R, delta - r0);
+    const int d = w / P_loc;
+    const long long cell = step_cell + w;  // (s, w) of the schedule
+    const long long lcell = (static_cast<long long>(d) * S + s) * P_loc + (w - d * P_loc);
+    const T* xd = x + d * shard;
+    const int32_t* ptr = row_ptr + cell * (delta + 1) + r0;
+    const int t0 = ptr[0];
+    const int t1 = ptr[rn];
+    const bool own = tid < rn;
+    const int r = r0 + tid;
+    int e0 = 0, e1 = 0;
+    long long at_old = 0, at_tab = 0;
+    if (own) {
+      e0 = ptr[tid];
+      e1 = ptr[tid + 1];
+      if (Sr::wants_old(tag)) at_old = static_cast<long long>(rows_loc[lcell * delta + r]) * F;
+      if (Sr::wants_table(tag)) at_tab = static_cast<long long>(rows[cell * delta + r]) * F;
+    }
+    tile_rows<Sr, kF>(xd, src_loc + lcell * M, val + cell * M, t0, t1, own, e0, e1,
+                      xd + at_old, table + at_tab,
+                      scratch + (static_cast<long long>(w) * delta + r) * F, tag, c, mix,
+                      one_minus_mix, F, G, prod);
+  }
+}
+
+// The quantized wire of one value: want = v + ef against the shard's
+// max-abs a, as the plain quantizer rounds (see K2's note): returns q as a
+// float and its byte (int8, or e4m3 bits) in *bits, the scale in *scale.
+template <int kWire>
+__device__ __forceinline__ float quantize_wire(float want, float a, float inv_qmax, float* scale,
+                                               uint8_t* bits) {
+  constexpr float kQmax = kWire == 1 ? 127.0f : 448.0f;
+  *scale = __fmul_rn(a < 1e-30f ? 1e-30f : a, inv_qmax);
+  float q = __fdiv_rn(want, *scale);
+  if constexpr (kWire == 1) {  // through an integer, as the int8 cast: -0 becomes 0
+    const int qi = static_cast<int>(clamp_nan(rintf(q), -kQmax, kQmax));
+    *bits = static_cast<uint8_t>(static_cast<int8_t>(qi));
+    q = static_cast<float>(qi);
+  } else {
+    const __nv_fp8_storage_t b = __nv_cvt_float_to_fp8(clamp_nan(q, -kQmax, kQmax), __NV_SATFINITE, __NV_E4M3);
+    *bits = static_cast<uint8_t>(b);
+    q = __half2float(__half(__nv_cvt_fp8_to_halfraw(b, __NV_E4M3)));
+  }
+  return q;
+}
+
 template <class Sr, int kWire, int kF>
-__global__ void __launch_bounds__(kThreads, kHaloBlocksPerSm)
+__global__ void __launch_bounds__(kThreads, kHaloMinBlocks<kF>)
     halo_round_kernel(typename Sr::T* x, float* ef, typename Sr::T* scratch,
                       uint32_t* amax, const int32_t* __restrict__ src_loc,
                       const typename Sr::T* __restrict__ val,
@@ -979,7 +1052,7 @@ __global__ void __launch_bounds__(kThreads, kHaloBlocksPerSm)
                       const typename Sr::T* __restrict__ table, typename Sr::T c,
                       float mix, float one_minus_mix, int tag, int s0, int s1,
                       int S, int D, int P_loc, int M, int delta, int L, int H,
-                      int R, float inv_qmax, int F_in) {
+                      int R, float inv_qmax, int F_in, int G) {
   using T = typename Sr::T;
   __shared__ __align__(16) T prod[kChunk * kPassCols<kF>];
   __shared__ uint32_t block_max[kWire ? kMaxScales : 1];
@@ -988,8 +1061,6 @@ __global__ void __launch_bounds__(kThreads, kHaloBlocksPerSm)
   const int tid = threadIdx.x;
   const int P = D * P_loc;
   const int dump = L - 1;
-  const int tiles_per_cell = (delta + R - 1) / R;
-  const long long tiles = static_cast<long long>(P) * tiles_per_cell;
   const long long chunk = static_cast<long long>(P_loc) * delta;  // a shard's rows a step
   const long long cells = D * chunk;
   const long long sends = static_cast<long long>(D) * H;  // (d, k)
@@ -997,36 +1068,11 @@ __global__ void __launch_bounds__(kThreads, kHaloBlocksPerSm)
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + tid;
   for (int s = s0; s < s1; ++s) {
-    const long long step_cell = static_cast<long long>(s) * P;
     const int32_t* snd = send_idx + static_cast<long long>(s) * sends;  // (D, H)
     const int32_t* rcv = recv_idx + static_cast<long long>(s) * D * sends;  // (D, D*H)
     // --- A: the step's tiles, all shards
-    for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
-      const int w = static_cast<int>(t / tiles_per_cell);
-      const int r0 = static_cast<int>(t - static_cast<long long>(w) * tiles_per_cell) * R;
-      const int rn = min(R, delta - r0);
-      const int d = w / P_loc;
-      const long long cell = step_cell + w;  // (s, w) of the schedule
-      const long long lcell = (static_cast<long long>(d) * S + s) * P_loc + (w - d * P_loc);
-      const T* xd = x + d * shard;
-      const int32_t* ptr = row_ptr + cell * (delta + 1) + r0;
-      const int t0 = ptr[0];
-      const int t1 = ptr[rn];
-      const bool own = tid < rn;
-      const int r = r0 + tid;
-      int e0 = 0, e1 = 0;
-      long long at_old = 0, at_tab = 0;
-      if (own) {
-        e0 = ptr[tid];
-        e1 = ptr[tid + 1];
-        if (Sr::wants_old(tag)) at_old = static_cast<long long>(rows_loc[lcell * delta + r]) * F;
-        if (Sr::wants_table(tag)) at_tab = static_cast<long long>(rows[cell * delta + r]) * F;
-      }
-      tile_rows<Sr, kF>(xd, src_loc + lcell * M, val + cell * M, t0, t1, own, e0, e1,
-                        xd + at_old, table + at_tab,
-                        scratch + (static_cast<long long>(w) * delta + r) * F, tag, c, mix,
-                        one_minus_mix, F, F, prod);
-    }
+    halo_tiles<Sr, kF>(x, scratch, src_loc, val, row_ptr, rows, rows_loc, table, c, mix, one_minus_mix,
+                       tag, s, S, P, P, P_loc, M, delta, R, F, G, shard, prod);
     grid.sync();
     // --- B: publish, then the exchange (f32) or the scales' maxima
     for (long long i = first; i < cells; i += stride) {
@@ -1074,7 +1120,6 @@ __global__ void __launch_bounds__(kThreads, kHaloBlocksPerSm)
       }
       grid.sync();
       // --- C: quantize, keep the residual, ship the dequantized value
-      constexpr float kQmax = kWire == 1 ? 127.0f : 448.0f;
       const int32_t* last = dump_last + static_cast<long long>(s) * D;  // (D,)
       for (long long m = first; m < sends; m += stride) {
         const int d = static_cast<int>(m / H);
@@ -1084,15 +1129,9 @@ __global__ void __launch_bounds__(kThreads, kHaloBlocksPerSm)
         for (int f = 0; f < (kF > 0 ? kF : F); ++f) {
           const float want = __fadd_rn(v[f], efp[f]);
           const float a = __uint_as_float(__ldcg(step_max + d * F + f));
-          const float scale = __fmul_rn(a < 1e-30f ? 1e-30f : a, inv_qmax);
-          float q = __fdiv_rn(want, scale);
-          if constexpr (kWire == 1) {  // through an integer, as the int8 cast: -0 becomes 0
-            q = static_cast<float>(static_cast<int>(clamp_nan(rintf(q), -kQmax, kQmax)));
-          } else {
-            const __nv_fp8_storage_t b =
-                __nv_cvt_float_to_fp8(clamp_nan(q, -kQmax, kQmax), __NV_SATFINITE, __NV_E4M3);
-            q = __half2float(__half(__nv_cvt_fp8_to_halfraw(b, __NV_E4M3)));
-          }
+          float scale;
+          uint8_t bits;
+          const float q = quantize_wire<kWire>(want, a, inv_qmax, &scale, &bits);
           efp[f] = __fmaf_rn(-q, scale, want);
           const float wire = __fmul_rn(q, scale);
           for (int e = 0; e < D; ++e) {
@@ -1116,7 +1155,7 @@ cudaError_t launch_halo_round(void* x, void* ef, void* scratch, void* amax,
                               double one_minus_mix_in,
                               double inv_qmax_in, int tag, int s0, int s1, int S,
                               int D, int P_loc, int M, int delta, int L, int H,
-                              int F, cudaStream_t stream) {
+                              int F, int G, cudaStream_t stream) {
   using T = typename Sr::T;
   T* x_p = static_cast<T*>(x);
   float* ef_p = static_cast<float*>(ef);
@@ -1145,10 +1184,239 @@ cudaError_t launch_halo_round(void* x, void* ef, void* scratch, void* amax,
                   &ptr_p,   &rows_p, &rl_p,    &snd_p,  &rcv_p, &last_p,
                   &table_p, &c,    &mix,       &one_minus_mix,  &tag,  &s0,
                   &s1,      &S,    &D,         &P_loc,  &M,     &delta,
-                  &L,       &H,    &R,         &inv_qmax, &F};
+                  &L,       &H,    &R,         &inv_qmax, &F,   &G};
   err = cudaLaunchCooperativeKernel(kernel, dim3(static_cast<unsigned>(blocks)),
                                     dim3(kThreads), args, 0, stream);
   if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// K2's rank entries: one rank of a halo solve over processes, each holding a
+// contiguous range of the D shards (entry points halo_local_launch and
+// halo_recv_launch).  The cross-process form of halo_round_kernel: the
+// reference runs fused_halo_step_fn once a shard and a commit step under
+// shard_map, with an all_gather of the (H,)+feat boundary rows (for int8 or
+// fp8, of the 1-byte values and, in a second all_gather, the per-shard
+// scales) between steps (src/repro/dist/engine_sharded.py
+// frontier_pallas_round_fn).  The gather leaves the card here
+// (torch.distributed, repro_torch/dist/comm.py), so a rank runs one step a
+// launch:
+//
+//   halo_local_kernel, step s of the launch's Dl shards (cooperative):
+//     A  halo_round_kernel's phase A over their Dl * P_loc workers
+//        (halo_tiles, reading the rank's own schedule cells and plan blocks);
+//        grid.sync()
+//     B  publish into their owned slots; f32: the send block
+//        out[d, k] = scratch[d's chunk + send_idx[s, d, k]];
+//        int8/fp8: |want| folded into amax[d, f] as in halo_round_kernel;
+//        grid.sync()
+//     C  (int8/fp8) q, scale and the new ef[d, s, k, f] as in
+//        halo_round_kernel's phase C, q's byte written to out[d, k, f] and
+//        the scale (by k = 0) to scales[d, f]
+//   halo_recv_kernel, step s, shards [e0, e1) (an ordinary launch): every
+//     gathered row m = (d, k) of the (D, H)+feat block, f32 as it is or
+//     int8/fp8 as fl(q * scales[d, f]), into x[e, recv_idx[s, e, m]] for
+//     each held e; dump slots skipped, but a quantized wire writes the
+//     entry dump_last[s, e] names, as phase C does.
+//
+// So local and receive over all shards [0, D) is one step of
+// halo_round_kernel, bit for bit: the same walk, publish, quantizer and
+// writes.  The scale is a shard's and a step's, so the quantizer needs
+// nothing from other ranks.  Bound: a rank's share of K2's bytes (its
+// shards' edges, slots, rows and indices) and, for the receive, the D * H
+// gathered rows read once and its halo slots written once
+// (chip_smoke.py::halo_local_bound, halo_recv_bound).  At one step a launch,
+// a round at fine delta pays S launches and S collectives, the cost the
+// in-card exchange avoids.
+template <class Sr, int kWire, int kF>
+__global__ void __launch_bounds__(kThreads, kHaloBlocksPerSm)
+    halo_local_kernel(typename Sr::T* x, float* ef, typename Sr::T* scratch, uint32_t* amax,
+                      void* out, float* scales, const int32_t* __restrict__ src_loc,
+                      const typename Sr::T* __restrict__ val,
+                      const int32_t* __restrict__ row_ptr,
+                      const int32_t* __restrict__ rows,
+                      const int32_t* __restrict__ rows_loc,
+                      const int32_t* __restrict__ send_idx,
+                      const typename Sr::T* __restrict__ table, typename Sr::T c,
+                      float mix, float one_minus_mix, int tag, int s, int S, int Dl, int Dp,
+                      int Ps, int P_loc, int M, int delta, int L, int H, int R,
+                      float inv_qmax, int F_in) {
+  using T = typename Sr::T;
+  __shared__ __align__(16) T prod[kChunk * kPassCols<kF>];
+  __shared__ uint32_t block_max[kWire ? kMaxScales : 1];
+  cg::grid_group grid = cg::this_grid();
+  const int F = kF > 0 ? kF : F_in;
+  const int tid = threadIdx.x;
+  const int dump = L - 1;
+  const long long chunk = static_cast<long long>(P_loc) * delta;
+  const long long cells = Dl * chunk;
+  const long long sends = static_cast<long long>(Dl) * H;  // (d, k) of the launch's shards
+  const long long shard = static_cast<long long>(L) * F;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + tid;
+  const int32_t* snd = send_idx + static_cast<long long>(s) * Dp * H;  // (Dp, H), from the first shard
+  // --- A
+  halo_tiles<Sr, kF>(x, scratch, src_loc, val, row_ptr, rows, rows_loc, table, c, mix, one_minus_mix,
+                     tag, s, S, Dl * P_loc, Ps, P_loc, M, delta, R, F, F, shard, prod);
+  grid.sync();
+  // --- B: publish, then the send block (f32) or the scales' maxima
+  for (long long i = first; i < cells; i += stride) {
+    const int d = static_cast<int>(i / chunk);
+    const int slot = rows_loc[(static_cast<long long>(d) * S + s) * chunk + (i - d * chunk)];
+    if (slot < dump) copy_row<kF>(x + d * shard + static_cast<long long>(slot) * F, scratch + i * F, F);
+  }
+  if constexpr (kWire == 0) {
+    T* o = static_cast<T*>(out);
+    for (long long m = first; m < sends; m += stride) {
+      const int d = static_cast<int>(m / H);
+      copy_row<kF>(o + m * F, scratch + (d * chunk + snd[m]) * F, F);
+    }
+  } else {
+    const int nscales = Dl * F;  // (d, f)
+    for (int j = tid; j < nscales; j += kThreads) block_max[j] = 0;
+    __syncthreads();
+    for (long long m = first; m < sends; m += stride) {
+      const int d = static_cast<int>(m / H);
+      const T* v = scratch + (d * chunk + snd[m]) * F;
+      const float* efp = ef + ((static_cast<long long>(d) * S + s) * H + (m - d * H)) * F;
+#pragma unroll
+      for (int f = 0; f < (kF > 0 ? kF : F); ++f) {
+        atomicMax(block_max + d * F + f, __float_as_uint(fabsf(__fadd_rn(v[f], efp[f]))));
+      }
+    }
+    __syncthreads();
+    for (int j = tid; j < nscales; j += kThreads) {
+      if (block_max[j]) atomicMax(amax + j, block_max[j]);
+    }
+    grid.sync();
+    // --- C
+    uint8_t* o = static_cast<uint8_t*>(out);
+    for (long long m = first; m < sends; m += stride) {
+      const int d = static_cast<int>(m / H);
+      const T* v = scratch + (d * chunk + snd[m]) * F;
+      float* efp = ef + ((static_cast<long long>(d) * S + s) * H + (m - d * H)) * F;
+#pragma unroll
+      for (int f = 0; f < (kF > 0 ? kF : F); ++f) {
+        const float want = __fadd_rn(v[f], efp[f]);
+        const float a = __uint_as_float(__ldcg(amax + d * F + f));
+        float scale;
+        uint8_t bits;
+        const float q = quantize_wire<kWire>(want, a, inv_qmax, &scale, &bits);
+        efp[f] = __fmaf_rn(-q, scale, want);
+        o[m * F + f] = bits;
+        if (m == static_cast<long long>(d) * H) scales[d * F + f] = scale;
+      }
+    }
+  }
+}
+
+template <class T, int kWire, int kF>
+__global__ void __launch_bounds__(kThreads)
+    halo_recv_kernel(T* x, const void* rows_in, const float* __restrict__ scales,
+                     const int32_t* __restrict__ recv_idx, const int32_t* __restrict__ dump_last,
+                     int s, int El, int Dp, int D, int L, int H, int F_in) {
+  const int F = kF > 0 ? kF : F_in;
+  const int dump = L - 1;
+  const long long sends = static_cast<long long>(D) * H;  // (d, k), every shard's
+  const long long shard = static_cast<long long>(L) * F;
+  const int32_t* rcv = recv_idx + static_cast<long long>(s) * Dp * sends;  // (Dp, D*H), from the first shard
+  const int32_t* last = dump_last + static_cast<long long>(s) * Dp;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long m = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; m < sends; m += stride) {
+    if constexpr (kWire == 0) {
+      const T* v = static_cast<const T*>(rows_in) + m * F;
+      if constexpr (kF > 0) {  // the row once into registers, then a store a shard
+        T row[kF];
+        load_row<kF, true, kPlain>(v, row, kF);
+        for (int e = 0; e < El; ++e) {
+          const int slot = rcv[e * sends + m];
+          if (slot < dump) store_row<kF, true>(x + e * shard + static_cast<long long>(slot) * F, row, kF);
+        }
+      } else {
+        for (int e = 0; e < El; ++e) {
+          const int slot = rcv[e * sends + m];
+          if (slot < dump) copy_row<kF>(x + e * shard + static_cast<long long>(slot) * F, v, F);
+        }
+      }
+    } else {
+      const uint8_t* q8 = static_cast<const uint8_t*>(rows_in) + m * F;
+      const int d = static_cast<int>(m / H);
+      for (int f = 0; f < F; ++f) {
+        float q;
+        if constexpr (kWire == 1) {
+          q = static_cast<float>(static_cast<int8_t>(q8[f]));
+        } else {
+          q = __half2float(__half(__nv_cvt_fp8_to_halfraw(static_cast<__nv_fp8_storage_t>(q8[f]), __NV_E4M3)));
+        }
+        const float wire = __fmul_rn(q, scales[d * F + f]);
+        for (int e = 0; e < El; ++e) {
+          const int slot = rcv[e * sends + m];
+          if (slot < dump || m == last[e]) x[e * shard + static_cast<long long>(slot) * F + f] = wire;
+        }
+      }
+    }
+  }
+}
+
+template <class Sr, int kWire, int kF>
+cudaError_t launch_halo_local(void* x, void* ef, void* scratch, void* amax, void* out,
+                              void* scales, const void* src_loc, const void* val,
+                              const void* row_ptr, const void* rows, const void* rows_loc,
+                              const void* send_idx, const void* table, double c_in,
+                              double mix_in, double one_minus_mix_in, double inv_qmax_in,
+                              int tag, int s, int S, int Dl, int Dp, int Ps, int P_loc,
+                              int M, int delta, int L, int H, int F, cudaStream_t stream) {
+  using T = typename Sr::T;
+  T* x_p = static_cast<T*>(x);
+  float* ef_p = static_cast<float*>(ef);
+  T* scratch_p = static_cast<T*>(scratch);
+  uint32_t* amax_p = static_cast<uint32_t*>(amax);
+  float* scales_p = static_cast<float*>(scales);
+  const int32_t* src_p = static_cast<const int32_t*>(src_loc);
+  const T* val_p = static_cast<const T*>(val);
+  const int32_t* ptr_p = static_cast<const int32_t*>(row_ptr);
+  const int32_t* rows_p = static_cast<const int32_t*>(rows);
+  const int32_t* rl_p = static_cast<const int32_t*>(rows_loc);
+  const int32_t* snd_p = static_cast<const int32_t*>(send_idx);
+  const T* table_p = static_cast<const T*>(table);
+  T c = static_cast<T>(c_in);
+  float mix = static_cast<float>(mix_in);
+  float one_minus_mix = static_cast<float>(one_minus_mix_in);
+  float inv_qmax = static_cast<float>(inv_qmax_in);
+  static int cache[kMaxDevices] = {};
+  const void* kernel = reinterpret_cast<const void*>(&halo_local_kernel<Sr, kWire, kF>);
+  int resident = 0, R = 0, blocks = 0;
+  cudaError_t err = resident_blocks(kernel, cache, &resident);
+  if (err != cudaSuccess) return err;
+  tile_grid(Dl * P_loc, delta, resident, &R, &blocks);
+  void* args[] = {&x_p,   &ef_p,  &scratch_p, &amax_p, &out,    &scales_p, &src_p,
+                  &val_p, &ptr_p, &rows_p,    &rl_p,   &snd_p,  &table_p,  &c,
+                  &mix,   &one_minus_mix,     &tag,    &s,      &S,        &Dl,
+                  &Dp,    &Ps,    &P_loc,     &M,      &delta,  &L,        &H,
+                  &R,     &inv_qmax,          &F};
+  err = cudaLaunchCooperativeKernel(kernel, dim3(static_cast<unsigned>(blocks)),
+                                    dim3(kThreads), args, 0, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <class T, int kWire, int kF>
+cudaError_t launch_halo_recv(void* x, const void* rows_in, const void* scales,
+                             const void* recv_idx, const void* dump_last, int s, int El,
+                             int Dp, int D, int L, int H, int F, cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const long long sends = static_cast<long long>(D) * H;
+  long long blocks = (sends + kThreads - 1) / kThreads;
+  if (blocks > 8LL * sms) blocks = 8LL * sms;
+  if (blocks < 1) blocks = 1;
+  halo_recv_kernel<T, kWire, kF><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      static_cast<T*>(x), rows_in, static_cast<const float*>(scales),
+      static_cast<const int32_t*>(recv_idx), static_cast<const int32_t*>(dump_last), s, El, Dp, D,
+      L, H, F);
   return cudaGetLastError();
 }
 
@@ -1286,7 +1554,7 @@ extern "C" int halo_round_launch(int dtype, int wire, void* x, void* ef,
 #define K2_ARGS                                                                    \
   x, ef, scratch, amax, src_loc, val, row_ptr, rows, rows_loc, send_idx, recv_idx, \
       dump_last, table, c, mix, one_minus_mix, inv_qmax, tag, s0, s1, S, D, P_loc, M, \
-      delta, L, H, F, st
+      delta, L, H, F, F, st
 #define K2_F32(KF) return launch_halo_round<PlusTimes, 0, KF>(K2_ARGS)
 #define K2_INT8(KF) return launch_halo_round<PlusTimes, 1, KF>(K2_ARGS)
 #define K2_FP8(KF) return launch_halo_round<PlusTimes, 2, KF>(K2_ARGS)
@@ -1305,6 +1573,109 @@ extern "C" int halo_round_launch(int dtype, int wire, void* x, void* ef,
 #undef K2_INT8
 #undef K2_F32
 #undef K2_ARGS
+  return cudaErrorInvalidValue;
+}
+
+// K2 over a batch (f32 or int32 wire): x (D, L, C) and table (n+1, C) with
+// C = Q * F, the Q queries' rows side by side; G as for
+// round_block_batch_launch.  All S steps in one launch.  Returns a cudaError_t.
+extern "C" int halo_round_batch_launch(int dtype, void* x, void* scratch, const void* src_loc,
+                                       const void* val, const void* row_ptr, const void* rows,
+                                       const void* rows_loc, const void* send_idx,
+                                       const void* recv_idx, const void* table, double c,
+                                       double mix, double one_minus_mix, int tag, int S, int D,
+                                       int P_loc, int M, int delta, int L, int H, int C, int G,
+                                       void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D < 1 || D > kMaxShards || C < 1 || G < 1 || C % G != 0 || S < 1) return cudaErrorInvalidValue;
+  if (!takes(dtype, tag, table)) return cudaErrorInvalidValue;
+#define KHB_ARGS                                                                          \
+  x, nullptr, scratch, nullptr, src_loc, val, row_ptr, rows, rows_loc, send_idx, recv_idx, \
+      nullptr, table, c, mix, one_minus_mix, 0.0, tag, 0, S, S, D, P_loc, M, delta, L, H, C, G, st
+#define KHB_PLUS(KF) return launch_halo_round<PlusTimes, 0, KF>(KHB_ARGS)
+#define KHB_MIN(KF) return launch_halo_round<MinPlus, 0, KF>(KHB_ARGS)
+  if (dtype == 0) DISPATCH_C(C, tag, KHB_PLUS)
+  DISPATCH_C(C, tag, KHB_MIN)
+#undef KHB_MIN
+#undef KHB_PLUS
+#undef KHB_ARGS
+  return cudaErrorInvalidValue;
+}
+
+// A rank's commit step s over its Dl shards (K2's rank entry).  The plan's
+// pointers (src_loc, rows_loc, send_idx) start at the launch's first shard,
+// whose per-step arrays hold Dp shards; the schedule's (val, row_ptr, rows)
+// at its first worker, of Ps workers a step.  out: the (Dl, H, F) send block
+// (x's type for wire 0, one byte a value for int8/fp8), scales (Dl, F)
+// floats and ef (Dl, S, H, F) for int8/fp8, amax Dl * F zeroed words.
+extern "C" int halo_local_launch(int dtype, int wire, void* x, void* ef, void* scratch,
+                                 void* amax, void* out, void* scales, const void* src_loc,
+                                 const void* val, const void* row_ptr, const void* rows,
+                                 const void* rows_loc, const void* send_idx, const void* table,
+                                 double c, double mix, double one_minus_mix, double inv_qmax,
+                                 int tag, int s, int S, int Dl, int Dp, int Ps, int P_loc, int M,
+                                 int delta, int L, int H, int F, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (Dl < 1 || Dl > Dp || F < 1 || s < 0 || s >= S || Dl * P_loc > Ps) return cudaErrorInvalidValue;
+  if (!takes(dtype, tag, table)) return cudaErrorInvalidValue;
+  if (wire != 0 && (dtype != 0 || ef == nullptr || amax == nullptr || scales == nullptr ||
+                    Dl * F > kMaxScales)) {
+    return cudaErrorInvalidValue;
+  }
+#define KL_ARGS                                                                               \
+  x, ef, scratch, amax, out, scales, src_loc, val, row_ptr, rows, rows_loc, send_idx, table, c, \
+      mix, one_minus_mix, inv_qmax, tag, s, S, Dl, Dp, Ps, P_loc, M, delta, L, H, F, st
+#define KL_F32(KF) return launch_halo_local<PlusTimes, 0, KF>(KL_ARGS)
+#define KL_INT8(KF) return launch_halo_local<PlusTimes, 1, KF>(KL_ARGS)
+#define KL_FP8(KF) return launch_halo_local<PlusTimes, 2, KF>(KL_ARGS)
+#define KL_MIN(KF) return launch_halo_local<MinPlus, 0, KF>(KL_ARGS)
+  if (dtype == 1) {
+    if (wire == 0) DISPATCH_F(F, tag, KL_MIN)
+  } else if (wire == 0) {
+    DISPATCH_F(F, tag, KL_F32)
+  } else if (wire == 1) {
+    DISPATCH_F(F, tag, KL_INT8)
+  } else if (wire == 2) {
+    DISPATCH_F(F, tag, KL_FP8)
+  }
+#undef KL_MIN
+#undef KL_FP8
+#undef KL_INT8
+#undef KL_F32
+#undef KL_ARGS
+  return cudaErrorInvalidValue;
+}
+
+// A rank's receive of step s: the gathered (D, H, F) rows (x's type for wire
+// 0; int8/fp8 bytes with (D, F) float scales) into the halo slots of its El
+// shards.  recv_idx and dump_last start at its first shard, of Dp shards a
+// step.  Returns a cudaError_t.
+extern "C" int halo_recv_launch(int dtype, int wire, void* x, const void* rows_in,
+                                const void* scales, const void* recv_idx, const void* dump_last,
+                                int s, int El, int Dp, int D, int L, int H, int F, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (El < 1 || El > Dp || D < 1 || F < 1 || s < 0) return cudaErrorInvalidValue;
+  if (wire != 0 && (dtype != 0 || scales == nullptr || dump_last == nullptr)) return cudaErrorInvalidValue;
+#define KR_ARGS x, rows_in, scales, recv_idx, dump_last, s, El, Dp, D, L, H, F, st
+#define KR_CASES(T, W)                                              \
+  switch (F) {                                                      \
+    case 1: return launch_halo_recv<T, W, 1>(KR_ARGS);              \
+    case 2: return launch_halo_recv<T, W, 2>(KR_ARGS);              \
+    case 4: return launch_halo_recv<T, W, 4>(KR_ARGS);              \
+    case 8: return launch_halo_recv<T, W, 8>(KR_ARGS);              \
+    default: return launch_halo_recv<T, W, 0>(KR_ARGS);             \
+  }
+  if (dtype == 1) {
+    if (wire == 0) KR_CASES(int32_t, 0)
+  } else if (wire == 0) {
+    KR_CASES(float, 0)
+  } else if (wire == 1) {
+    return launch_halo_recv<float, 1, 0>(KR_ARGS);
+  } else if (wire == 2) {
+    return launch_halo_recv<float, 2, 0>(KR_ARGS);
+  }
+#undef KR_CASES
+#undef KR_ARGS
   return cudaErrorInvalidValue;
 }
 

@@ -15,9 +15,12 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.round_block import (
     fused_batch_round_cuda,
     fused_batch_solve_cuda,
+    fused_halo_batch_round_cuda,
     fused_halo_round_cuda,
     fused_round_cuda,
     fused_solve_cuda,
+    halo_local_step_cuda,
+    halo_recv_cuda,
 )
 from repro_torch.kernels.spmv_ell import spmv_ell_cuda
 
@@ -25,9 +28,12 @@ __all__ = [
     "ell_from_csr",
     "fused_batch_round",
     "fused_batch_solve",
+    "fused_halo_batch_round",
     "fused_halo_round",
     "fused_round",
     "fused_solve",
+    "halo_local_step",
+    "halo_recv",
     "spmv",
 ]
 
@@ -73,6 +79,28 @@ def fused_halo_round(x_loc, ef, sched, plan, semiring, row_update, halo_dtype="f
     an int8/fp8 wire) on the residuals ``ef``; returns ``(x_loc, ef)``."""
     fn = _route(x_loc, fused_halo_round_cuda, ref.fused_halo_round_ref, "halo round")
     return fn(x_loc, ef, sched, plan, semiring, row_update, halo_dtype, steps)
+
+
+def fused_halo_batch_round(X_loc, sched, plan, semiring, row_update):
+    """One halo round over every shard of a batch frontier ``(D, L,
+    Q)+feat``, in place (f32 or int32 wire); returns ``X_loc``."""
+    fn = _route(X_loc, fused_halo_batch_round_cuda, ref.fused_halo_batch_round_ref, "halo batch round")
+    return fn(X_loc, sched, plan, semiring, row_update)
+
+
+def halo_local_step(x_loc, ef, sched, plan, semiring, row_update, halo_dtype, s, d0, d1):
+    """Commit step ``s`` of shards ``[d0, d1)`` of a halo round, in place on
+    their ``(d1 - d0, L)+feat`` frontier (and ``ef``); returns their send
+    block ``(rows, scales)`` (scales None for f32)."""
+    fn = _route(x_loc, halo_local_step_cuda, ref.halo_local_step_ref, "halo rank step")
+    return fn(x_loc, ef, sched, plan, semiring, row_update, halo_dtype, s, d0, d1)
+
+
+def halo_recv(x_loc, recv_rows, recv_scales, plan, s, e0, e1):
+    """Step ``s``'s gathered ``(D, H)+feat`` boundary rows (and int8/fp8
+    scales) into the halo slots of shards ``[e0, e1)``; returns ``x_loc``."""
+    fn = _route(x_loc, halo_recv_cuda, ref.halo_recv_ref, "halo receive")
+    return fn(x_loc, recv_rows, recv_scales, plan, s, e0, e1)
 
 
 def spmv(x_ext, idx, val, semiring: str = "plus_times"):

@@ -12,7 +12,12 @@ plain version runs, per commit step, one such step on every shard's local
 frontier (:func:`fused_halo_step_ref`), then the quantizer
 (:func:`quantize_halo`, int8/fp8 only) and the exchange
 (:func:`halo_exchange`); the ELL SpMV's sums column by column, in the
-kernel's order.
+kernel's order.  A rank of a halo solve over processes runs the same step
+for its own shards alone (:func:`halo_local_step_ref`, whose quantized
+wire ships :func:`quantize_halo_wire`'s 1-byte values and scales) and
+writes the gathered boundary rows into its shards' halo slots
+(:func:`halo_recv_ref`); the batch halo round is the plain halo round over
+a batch frontier (:func:`fused_halo_batch_round_ref`).
 """
 
 from __future__ import annotations
@@ -28,15 +33,21 @@ from repro_torch.core.semiring import INT_INF
 __all__ = [
     "HALO_QUANT",
     "HaloStep",
+    "batch_loop",
+    "dequantize_halo",
     "fused_batch_round_ref",
     "fused_batch_solve_ref",
+    "fused_halo_batch_round_ref",
     "fused_halo_round_ref",
     "fused_halo_step_ref",
     "fused_round_ref",
     "fused_solve_ref",
     "halo_exchange",
+    "halo_local_step_ref",
+    "halo_recv_ref",
     "halo_step",
     "quantize_halo",
+    "quantize_halo_wire",
     "spmv_ell_ref",
 ]
 
@@ -96,15 +107,25 @@ def _batch_residuals(residual, X, X_new) -> np.ndarray:
 def fused_batch_solve_ref(X, sched, semiring, row_update, residual, tol, max_rounds, conv0=None):
     """Plain version of :func:`repro_torch.kernels.round_block.fused_batch_solve_cuda`.
 
-    Plain batch rounds while ``rounds < max_rounds`` and some query has not
-    converged (each query's residual as float32 against ``float32(tol)``).
-    ``conv0`` None: the reference's ``_make_batch_solve_fn``, every query
-    iterating to the end.  Otherwise its ``_make_open_batch_solve_fn``: rows
-    flagged in ``conv0`` start converged, and a row freezes, state and
-    residual, at its first convergence.  Returns ``(X, residuals, rounds,
-    converged, rounds_per_query)``.
+    :func:`batch_loop` over plain batch rounds (:func:`fused_batch_round_ref`).
+    Returns ``(X, residuals, rounds, converged, rounds_per_query)``.
     """
     rnd = round_fn(sched, semiring, row_update)
+    return batch_loop(rnd, X, residual, tol, max_rounds, conv0)
+
+
+def batch_loop(rnd, X, residual, tol, max_rounds, conv0=None):
+    """The reference's batch loops over a batch round ``rnd: X -> X`` of the
+    ``(n+1, Q)+feat`` batch frontier ``X``.
+
+    Rounds while ``rounds < max_rounds`` and some query has not converged
+    (each query's residual as float32 against ``float32(tol)``).  ``conv0``
+    None: the reference's ``_make_batch_solve_fn``, every query iterating to
+    the end.  Otherwise its ``_make_open_batch_solve_fn``: rows flagged in
+    ``conv0`` start converged, and a row freezes, state and residual, at its
+    first convergence.  Returns ``(X, residuals, rounds, converged,
+    rounds_per_query)``.
+    """
     tol32 = np.float32(tol)
     Q = X.shape[1]
     res = np.full(Q, np.inf, np.float32)
@@ -154,15 +175,19 @@ class HaloStep:
 def halo_step(sched, plan, s: int, d: int) -> HaloStep:
     """Shard ``d``'s views for commit step ``s``.  The shard's workers
     ``[d·P_loc, (d+1)·P_loc)`` are contiguous in the schedule, so every view
-    is contiguous and nothing is copied."""
-    w = slice(d * plan.P_loc, (d + 1) * plan.P_loc)
+    is contiguous and nothing is copied.  A rank's schedule and plan
+    (``sched.w0``, ``plan.d0``: their first worker and shard) hold only
+    their own workers and shards, and are indexed from there."""
+    i = d - plan.d0
+    w0 = d * plan.P_loc - sched.w0
+    w = slice(w0, w0 + plan.P_loc)
     return HaloStep(
-        src=plan.src_loc[d, s],
+        src=plan.src_loc[i, s],
         val=sched.val[s, w],
         dst_local=sched.dst_local[s, w],
         rows_g=sched.rows[s, w],
-        rows_loc=plan.rows_loc[d, s],
-        send_idx=plan.send_idx[s, d],
+        rows_loc=plan.rows_loc[i, s],
+        send_idx=plan.send_idx[s, i],
     )
 
 
@@ -211,18 +236,22 @@ def halo_exchange(x_loc, send, recv_s) -> None:
         flat[recv_s[last]] = rows[last]
 
 
-def quantize_halo(send, ef_s, halo_dtype: str):
+def quantize_halo_wire(send, ef_s, halo_dtype: str):
     """Quantize the ``(D, H)+feat`` boundary rows per shard (and per feature
     column of a matrix frontier) against a max-abs scale over the H rows
     (floored at 1e-30), with error feedback.
 
-    Returns ``(dequantized rows, new residuals)``; ``want = send + ef_s`` is
-    rounded then clipped (int8) or clipped then cast (fp8), as the
-    reference's fused halo round does.  Its rounding is the reference's as
-    XLA compiles it: ``/ qmax`` is a product with the f32 reciprocal, and
-    ``want - q·scale`` rounds once, as a fused multiply-add (``q·scale`` is
-    exact in float64, so one rounding of the float64 difference is the
-    FMA's).  So the port's residuals equal the reference's bit for bit.
+    Returns ``(q, scales, new residuals)``: ``q`` the ``(D, H)+feat`` wire
+    values (int8, or float8 e4m3), ``scales`` ``(D,)+feat`` float32, the
+    dequantized rows being :func:`dequantize_halo` of the two.  ``want =
+    send + ef_s`` is rounded then clipped (int8) or clipped then cast (fp8),
+    as the reference's fused halo round does.  Its rounding is the
+    reference's as XLA compiles it: ``/ qmax`` is a product with the f32
+    reciprocal, and ``want - q·scale`` rounds once, as a fused multiply-add
+    (``q·scale`` is exact in float64, so one rounding of the float64
+    difference is the FMA's).  So the port's residuals equal the
+    reference's bit for bit.  A scale is one shard's and one step's, so a
+    rank quantizes its own shards' rows alone.
     """
     qdtype, qmax = HALO_QUANT[halo_dtype]
     want = send.to(torch.float32) + ef_s
@@ -230,9 +259,22 @@ def quantize_halo(send, ef_s, halo_dtype: str):
     q = want / scale
     if qdtype == torch.int8:
         q = torch.round(q)
-    q = q.clamp(-qmax, qmax).to(qdtype).to(torch.float32)
+    q = q.clamp(-qmax, qmax).to(qdtype)
     ef = (want.double() - q.double() * scale.double()).to(torch.float32)
-    return q * scale, ef
+    return q, scale.squeeze(1), ef
+
+
+def dequantize_halo(q, scales) -> torch.Tensor:
+    """The wire's value ``fl(q · scale)`` of the ``(D, H)+feat`` quantized
+    rows ``q`` with their ``(D,)+feat`` scales, as float32."""
+    return q.to(torch.float32) * scales.unsqueeze(1)
+
+
+def quantize_halo(send, ef_s, halo_dtype: str):
+    """:func:`quantize_halo_wire` and :func:`dequantize_halo` in one:
+    returns ``(dequantized rows, new residuals)``."""
+    q, scales, ef = quantize_halo_wire(send, ef_s, halo_dtype)
+    return dequantize_halo(q, scales), ef
 
 
 def fused_halo_round_ref(
@@ -261,6 +303,68 @@ def fused_halo_round_ref(
         recv = (plan.recv_idx[s].long() + offs).reshape(-1)
         halo_exchange(x_loc, send.to(x_loc.dtype), recv)
     return x_loc, ef
+
+
+def fused_halo_batch_round_ref(X_loc, sched, plan, semiring, epilogue):
+    """Plain version of :func:`repro_torch.kernels.round_block.fused_halo_batch_round_cuda`.
+
+    The plain halo round (f32 wire) over a batch frontier ``(D, L, Q)+feat``,
+    in place; ``epilogue`` an ``Epilogue.for_batch`` row update, whose table
+    is ``(n + 1, Q)+feat``.  A column of the batch gets the round its query
+    alone would (labelprop's row total sums each query's own F columns), so
+    it equals Q single plain halo rounds bit for bit.  Returns ``X_loc``.
+    """
+    return fused_halo_round_ref(X_loc, None, sched, plan, semiring, epilogue)[0]
+
+
+def halo_local_step_ref(x_loc, ef, sched, plan, semiring, row_update, wire: str, s: int, d0: int, d1: int):
+    """Plain version of :func:`repro_torch.kernels.round_block.halo_local_step_cuda`.
+
+    Commit step ``s`` of shards ``[d0, d1)`` alone, in place on their
+    ``(d1 - d0, L)+feat`` frontier ``x_loc`` (each shard's
+    :func:`fused_halo_step_ref`: its workers' rows, published into its
+    owned slots).  Returns the send block ``(rows, scales)``: for the f32
+    wire the ``(d1 - d0, H)+feat`` committed boundary rows and ``None``;
+    for int8/fp8 :func:`quantize_halo_wire`'s values and ``(d1 - d0,)+feat``
+    scales, with ``ef[:, s]`` (``ef`` the shards' ``(d1 - d0, S, H)+feat``
+    residuals) updated in place.  ``sched`` and ``plan`` hold at least those
+    shards (a rank's, or the whole).
+    """
+    send = torch.stack(
+        [fused_halo_step_ref(x_loc[d - d0], halo_step(sched, plan, s, d), semiring, row_update) for d in range(d0, d1)]
+    )
+    if wire == "f32":
+        return send, None
+    q, scales, ef[:, s] = quantize_halo_wire(send, ef[:, s], wire)
+    return q, scales
+
+
+def halo_recv_ref(x_loc, recv_rows, recv_scales, plan, s: int, e0: int, e1: int) -> torch.Tensor:
+    """Plain version of :func:`repro_torch.kernels.round_block.halo_recv_cuda`.
+
+    Writes the gathered ``(D, H)+feat`` boundary rows of step ``s`` (every
+    shard's send block, in shard order) into the halo slots of shards
+    ``[e0, e1)``, in place on their ``(e1 - e0, L)+feat`` frontier, through
+    ``recv_idx[s, e, d·H + k]``.  ``recv_scales`` None: f32 rows, and dump
+    slots are skipped.  Otherwise ``recv_rows`` are the quantized values and
+    ``recv_scales`` the ``(D,)+feat`` scales: each row is ``fl(q · scale)``
+    (:func:`dequantize_halo`), and the dump slot takes the entry
+    ``dump_last[s, e]`` names, the last one the plain exchange leaves there
+    (as K2's phase C does).  Returns ``x_loc``.
+    """
+    feat = tuple(x_loc.shape[2:])
+    rows = recv_rows if recv_scales is None else dequantize_halo(recv_rows, recv_scales)
+    rows = rows.to(x_loc.dtype).reshape((-1,) + feat)
+    dump = plan.L - 1
+    for e in range(e0, e1):
+        i = e - plan.d0
+        idx = plan.recv_idx[s, i].long()
+        keep = idx < dump
+        x_loc[e - e0][idx[keep]] = rows[keep]
+        if recv_scales is not None:
+            last = plan.dump_last[s, i].long()
+            x_loc[e - e0][dump] = torch.where(last >= 0, rows[last.clamp_min(0)], x_loc[e - e0][dump])
+    return x_loc
 
 
 def spmv_ell_ref(x_ext, idx, val, semiring: str) -> torch.Tensor:

@@ -86,13 +86,11 @@ class GraphService:
     ``backend`` is one of the port's (``"kernel"``: one launch of K1's loop
     entry a lane quantum on a CUDA device, its plain loop on the CPU;
     ``"torch"``: the plain loop) and ``frontier`` is passed through to each
-    solver.  Lanes batch on the replicated frontier only: a halo lane
-    raises out of :meth:`pump` (``ValueError`` for ``"kernel"``, whose K2
-    takes no query axis; ``NotImplementedError`` for ``"torch"``, the
-    reference's batched halo solve being ROADMAP queue A's A9 rest), never
-    as a lane fault.  ``compact_every`` sets the scheduling quantum in
-    rounds (how often converged queries retire and queued ones slot in)
-    for every request class.
+    solver.  A halo lane (``frontier="halo"``, over ``n_shards`` shards of
+    the one device; the reference takes its mesh's) runs each quantum's
+    rounds as launches of K2's batch entry, one a round.  ``compact_every``
+    sets the scheduling quantum in rounds (how often converged queries
+    retire and queued ones slot in) for every request class.
 
     ``cache_dir`` makes the warm state survive the *process*: each solver
     persists its schedules, stripes and δ-model to the content-addressed
@@ -121,6 +119,7 @@ class GraphService:
         damping: float = 0.85,
         backend: str = "kernel",
         frontier: str = "replicated",
+        n_shards: int = 1,
         compact_every: int | None = None,
         cache_dir=None,
         reprobe_every: int | None = None,
@@ -146,6 +145,7 @@ class GraphService:
         self.damping = damping
         self.backend = backend
         self.frontier = frontier
+        self.n_shards = n_shards
         self.compact_every = compact_every
         self.cache_dir = cache_dir
         self.reprobe_every = reprobe_every
@@ -179,6 +179,7 @@ class GraphService:
                 delta=self.delta,
                 backend=self.backend,
                 frontier=self.frontier,
+                n_shards=self.n_shards,
                 min_chunk=self.min_chunk,
                 cache_dir=self.cache_dir,
                 reprobe_every=self.reprobe_every,

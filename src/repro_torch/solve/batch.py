@@ -30,9 +30,14 @@ convergence instead, so a retired row equals a fresh one-query
 ``solve_batch`` of it bit for bit.  Each query's residual is compared as
 float32 against ``float32(tol)``, as the reference's loop does.
 
-Batches run on the replicated frontier: the halo round kernel K2 takes no
-query axis (the reference's ``pallas`` batch refuses halo too), and the
-reference's XLA halo batch (``backend="sharded"``) is not ported yet.
+``frontier="halo"`` batches over the owner-computes halo layout, as the
+reference's ``backend="sharded", frontier="halo"`` batch does: each round is
+one launch of K2's batch entry over the ``(D, L, Q)+feat`` batch frontier
+(:func:`repro_torch.dist.engine_sharded.frontier_batch_round_fn`; its plain
+version on the CPU and for ``backend="torch"``), under the reference's
+batch loops with one residual read back a round
+(:func:`repro_torch.kernels.ref.batch_loop`).  The reference quantizes no
+batch, so a halo batch runs the f32 wire.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.dist import engine_sharded
 from repro_torch.kernels import ops, ref
 
 __all__ = ["BatchResult", "BatchStepper", "RetiredQuery", "solve_batch"]
@@ -79,29 +85,38 @@ class RetiredQuery:
 
 
 def _resolve(solver, backend, frontier) -> tuple:
-    """The batch's backend and frontier; only the replicated frontier batches."""
+    """The batch's backend and frontier.  A halo batch runs the f32 wire (a
+    solver whose default wire is int8 or fp8 raises), and a solver whose
+    shards span processes raises."""
     backend = backend or solver.default_backend
     solver._check_backend(backend)
-    frontier = solver.resolve_frontier(frontier)
-    if frontier == "halo":
-        if backend == "kernel":
-            raise ValueError(
-                "batched solves run on the replicated frontier: the halo round "
-                "kernel K2 takes no query axis"
-            )
+    if solver.group is not None:
         raise NotImplementedError(
-            "the batched halo solve (the reference's backend='sharded', "
-            "frontier='halo') is not ported yet: ROADMAP queue A"
+            "a batch across processes (Solver(group=...)) is not ported yet: "
+            "ROADMAP queue A, A9 rest"
+        )
+    frontier = solver.resolve_frontier(frontier)
+    wire = solver.default_halo_dtype
+    if frontier == "halo" and wire != "f32":
+        raise ValueError(
+            f"K2 takes no query axis on an {wire} wire: a halo batch runs the "
+            "f32 exchange (the reference quantizes no batch)"
         )
     return backend, frontier
 
 
-def _solve(sched, semiring, backend: str, epilogue, residual, X, tol, max_rounds, conv0=None):
+def _solve(solver, sched, backend: str, frontier: str, epilogue, residual, X, tol, max_rounds, conv0=None):
     """One loop over the batch ``X`` until every query's residual is ≤ tol
     or ``max_rounds`` (``conv0``: an open batch's flags; see
-    :func:`repro_torch.kernels.ref.fused_batch_solve_ref`): K1's loop entry,
-    or the plain loop.  Returns ``(X, residuals, rounds, converged,
-    rounds_per_query)``."""
+    :func:`repro_torch.kernels.ref.batch_loop`): K1's loop entry, or the
+    plain loop, on the replicated frontier; rounds of K2's batch entry (or
+    its plain version) on the halo frontier.  Returns ``(X, residuals,
+    rounds, converged, rounds_per_query)``."""
+    semiring = solver.problem.semiring
+    if frontier == "halo":
+        plan = solver.frontier_plan(sched)
+        rnd = engine_sharded.frontier_batch_round_fn(sched, plan, semiring, epilogue, plain=backend == "torch")
+        return ref.batch_loop(rnd, X, residual, tol, max_rounds, conv0)
     loop = ops.fused_batch_solve if backend == "kernel" else ref.fused_batch_solve_ref
     return loop(X, sched, semiring, epilogue, residual, tol, max_rounds, conv0)
 
@@ -150,7 +165,8 @@ class BatchStepper:
       slot;
     * :meth:`run` executes one quantum, at most ``quantum`` rounds over
       **all** slots (free slots ride along pre-converged, so the batch's
-      width never changes) in one launch of K1's loop entry;
+      width never changes) in one launch of K1's loop entry (on the halo
+      frontier, one launch of K2's batch entry a round);
     * converged slots (and slots out of round budget) retire from
       :meth:`run` as :class:`RetiredQuery` rows, freeing their slots.
 
@@ -264,7 +280,8 @@ class BatchStepper:
         _build_s(self.solver, self.backend)
         residual = self.solver.problem.residual
         self._X, res, r, conv, rpq = _solve(
-            self.sched, self._sr, self.backend, self._epilogue, residual, self._X, self.tol, quantum, conv0=~occ
+            self.solver, self.sched, self.backend, self.frontier, self._epilogue, residual, self._X,
+            self.tol, quantum, conv0=~occ,
         )
         before = self._rounds_in.copy()
         self._rounds_in[occ] += r
@@ -324,7 +341,9 @@ def solve_batch(
       axis (e.g. :func:`ppr_teleport`); must be ``None`` otherwise.
     * ``backend``       — ``"kernel"`` (one launch of K1's loop entry a
       compaction chunk on a CUDA device, its plain loop on the CPU) or
-      ``"torch"`` (the plain loop); the replicated frontier only.
+      ``"torch"`` (the plain loop).
+    * ``frontier``      — ``"replicated"``, or ``"halo"``: rounds of K2's
+      batch entry over the solver's ``n_shards`` (on the f32 wire).
     * ``compact_every`` — shrink the active batch to the unconverged subset
       every this many rounds (straggler-aware batching); ``None`` runs until
       the slowest query converges.
@@ -333,7 +352,7 @@ def solve_batch(
     """
     problem = solver.problem
     sr = problem.semiring
-    backend, _ = _resolve(solver, backend, frontier)
+    backend, frontier = _resolve(solver, backend, frontier)
     sched = solver.schedule(delta)
     tol = solver.tol if tol is None else tol
     max_rounds = solver.max_rounds if max_rounds is None else max_rounds
@@ -361,7 +380,7 @@ def solve_batch(
         chunk = max_rounds - rounds_done
         if compact_every is not None:
             chunk = min(chunk, compact_every)
-        X, res, r, conv, rpq = _solve(sched, sr, backend, epilogue, problem.residual, X, tol, chunk)
+        X, res, r, conv, rpq = _solve(solver, sched, backend, frontier, epilogue, problem.residual, X, tol, chunk)
         rounds_done += r
         flushes += r * sched.S
         flush_bytes += r * sched.S * sched.P * sched.delta * bytes_per * active.size

@@ -59,6 +59,18 @@ cold answer.  Every solve logs its ``(δ, rounds, time)`` there;
 ``reprobe_every=N`` does so every N observations.  ``partition_method``
 names the block partitioner (:data:`~repro_torch.graphs.partition.PARTITION_METHODS`).
 
+Across processes: ``Solver(..., frontier="halo", n_shards=D,
+group=...)`` (a ``torch.distributed`` process group, or a
+:class:`~repro_torch.dist.comm.HaloGroup`) runs one rank of a halo solve.
+Every rank constructs the solver on the same graph and calls ``solve()``
+collectively; a rank keeps on its device only its own ``D/W`` shards'
+frontier, plan blocks and workers' schedule cells (the CSR stays on the
+host), each commit step is K2's rank entry, the group's all-gather of the
+boundary rows and K2's receive, and every rank returns the same whole
+:class:`EngineResult`.  The replicated frontier, ``delta="auto"`` (whose
+probes run replicated), ``cache_dir``, ``apply_updates``/``resolve`` and
+batches across processes raise ``NotImplementedError`` (ROADMAP queue A).
+
 The solver runs on CUDA unless it is given ``device="cpu"``; with no CUDA
 device and no ``device`` it raises.
 """
@@ -147,6 +159,7 @@ class Solver:
         cache_dir=None,
         reprobe_every: int | None = None,
         device=None,
+        group=None,
     ):
         self._check_backend(backend)
         self._check_frontier(frontier)
@@ -159,6 +172,24 @@ class Solver:
         self._check_delta(delta)
         if n_shards < 1 or n_workers % n_shards:
             raise ValueError(f"P={n_workers} not divisible by D={n_shards}")
+        if group is not None:
+            if frontier != "halo":
+                raise NotImplementedError(
+                    "Solver(group=...) runs the halo frontier over processes; the "
+                    "replicated sharded round across processes is ROADMAP queue A (A9 rest)"
+                )
+            if cache_dir is not None:
+                raise NotImplementedError(
+                    "Solver(group=..., cache_dir=...): persistence across processes is "
+                    "ROADMAP queue A (A9 rest)"
+                )
+            from repro_torch.dist.comm import HaloGroup
+
+            if not isinstance(group, HaloGroup):
+                group = HaloGroup(group, n_shards)
+            if group.n_shards != n_shards:
+                raise ValueError(f"the group splits {group.n_shards} shards, the solver has {n_shards}")
+        self.group = group
         self.device = resolve_device(device)
         self.graph = graph
         self.problem = problem
@@ -189,6 +220,7 @@ class Solver:
         self._auto_delta_incremental = None
         self._schedules: dict[int, DeviceSchedule] = {}
         self._plans: dict[tuple, engine_sharded.FrontierPlan] = {}
+        self._rank_layouts: dict[int, tuple] = {}  # δ -> (RankSchedule, rank plan)
         self._last_x = None  # fixed point of the most recent solve (host copy)
         self._last_report = None  # UpdateReport of the most recent apply_updates
         self.stats = {
@@ -336,6 +368,11 @@ class Solver:
             return min(self.min_chunk, B)
         if delta == "auto":
             if self._auto_delta is None:
+                if self.group is not None:
+                    raise NotImplementedError(
+                        "delta='auto' probes on the replicated frontier, which does not "
+                        "run across processes yet (ROADMAP queue A, A9 rest): pass a δ"
+                    )
                 self._auto_delta = self._probe_auto_delta()
             return self._auto_delta
         return int(min(max(int(delta), 1), B))
@@ -526,6 +563,27 @@ class Solver:
         self.persist.save_plan(plan, sched)
         return plan
 
+    def rank_layout(self, delta=None) -> tuple:
+        """This rank's ``(RankSchedule, plan)`` for ``delta`` (a solver with
+        a ``group``): its workers' schedule cells and its shards' plan
+        blocks, built from the graph on the host (its own stripes, every
+        shard's halo) and cached per δ."""
+        if self.group is None:
+            raise ValueError("rank_layout needs a Solver(group=...)")
+        delta_eff = self.resolve_delta(delta)
+        hit = self._rank_layouts.get(delta_eff)
+        if hit is None:
+            g, P_loc = self.group, self.n_workers // self.n_shards
+            sched, host = engine_sharded.rank_schedule(
+                self._sched_graph, self.bounds, delta_eff, self.problem.semiring.pad_edge_val,
+                g.d0 * P_loc, g.d1 * P_loc, self.device,
+            )
+            plan = engine_sharded.rank_plan(self._sched_graph, sched, host, self.n_shards, self.device)
+            hit = self._rank_layouts[delta_eff] = (sched, plan)
+            self.stats["schedule_builds"] += 1
+            self.stats["plan_builds"] += 1
+        return hit
+
     # ------------------------------------------------------------------ #
     # inputs
     # ------------------------------------------------------------------ #
@@ -533,13 +591,7 @@ class Solver:
         """Append the dump slot to ``x0``: a vector ``(n,)`` or a matrix
         ``(n, F)`` (``(n, 1)`` is accepted for any problem, and runs the
         vector round's arithmetic)."""
-        if x0 is None:
-            x0 = self.problem.x0(self.graph)
-        x0 = np.asarray(x0)
-        n = self.graph.n
-        if not (x0.shape == (n,) or (x0.ndim == 2 and x0.shape[0] == n)):
-            raise ValueError(f"x0 must have shape ({n},) or ({n}, F), got {x0.shape}")
-        return extend_frontier(x0, self.problem.semiring, self.device)
+        return extend_frontier(self._x0_host(x0), self.problem.semiring, self.device)
 
     def row_update(self, q=None):
         """The problem's row update on this solver's device, for query ``q``."""
@@ -625,6 +677,12 @@ class Solver:
         halo_dtype = self.resolve_halo_dtype(halo_dtype, backend, frontier)
         tol = self.tol if tol is None else tol
         max_rounds = self.max_rounds if max_rounds is None else max_rounds
+        if self.group is not None:
+            if frontier != "halo":
+                raise NotImplementedError(
+                    "the replicated sharded round across processes is ROADMAP queue A (A9 rest)"
+                )
+            return self._solve_ranks(x0, q, delta, backend, halo_dtype, tol, max_rounds)
         sched = self.schedule(delta)
         x_ext = self._x_ext(x0)
         feat = tuple(x_ext.shape[1:])
@@ -654,6 +712,61 @@ class Solver:
         self._record_observation(sched.delta, result.rounds, result.total_time_s, backend, regime=regime)
         return result
 
+    def _solve_ranks(self, x0, q, delta, backend, halo_dtype, tol, max_rounds) -> EngineResult:
+        """This rank's share of a halo solve across processes (collective).
+
+        The host loop of the one-process halo solve over the rank's shards:
+        each round :func:`~repro_torch.dist.engine_sharded.frontier_rank_round_fn`
+        (S commit steps, each with its all-gather), then every shard's
+        residual over its owned vertices, summed in shard order across the
+        group (the same bits for any number of ranks), against ``tol``.  The
+        owned rows are gathered once at the end, so every rank returns the
+        whole answer."""
+        sched, plan = self.rank_layout(delta)
+        sr, residual, g = self.problem.semiring, self.problem.residual, self.group
+        x_host = extend_frontier(self._x0_host(x0), sr, "cpu")
+        feat = tuple(x_host.shape[1:])
+        row_update = self.row_update(q)
+        if isinstance(row_update, Epilogue):
+            row_update = row_update.for_frontier(feat)
+        build_s = 0.0
+        if backend == "kernel" and self.device.type == "cuda":
+            from repro_torch.kernels.build import load
+
+            t0 = time.perf_counter()
+            load("round_block")
+            build_s = time.perf_counter() - t0
+        self.stats["solves"] += 1
+        x_loc = x_host[plan.gather_index.cpu().long()].contiguous().to(self.device)
+        ef = torch.zeros((plan.d1 - plan.d0, plan.S, plan.H) + feat, dtype=torch.float32, device=self.device)
+        rank_round = engine_sharded.frontier_rank_round_fn(
+            sched, plan, sr, row_update, g, halo_dtype, plain=backend == "torch"
+        )
+        owned = plan.owned_sizes
+
+        def rnd(x_loc):
+            return rank_round(x_loc.clone(), ef)[0]
+
+        def shard_residuals(old, new):
+            return g.sum_partials([float(residual(old[i, : owned[i]], new[i, : owned[i]])) for i in range(owned.size)])
+
+        def finish(x_loc):
+            return torch.cat([g.gather_owned(x_loc, plan.vertex_bounds), x_host[-1:]])
+
+        result = host_loop(rnd, sched, sr, x_loc, shard_residuals, tol, max_rounds, build_s, finish=finish)
+        self._last_x = np.asarray(result.x)
+        return result
+
+    def _x0_host(self, x0) -> np.ndarray:
+        """``x0`` (the problem's default when None), shape-checked, on the host."""
+        if x0 is None:
+            x0 = self.problem.x0(self.graph)
+        x0 = np.asarray(x0)
+        n = self.graph.n
+        if not (x0.shape == (n,) or (x0.ndim == 2 and x0.shape[0] == n)):
+            raise ValueError(f"x0 must have shape ({n},) or ({n}, F), got {x0.shape}")
+        return x0
+
     # ------------------------------------------------------------------ #
     # evolving graphs: apply_updates + incremental resolve
     # ------------------------------------------------------------------ #
@@ -674,6 +787,7 @@ class Solver:
         degree-sensitive partition on the mutated graph would shift every
         block boundary and invalidate all stripes for a one-row change.
         """
+        self._refuse_group("apply_updates")
         bounds = self.bounds  # pin pre-mutation bounds before swapping graphs
         new_graph, report = self.graph.apply_updates(batch)
         self.graph = new_graph
@@ -695,6 +809,13 @@ class Solver:
         self._patch_schedules(report)
         self._last_report = report
         return report
+
+    def _refuse_group(self, what: str) -> None:
+        if self.group is not None:
+            raise NotImplementedError(
+                f"{what} across processes (Solver(group=...)) is not ported yet: "
+                "ROADMAP queue A (A9 rest)"
+            )
 
     def _carry_persist_over(self):
         """Point the store at the mutated graph's namespace, carrying the
@@ -802,6 +923,7 @@ class Solver:
         re-solve.  ``delta=None``/``"auto"`` prefers the incremental-regime
         δ* once one is fitted (``_auto_delta_incremental``).
         """
+        self._refuse_group("resolve")
         if x0 is None and self._last_x is None:
             raise ValueError(
                 "resolve() warm-starts from the previous fixed point — "

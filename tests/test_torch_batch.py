@@ -18,14 +18,16 @@ and ``repro_torch.solve.batch`` on the CPU:
   closed batch does not freeze its converged queries;
 * the plain batch round equals Q single plain rounds at C = Q·F = 1, 3, 8,
   12, 16 and 32 for every epilogue tag;
-* the refusals, and that ``repro_torch.solve.batch`` imports neither jax
-  nor ``repro``.
+* the refusals (a quantized halo batch; a batch across processes, here a
+  group of one rank), and that ``repro_torch.solve.batch`` imports neither
+  jax nor ``repro``.
 
 The graphs are the s9 (and the reference's s8) pairs with n ≥ 32 and
 P ≥ 2, where the reference's float bits do not depend on XLA's fusion
 (ROADMAP queue C, item 1).
 """
 
+import contextlib
 import os
 import subprocess
 import sys
@@ -404,6 +406,18 @@ def test_shared_table_spreads_over_the_batch():
 # --------------------------------------------------------------------------- #
 # (e) refusals
 # --------------------------------------------------------------------------- #
+@contextlib.contextmanager
+def _one_rank_group(tmp_path):
+    """A ``gloo`` process group of this process alone, torn down after."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0, world_size=1)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
 @pytest.mark.parametrize(
     "name,kwargs,exc,match",
     [
@@ -412,15 +426,28 @@ def test_shared_table_spreads_over_the_batch():
         ("ppr", {"q": "short"}, ValueError, "q leading axis 3 != Q 4"),
         ("ppr", {"q": None}, ValueError, "needs a batched q="),
         ("sssp", {"compact_every": 0}, ValueError, "compact_every must be >= 1"),
-        ("sssp", {"frontier": "halo"}, ValueError, "K2 takes no query axis"),
-        ("sssp", {"frontier": "halo", "backend": "torch"}, NotImplementedError, "ROADMAP"),
+        ("sssp", {"frontier": "halo", "halo_dtype": "int8"}, ValueError, "K2 takes no query axis"),
+        ("sssp", {"frontier": "halo", "backend": "torch", "group": "one rank"}, NotImplementedError, "ROADMAP"),
         ("sssp", {"backend": "pallas"}, ValueError, "backend must be one of"),
     ],
 )
-def test_batch_refusals(name, kwargs, exc, match):
+def test_batch_refusals(name, kwargs, exc, match, tmp_path):
     _, ts = _solvers(name)
     x0, q = _batch_inputs(name, ts.graph)
     kwargs = dict(kwargs)
+    wire = kwargs.pop("halo_dtype", None)
+    if wire is not None:  # a solver whose default halo wire is quantized
+        ts = t_solve.Solver(ts.graph, ts.problem, n_workers=P, min_chunk=MIN_CHUNK, n_shards=2, halo_dtype=wire,
+                            device="cpu")
+    if kwargs.pop("group", None):  # a solver whose shards span processes: a group of one rank here
+        with _one_rank_group(tmp_path) as pg:
+            grouped = t_solve.Solver(ts.graph, ts.problem, n_workers=P, min_chunk=MIN_CHUNK, frontier="halo",
+                                     device="cpu", group=pg)
+            with pytest.raises(exc, match=match):
+                grouped.solve_batch(x0, delta=24, **kwargs)
+            with pytest.raises(exc, match=match):
+                t_solve.BatchStepper(grouped, capacity=2)
+        return
     if kwargs.pop("x0", None):
         x0 = np.zeros((Q, ts.graph.n + 1), x0.dtype)
     if "q" not in kwargs:
@@ -437,8 +464,10 @@ def test_stepper_refusals():
     _, ts = _stepper_pair("ppr")
     with pytest.raises(ValueError, match="capacity must be >= 1"):
         t_solve.BatchStepper(ts, capacity=0)
+    quantized = t_solve.Solver(ts.graph, ts.problem, n_workers=4, delta=32, min_chunk=8, halo_dtype="int8",
+                               device="cpu")
     with pytest.raises(ValueError, match="K2 takes no query axis"):
-        t_solve.BatchStepper(ts, capacity=2, frontier="halo")
+        t_solve.BatchStepper(quantized, capacity=2, frontier="halo")
     st = t_solve.BatchStepper(ts, capacity=2)
     x0, q = _query("ppr", ts.graph, 3)
     with pytest.raises(ValueError, match="needs a per-row q="):

@@ -1151,3 +1151,183 @@ def test_lane_quanta_equal_loop_entry_launches(cuda_device):
     fresh = svc.solver("ppr").solve_batch(np.full((1, g.n), 1.0 / g.n, np.float32), q=ppr_teleport(g, [r.payload]))
     assert r.converged and r.rounds == fresh.rounds
     np.testing.assert_array_equal(r.x.view(np.int32), fresh.x[0].view(np.int32))
+
+
+# K2's rank entries (a rank's commit step, the receive) and its batch entry
+# against their plain versions, bit for bit; a two-process gloo solve on the
+# card against the one-process K2 solve.
+RANK_SPLITS = {"whole": ((0, 4),), "halves": ((0, 2), (2, 4)), "uneven": ((0, 1), (1, 4))}
+RANK_WIRES = [(ADD_CONST, "f32"), (ADD_CONST, "int8"), (ADD_CONST, "fp8"), (ADD_TABLE, "f32"),
+              (ADD_TABLE, "int8"), (ADD_TABLE, "fp8"), (MIN_OLD, "f32"), (LABELPROP, "f32"), (LABELPROP, "fp8")]
+
+
+def _rank_case_inputs(tag, F, rng):
+    if tag == MIN_OLD:
+        g, sr = make_graph("kron", scale=10, efactor=8, kind="sssp"), MIN_PLUS
+        return g, sr, rng.integers(0, 1000, g.n).astype(np.int32), Epilogue(MIN_OLD)
+    g, sr = make_graph("twitter", scale=10, efactor=8, kind="pagerank"), PLUS_TIMES
+    shape = (g.n,) if F == 1 else (g.n, F)
+    x0 = rng.random(shape).astype(np.float32)
+    if tag == ADD_CONST:
+        return g, sr, x0, Epilogue(ADD_CONST, const=float(np.float32(0.15 / g.n)))
+    if tag == ADD_TABLE:
+        table = rng.random((g.n + 1,) + shape[1:]).astype(np.float32)
+        table[-1] = 0.0
+        return g, sr, x0, Epilogue(ADD_TABLE, table=torch.as_tensor(table))
+    anchors = (rng.random((g.n + 1,) + shape[1:]) < 0.01).astype(np.float32)
+    anchors[-1] = 0.0
+    return g.with_values(np.ones(g.nnz, np.float32)), sr, x0, Epilogue.labelprop(torch.as_tensor(anchors), 0.9)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("split", list(RANK_SPLITS))
+@pytest.mark.parametrize("mode,delta", [("sync", None), ("delayed", 96)])
+@pytest.mark.parametrize("F", [1, 4])
+@pytest.mark.parametrize("tag,wire", RANK_WIRES)
+def test_halo_rank_entries_match_plain_versions(cuda_device, tag, wire, F, mode, delta, split):
+    """Each step: K2's rank entry over each range of shards, the send
+    blocks joined in shard order, and K2's receive into each range, against
+    their plain versions: send blocks, scales, x_loc (dump slots masked but
+    for a quantized wire) and ef bit for bit, one launch of each a range a
+    step."""
+    if tag == LABELPROP and F == 1:
+        F = 2  # labelprop's row total needs a matrix frontier
+    rng = np.random.default_rng(F)
+    g, sr, x0, ep = _rank_case_inputs(tag, F, rng)
+    cpu = engine.make_schedule(g, 8, delta, sr, mode=mode, min_chunk=32)
+    dev = engine.make_schedule(g, 8, delta, sr, mode=mode, min_chunk=32, device=cuda_device)
+    plan_cpu = engine_sharded.make_frontier_plan(cpu, 4)
+    plan = engine_sharded.make_frontier_plan(dev, 4)
+    feat = tuple(x0.shape[1:])
+    want_x = plan_cpu.scatter_x(engine.extend_frontier(x0, sr, "cpu"))
+    want_ef = engine_sharded.frontier_ef_init(plan_cpu, feat)
+    got_x, got_ef = want_x.to(cuda_device), want_ef.to(cuda_device)
+    ep_dev = ep.to(cuda_device)
+    ranges = RANK_SPLITS[split]
+    launches = (ops.halo_local_step_cuda.launches, ops.halo_recv_cuda.launches)
+    for s in range(cpu.S):
+        want = [ref.halo_local_step_ref(want_x[a:b], want_ef[a:b], cpu, plan_cpu, sr, ep, wire, s, a, b) for a, b in ranges]
+        got = [ops.halo_local_step(got_x[a:b], got_ef[a:b], dev, plan, sr, ep_dev, wire, s, a, b) for a, b in ranges]
+        torch.cuda.synchronize()
+        for (wr, ws), (gr, gs) in zip(want, got):
+            assert torch.equal(gr.cpu().view(torch.uint8) if wire != "f32" else gr.cpu(),
+                               wr.view(torch.uint8) if wire != "f32" else wr)
+            assert (ws is None) == (gs is None) and (ws is None or _bits_equal(gs.cpu(), ws))
+        rows_w = torch.cat([w[0] for w in want])
+        rows_g = torch.cat([w[0] for w in got])
+        sc_w = None if wire == "f32" else torch.cat([w[1] for w in want])
+        sc_g = None if wire == "f32" else torch.cat([w[1] for w in got])
+        for a, b in ranges:
+            ref.halo_recv_ref(want_x[a:b], rows_w, sc_w, plan_cpu, s, a, b)
+            ops.halo_recv(got_x[a:b], rows_g, sc_g, plan, s, a, b)
+        torch.cuda.synchronize()
+        cols = slice(None) if wire != "f32" else slice(None, -1)
+        assert _bits_equal(got_x.cpu()[:, cols], want_x[:, cols]), s
+        assert _bits_equal(got_ef.cpu(), want_ef), s
+    n = cpu.S * len(ranges)
+    assert (ops.halo_local_step_cuda.launches, ops.halo_recv_cuda.launches) == (launches[0] + n, launches[1] + n)
+
+
+HALO_BATCH_CASES = [(ADD_CONST, "vector"), (ADD_TABLE, "vector"), (MIN_OLD, "vector"), (ADD_TABLE, "matrix"),
+                    (LABELPROP, "matrix")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,delta", [("sync", None), ("delayed", 96), ("delayed", 7)])
+@pytest.mark.parametrize("C", [8, 32])
+@pytest.mark.parametrize("tag,layout", HALO_BATCH_CASES)
+def test_halo_batch_entry_matches_plain_round(cuda_device, tag, layout, C, mode, delta):
+    g, sr, x, ep = _batch_card_inputs(tag, layout, C)
+    cpu = engine.make_schedule(g, 8, delta, sr, mode=mode, min_chunk=32)
+    dev = engine.make_schedule(g, 8, delta, sr, mode=mode, min_chunk=32, device=cuda_device)
+    plan_cpu = engine_sharded.make_frontier_plan(cpu, 4)
+    plan = engine_sharded.make_frontier_plan(dev, 4)
+    want = plan_cpu.scatter_x(torch.as_tensor(x))
+    got = want.to(cuda_device)
+    launches = ops.fused_halo_batch_round_cuda.launches
+    for _ in range(2):
+        ref.fused_halo_batch_round_ref(want, cpu, plan_cpu, sr, ep)
+        ops.fused_halo_batch_round(got, dev, plan, sr, ep.to(cuda_device))
+        torch.cuda.synchronize()
+        assert _bits_equal(got.cpu()[:, :-1], want[:, :-1])
+    assert ops.fused_halo_batch_round_cuda.launches == launches + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["ppr", "sssp"])
+def test_halo_batch_solve_on_card_matches_cpu(cuda_device, name):
+    g = make_graph("twitter" if name == "ppr" else "kron", scale=10, efactor=8,
+                   kind="pagerank" if name == "ppr" else "sssp")
+    seeds = [0, 5, 17, 99, 300, 512, 700, 1000]
+    if name == "ppr":
+        prob, x0, q = ppr_problem(), np.full((8, g.n), 1.0 / g.n, np.float32), ppr_teleport(g, seeds)
+    else:
+        prob, x0, q = sssp_problem(), multi_source_x0(g, seeds), None
+    kw = dict(n_workers=8, delta=96, min_chunk=32, n_shards=4)
+    launches = ops.fused_halo_batch_round_cuda.launches
+    on_card = Solver(g, prob, **kw).solve_batch(x0, q=q, frontier="halo")
+    on_cpu = Solver(g, prob, device="cpu", **kw).solve_batch(x0, q=q, frontier="halo")
+    assert ops.fused_halo_batch_round_cuda.launches == launches + on_card.rounds
+    assert on_card.rounds == on_cpu.rounds
+    np.testing.assert_array_equal(on_card.rounds_per_query, on_cpu.rounds_per_query)
+    np.testing.assert_array_equal(on_card.x.view(np.int32), on_cpu.x.view(np.int32))
+
+
+_TWO_RANKS = """
+import sys, datetime, numpy as np, torch, torch.distributed as dist
+from repro_torch.graphs.generators import make_graph
+from repro_torch.kernels import ops
+from repro_torch.solve import Solver, pagerank_problem, sssp_problem
+rank, init, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+dist.init_process_group("gloo", init_method=init, rank=rank, world_size=2, timeout=datetime.timedelta(seconds=120))
+res = {}
+for name, prob, wire in (("pagerank", pagerank_problem(), "f32"), ("sssp", sssp_problem(), "f32"),
+                         ("pagerank_int8", pagerank_problem(), "int8")):
+    g = make_graph("twitter" if name.startswith("pagerank") else "kron", scale=10, efactor=8,
+                   kind="sssp" if name == "sssp" else "pagerank")
+    sv = Solver(g, prob, n_workers=8, delta=96, min_chunk=32, frontier="halo", n_shards=4, group=dist.group.WORLD,
+                halo_dtype=wire, max_rounds=12 if wire != "f32" else None)
+    before = (ops.halo_local_step_cuda.launches, ops.halo_recv_cuda.launches)
+    r = sv.solve()
+    S = sv.rank_layout()[0].S
+    res[name] = r.x
+    res[name + "/counts"] = np.array([r.rounds, r.flushes, r.flush_bytes, S,
+                                      ops.halo_local_step_cuda.launches - before[0],
+                                      ops.halo_recv_cuda.launches - before[1]])
+res["transport"] = np.array([sv.group.transport])
+np.savez(f"{out}/rank{rank}.npz", **res)
+dist.destroy_process_group()
+"""
+
+
+@pytest.mark.gpu
+def test_two_process_gloo_solve_on_the_card_equals_one_process(cuda_device, tmp_path):
+    """Two processes share the card over a gloo group (NCCL takes one rank a
+    card): each rank's PageRank, SSSP and int8 PageRank equal the one-process
+    K2 solve bit for bit, with one rank entry and one receive a step."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(repo / "src"))
+    init = f"file://{tmp_path / 'store'}"
+    procs = [subprocess.Popen([sys.executable, "-c", _TWO_RANKS, str(r), init, str(tmp_path)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = [p.communicate(timeout=600)[0] for p in procs]
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-4000:]
+    for name, prob, wire, kind in (("pagerank", pagerank_problem(), "f32", "pagerank"),
+                                   ("sssp", sssp_problem(), "f32", "sssp"),
+                                   ("pagerank_int8", pagerank_problem(), "int8", "pagerank")):
+        g = make_graph("twitter" if kind == "pagerank" else "kron", scale=10, efactor=8, kind=kind)
+        one = Solver(g, prob, n_workers=8, delta=96, min_chunk=32, frontier="halo", n_shards=4,
+                     halo_dtype=wire, max_rounds=12 if wire != "f32" else None).solve()
+        for r in range(2):
+            got = np.load(tmp_path / f"rank{r}.npz")
+            rounds, flushes, fbytes, S, local, recv = got[name + "/counts"]
+            assert (rounds, flushes, fbytes) == (one.rounds, one.flushes, one.flush_bytes)
+            assert local == recv == rounds * S  # one launch of each a step
+            np.testing.assert_array_equal(got[name].view(np.int32), one.x.view(np.int32))
+            assert str(got["transport"][0]) == "gloo (pinned host)"

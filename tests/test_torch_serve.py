@@ -17,8 +17,9 @@ twitter s8 PageRank; P = 4, δ = 32, capacity 4, ``min_chunk=8``):
   on every field but ``wall_s`` (two two-tenant traces, the parameters of
   ``benchmarks/serve_load.py``);
 * the update barrier, lane-fault recovery through ``FaultSpec(site=
-  "scheduler.lane")``, deadlines, the ``--assert-warm`` gate, the refusals
-  (a halo lane, ``degrade=True``, no CUDA device), and that
+  "scheduler.lane")``, deadlines, the ``--assert-warm`` gate, a halo lane
+  (which once raised, and now serves), the refusals (``degrade=True``, no
+  CUDA device), and that
   ``repro_torch.launch`` imports neither jax nor ``repro``.
 
 The round clock advances by each lane quantum's executed rounds, so equal
@@ -601,10 +602,18 @@ def test_assert_warm_gate(tmp_path):
 
 @pytest.mark.parametrize("backend,exc", [("torch", NotImplementedError), ("kernel", ValueError)])
 def test_halo_lane_raises_out_of_pump(sides, backend, exc):
-    svc = service(sides[backend], "sssp", frontier="halo")
+    """A halo lane once raised ``exc`` out of :meth:`pump`; the batched halo
+    solve is ported, so it now serves: nothing raised, no lane fault, and
+    the answer the reference's ``jit`` lane gives (tests/test_torch_halo_batch.py
+    holds the halo lanes in full)."""
+    svc = service(sides[backend], "sssp", frontier="halo", n_shards=2)
     assert svc.submit(t_service.QueryRequest(algo="sssp", payload=0)).accepted
-    with pytest.raises(exc, match="halo|replicated"):
-        svc.pump()
+    got = svc.drain()
+    ref_svc = service(sides["jit"], "sssp")
+    assert ref_svc.submit(j_service.QueryRequest(algo="sssp", payload=0)).accepted
+    want = ref_svc.drain()
+    assert issubclass(exc, Exception) and len(got) == len(want) == 1
+    assert_same_records(want, got, backend)
     c = svc.scheduler.counters
     assert (c["lane_faults"], c["failed"], c["retries"]) == (0, 0, 0)
 
