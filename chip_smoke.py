@@ -47,9 +47,15 @@ smaller graphs:
    (min-plus is order-free).
    K2's rank entry and receive (``halo_entries_check``: a rank's commit
    step over shards [0, 2) and [2, 4) and the receive of the joined send
-   blocks) against their plain versions a step at a time, and K2's batch
-   entry one round (ppr Q = 8 and 32, sssp Q = 8, rwr Q = 2 at F = 4), at
-   scale 16 at δ = sync and 128, bit for bit.
+   blocks, also over a ppr batch's rows at C = 8) against their plain
+   versions a step at a time, and K2's batch entry one round (ppr Q = 8
+   and 32, sssp Q = 8, rwr Q = 2 at F = 4), at scale 16 at δ = sync and
+   128, bit for bit.  K1's rank step and publish (``k1_rank_entries_check``:
+   each rank's commit step over its workers for W = 2 and 4 ranks, the
+   joined rows published) against their plain versions a step at a time,
+   and the round against ``round_kernel``: PageRank (F = 1) at sync and
+   128, SSSP at 128, rwr (F = 4) at sync, ppr batches at C = 8 and 32, at
+   scale 16, bit for bit.
 3. the main path, ``Solver(...).solve()`` with ``backend="kernel"`` at sync,
    async, 1024 and auto (twice: cold, then warm): PageRank on ``twitter``
    scale 22 (4.2 M vertices, 64.3 M edges) and SSSP on the same topology
@@ -155,13 +161,14 @@ smaller graphs:
    one-query batch on the mutated graph.  Prints both reports of each
    trace, the update's record and, a tenant, a quantum's wall split (the
    loop entry by CUDA events, admissions, the query table's rebuild, the
-   retirees' copies).  At scale 16 a trace replayed with kernel lanes
-   must equal the same trace with ``ClassPolicy(backend="torch")`` lanes
-   (SSSP's on the card, ppr's on the CPU) in every round-clock field and
-   answer; then ``python -m repro_torch.launch.serve_graph`` at scale 16
-   runs cold on an empty ``--cache-dir``, then with ``--assert-warm``
-   (must exit 0), and with ``--assert-warm`` on another empty directory
-   (must fail).
+   retirees' copies).  Its checks at scale 16 run at the end of phase 2,
+   while the full-size graph is generated (``serve_small_phase``): a trace
+   replayed with kernel lanes must equal the same trace with
+   ``ClassPolicy(backend="torch")`` lanes (SSSP's on the card, ppr's on
+   the CPU) in every round-clock field and answer; then ``python -m
+   repro_torch.launch.serve_graph`` at scale 16 runs cold on an empty
+   ``--cache-dir``, then with ``--assert-warm`` (must exit 0), and with
+   ``--assert-warm`` on another empty directory (must fail).
    Then the batched halo path (``halo_batch_phase``): ``solve_batch(
    frontier="halo")`` over D = 4 shards, ppr and multi-source sssp at Q = 8
    and δ*, ppr at Q = 32 at sync, one launch of K2's batch entry a round,
@@ -178,9 +185,20 @@ smaller graphs:
    (read from the ``--write-graph`` file), int8 and fp8 PageRank at scale
    16; each rank's x, rounds, flushes and flush_bytes must equal the
    one-process K2 solve's, its rank entry and receive launch once a step,
-   and its peak device memory stay below the one-process solve's.  Two
-   processes on one card through pinned host memory: no number there is a
-   cross-card wire time.
+   and its peak device memory stay below the one-process solve's.  The
+   same processes then run the replicated frontier
+   (``replicated_rank_cases``, checked by ``replicated_rank_check``):
+   PageRank at sync and δ* and SSSP at δ* on the full-size graph, each
+   rank holding 4 of the 8 workers and the whole frontier; each rank's x,
+   rounds, flushes and flush_bytes must equal the one-process solve's (one
+   launch of K1's loop entry), K1's rank step and publish launch once a
+   step, and its peak device memory stay below the one-process solve's;
+   ``delta="auto"`` across the ranks at scale 16 must give the one
+   process's δ*; a ppr batch of Q = 8 at δ = 128 at scale 16 through
+   ``solve_batch`` on both frontiers, and one quantum of a
+   ``BatchStepper`` with the same queries, must equal the one process's.
+   Two processes on one card through pinned host memory: no number there
+   is a cross-card wire time.
 4. K1's time per round at the full-size shapes, at sync, 128, 1024 and
    auto's δ* (CUDA events), beside its byte bound, the same round with no
    edges to walk (barriers, epilogues and publishes alone), the plain round's
@@ -214,8 +232,12 @@ smaller graphs:
    (``no_residual_ms``), the plain loop's time a round on the card and the
    round's bound; and likewise for rwr at F = 4, a ppr batch of Q = 8
    (sync) and of Q = 32 (δ*).  K2's rank entry and receive a launch
-   (``halo_rank_timing``: PageRank at δ*, shards [0, 2)) beside their bounds
-   (``halo_rank_bounds``), plain versions and a library call a step.
+   (``halo_rank_timing``: PageRank at δ*, shards [0, 2), and a ppr batch's
+   rows at C = 8) beside their bounds (``halo_rank_bounds``), plain
+   versions and a library call a step.  K1's rank step and publish a
+   launch (``k1_rank_timing``: PageRank at δ*, workers [0, 4)) beside their
+   bounds (``rank_step_bounds``), plain versions and a library call a step
+   (``torch.sparse.mm`` of the rank's rows; ``index_copy_``).
 5. the ``kernels`` line (every kernel's launches on its path must be
    nonzero; ``resolve_launches`` of the loop entry and of K2 are the
    evolving-graph path's, ``restart_launches`` the restart path's second
@@ -223,7 +245,9 @@ smaller graphs:
    path's replays', beside ``serve_ms_a_round``; a loop entry's
    ``library_ms`` is phase 4's library call for a round of its workload;
    K2's batch entry at C = 8 and 32 with its batch-path and serving
-   launches, its rank entry and receive with the cross-process path's;
+   launches, its rank entry and receive with the cross-process path's
+   (and at C = 8 with the cross-process batches'), K1's rank step and
+   publish with the replicated cross-process path's;
    K1's single-round entries, which no path launches now, show the
    main path's 0 with ``on_path: false``, the loop entry that superseded
    each, and their launches in phase 3's host-loop comparisons, which must
@@ -323,6 +347,7 @@ SERVE_CLI_EXTRA: tuple = ()  # more arguments for the CLI gate (none on the card
 RANKS = 2
 RANK_TIMEOUT_S = 900
 REFRESH_REPS = 20  # timed calls of a quantized rank round's refresh
+STEPPER_QUANTUM = 4  # rounds of the open batch's quantum across processes
 
 
 def log(msg: str) -> None:
@@ -444,6 +469,20 @@ def time_ms(fn, budget_s: float = 0.4, max_iters: int = 50, min_iters: int = 3) 
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def enqueue_ms(fn, reps: int = 5) -> float:
+    """Median milliseconds the host takes to run ``fn`` (enqueuing its
+    launches, without waiting for them), the card idle before each run: a
+    launch whose CUDA-event time is about this is bound by the host."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return float(np.median(times))
 
 
 def bound_ms(bytes_: float, ops: float, is_f32: bool) -> tuple[float, str]:
@@ -755,13 +794,127 @@ def halo_entries_check(dev, hg_pr, hg_ss) -> dict:
         if not torch.equal(got[:, :-1], want[:, :-1]):
             raise AssertionError(f"K2's batch entry disagrees with its plain version: {name} Q={Q} δ={d}")
 
+    def rank_batch_case(d):
+        # the rank entries over a batch's rows: ppr Q = 8 (C = 8), f32 wire
+        sv = solvers["pagerank"]
+        sched = sv.schedule(d)
+        plan = sv.frontier_plan(sched)
+        ep = solvers["ppr"].batch_row_update(ppr_teleport(hg_pr, top_out_degree(hg_pr, BATCH_Q)), BATCH_Q, ())
+        X = torch.tensor(rng.random((hg_pr.n + 1, BATCH_Q)).astype(np.float32))
+        el, er, n_local, n_recv = rank_round_check(dev, sv, sched, plan, ep, X, "f32", ranges,
+                                                   f"s{HALO_SCALE} ppr Q={BATCH_Q} δ={d}")
+        errs[f"halo_local_c{BATCH_Q}"] = max(errs[f"halo_local_c{BATCH_Q}"], el)
+        errs[f"halo_recv_c{BATCH_Q}"] = max(errs[f"halo_recv_c{BATCH_Q}"], er)
+        launches["halo_local"] += n_local
+        launches["halo_recv"] += n_recv
+        log(f"[2] K2 rank entries s{HALO_SCALE} ppr Q={BATCH_Q} (C = {BATCH_Q}) δ={sched.delta} f32: S={sched.S} "
+            f"H={plan.H} ranges={list(ranges)} launches={n_local}+{n_recv} equal")
+
+    errs[f"halo_local_c{BATCH_Q}"] = errs[f"halo_recv_c{BATCH_Q}"] = 0.0
     for d in ("sync", 128):
         for name, wires in (("pagerank", ("f32", "int8", "fp8")), ("ppr", ("f32", "int8")), ("sssp", ("f32",)),
                             ("rwr", ("f32",))):
             for wire in wires:
                 rank_case(name, d, wire)
+        rank_batch_case(d)
         for name, Q in (("ppr", BATCH_Q), ("ppr", BATCH_Q_WIDE), ("sssp", BATCH_Q), ("rwr", BATCH_Q_MATRIX)):
             batch_case(name, Q, d)
+    return {"errs": errs, "launches": launches}
+
+
+def k1_rank_entries_check(dev, hg_pr, hg_ss) -> dict:
+    """Phase 2: K1's rank step and publish (``ops.round_rank_step``,
+    ``ops.round_publish``) over the worker ranges of W = 2 and 4 ranks, a
+    step at a time, against their plain versions (on the CPU for float32,
+    whose plain sums on the card are unordered; on the card for int32
+    min-plus): each range's real rows and x after the round bit for bit,
+    and that round against K1's round entry (``round_kernel``) from the same
+    frontier.  PageRank (F = 1) at sync and 128, SSSP at 128, rwr (F = 4)
+    at sync, ppr batches of C = 8 (δ = 128) and 32 (sync), at scale
+    HALO_SCALE.  Returns the largest errors and the comparison launches."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.dist import engine_sharded
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.round_block import (
+        fused_batch_round_cuda,
+        fused_round_cuda,
+        round_publish_cuda,
+        round_rank_step_cuda,
+    )
+    from repro_torch.solve import Solver, pagerank_problem, ppr_problem, ppr_teleport, rwr_embedding_problem
+    from repro_torch.solve import rwr_restart, sssp_problem
+
+    rng = np.random.default_rng(26)
+    n = hg_pr.n
+    hub = int(np.argmax(hg_pr.out_degree))
+    solvers = {
+        "pagerank": Solver(hg_pr, pagerank_problem(), n_workers=P),
+        "sssp": Solver(hg_ss, sssp_problem(source=hub), n_workers=P),
+        "rwr": Solver(hg_pr, rwr_embedding_problem(), n_workers=P),
+        "ppr": Solver(hg_pr, ppr_problem(), n_workers=P),
+    }
+    errs = {"rank_step": 0.0, "publish": 0.0}
+    launches = {"rank_step": 0, "publish": 0, "round": 0}
+
+    def err_of(a, b):
+        return float((a.double() - b.double()).abs().max().item()) if a.numel() else 0.0
+
+    def inputs(name, Q):
+        sv = solvers[name]
+        if name == "ppr":
+            ep = sv.batch_row_update(ppr_teleport(hg_pr, top_out_degree(hg_pr, Q)), Q, ())
+            return sv, torch.tensor(rng.random((n + 1, Q)).astype(np.float32)), ep
+        if name == "rwr":
+            F = sv.problem.feature_dim
+            ep = sv.row_update(rwr_restart(hg_pr, rng.choice(n, F, replace=False))).for_frontier((F,))
+            return sv, torch.tensor(rng.random((n + 1, F)).astype(np.float32)), ep
+        if name == "sssp":
+            x = rng.integers(0, 5000, n + 1).astype(np.int32)
+            x[rng.random(n + 1) < 0.3] = 2**30 - 1
+            return sv, torch.tensor(x), sv.row_update()
+        return sv, torch.tensor(rng.random(n + 1).astype(np.float32)), sv.row_update()
+
+    for name, Q, d in (("pagerank", 1, "sync"), ("pagerank", 1, 128), ("sssp", 1, 128), ("rwr", 1, "sync"),
+                       ("ppr", BATCH_Q, 128), ("ppr", BATCH_Q_WIDE, "sync")):
+        sv, x, ep = inputs(name, Q)
+        sr = sv.problem.semiring
+        sched = sv.schedule(d)
+        p_dev = "cpu" if sr.torch_dtype == torch.float32 else dev
+        p_sched, p_ep = on(sched, p_dev), ep.to(p_dev)
+        for W in (2, 4):
+            per = P // W
+            cells = [engine_sharded.rank_cells(sched, r * per, (r + 1) * per) for r in range(W)]
+            p_cells = [engine_sharded.rank_cells(p_sched, r * per, (r + 1) * per) for r in range(W)]
+            want, got = x.to(p_dev, copy=True), x.to(dev, copy=True)
+            before = (round_rank_step_cuda.launches, round_publish_cuda.launches)
+            for s in range(sched.S):
+                bw = [ref.round_rank_step_ref(want, c, sr, p_ep, s) for c in p_cells]
+                bg = [ops.round_rank_step(got, c, sr, ep, s) for c in cells]
+                for c, a, b in zip(p_cells, bw, bg):
+                    real = (c.rows[s].reshape(-1) < sched.n).cpu()
+                    a, b = a.cpu()[real], b.cpu()[real]
+                    errs["rank_step"] = max(errs["rank_step"], err_of(b, a))
+                    if not torch.equal(b, a):
+                        raise AssertionError(f"K1's rank step disagrees with its plain version: {name} C={Q} "
+                                             f"δ={sched.delta} W={W} s={s}")
+                ref.round_publish_ref(want, torch.cat(bw), p_sched.rows, s)
+                ops.round_publish(got, torch.cat(bg), sched.rows, s)
+            gx, wx = got.cpu(), want.cpu()
+            errs["publish"] = max(errs["publish"], err_of(gx[:-1], wx[:-1]))
+            if not torch.equal(gx[:-1], wx[:-1]):
+                raise AssertionError(f"K1's publish disagrees with its plain version: {name} C={Q} δ={sched.delta} W={W}")
+            n_step = round_rank_step_cuda.launches - before[0]
+            n_pub = round_publish_cuda.launches - before[1]
+            if n_step != W * sched.S or n_pub != sched.S:
+                raise AssertionError(f"{n_step} rank-step and {n_pub} publish launches for {W} ranks, {sched.S} steps")
+            launches["rank_step"] += n_step
+            launches["publish"] += n_pub
+            k1 = (fused_round_cuda if Q == 1 else fused_batch_round_cuda)(x.to(dev, copy=True), sched, sr, ep)
+            launches["round"] += 1
+            if not torch.equal(k1.cpu()[:-1], gx[:-1]):
+                raise AssertionError(f"K1's rank entries' round differs from round_kernel's: {name} C={Q} W={W}")
+            log(f"[2] K1 rank entries s{HALO_SCALE} {name} {ep.tag} C={x[0].numel()} δ={sched.delta} W={W}: "
+                f"S={sched.S} launches={n_step}+{n_pub}, equal to the plain versions and to round_kernel")
     return {"errs": errs, "launches": launches}
 
 
@@ -961,8 +1114,9 @@ def halo_rank_child(role: str, npz: str, out: str, init: str, spec: str) -> int:
     construction and solve, ms a step, the bytes a rank gathers a round (the
     steps' send blocks and scales, and for int8/fp8 the f32 refresh of the
     halo copies that starts each round) and, for int8/fp8, that refresh
-    alone in ms (REFRESH_REPS calls after the solve, collective); x goes to
-    ``out/<role>.npz``."""
+    alone in ms (REFRESH_REPS calls after the solve, collective); then
+    ``replicated_rank_cases``.  x goes to ``out/<role>.npz``; the last line
+    printed is ``{"halo": ..., "replicated": ...}``."""
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import datetime
 
@@ -1041,24 +1195,119 @@ def halo_rank_child(role: str, npz: str, out: str, init: str, spec: str) -> int:
         }
         xs[name] = r.x
         del sv, r
+    rep = replicated_rank_cases(group, g_pr, g_ss, hub, hg, spec, xs)
     np.savez(Path(out) / f"{role}.npz", **xs)
-    print(json.dumps(rows), flush=True)
+    print(json.dumps({"halo": rows, "replicated": rep}), flush=True)
     if group is not None:
         dist.barrier()
         dist.destroy_process_group()
     return 0
 
 
+def _counts():
+    """Every launch count the cross-process paths read."""
+    from repro_torch.kernels.round_block import (
+        fused_batch_solve_cuda,
+        fused_halo_batch_round_cuda,
+        fused_solve_cuda,
+        halo_local_step_cuda,
+        halo_recv_cuda,
+        round_publish_cuda,
+        round_rank_step_cuda,
+    )
+
+    fns = {"loop": fused_solve_cuda, "batch_loop": fused_batch_solve_cuda, "k2_batch": fused_halo_batch_round_cuda,
+           "rank_step": round_rank_step_cuda, "publish": round_publish_cuda, "local": halo_local_step_cuda,
+           "recv": halo_recv_cuda}
+    return {k: f.launches for k, f in fns.items()}
+
+
+def replicated_rank_cases(group, g_pr, g_ss, hub, hg, spec: dict, xs: dict) -> dict:
+    """The replicated frontier and the batches in a ``--halo-rank`` process
+    (``group`` None: the one-process solves): PageRank at sync and δ* and
+    SSSP at δ* on the full-size graph (``Solver(group=...)``, K1's rank step
+    and publish a step; one process: K1's loop entry), each from a fresh
+    solver, with its peak device memory and ms a step; ``delta="auto"`` at
+    HALO_SCALE; ppr Q = BATCH_Q at δ = 128 at HALO_SCALE through
+    ``solve_batch`` on both frontiers, and one quantum of a ``BatchStepper``
+    (capacity BATCH_Q, the same queries) on both.  x, the batches' x and the
+    stepper's state go into ``xs``; returns each case's counts and launches."""
+    from repro_torch.solve import BatchStepper, Solver, pagerank_problem, ppr_problem, ppr_teleport, sssp_problem
+
+    rows = {}
+    for name, g, prob, d in (("pagerank_sync", g_pr, pagerank_problem(), "sync"),
+                             ("pagerank_dstar", g_pr, pagerank_problem(), spec["pagerank"]),
+                             ("sssp_dstar", g_ss, sssp_problem(source=hub), spec["sssp"])):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        before = _counts()
+        t1 = time.perf_counter()
+        sv = Solver(g, prob, n_workers=P, delta=d, group=group)
+        r = sv.solve()
+        wall = time.perf_counter() - t1
+        torch.cuda.synchronize()
+        peak = int(torch.cuda.max_memory_allocated() - base)
+        S = (sv.rank_layout()[0] if group is not None else sv.schedule()).S
+        after = _counts()
+        rows[name] = {
+            "rounds": r.rounds, "converged": r.converged, "flushes": r.flushes, "flush_bytes": r.flush_bytes,
+            "delta": r.delta, "S": S, "wall_s": wall, "loop_s": r.total_time_s,
+            "ms_per_step": r.total_time_s / (r.rounds * S) * 1e3, "peak_bytes": peak,
+            "residual": r.residuals[-1], "transport": sv.group.transport if group is not None else None,
+            # every rank gathers every worker's rows of each step, 4 B a value
+            "gathered_bytes_per_round": S * P * r.delta * 4,
+            **{f"{k}_launches": after[k] - before[k] for k in ("loop", "rank_step", "publish")},
+        }
+        xs[f"rep_{name}"] = r.x
+        del sv, r
+    torch.cuda.empty_cache()
+    before = _counts()
+    sv = Solver(hg, pagerank_problem(), n_workers=P, group=group)
+    t1 = time.perf_counter()
+    auto = sv.resolve_delta("auto")
+    after = _counts()
+    rows["auto"] = {"delta": auto, "probe_s": time.perf_counter() - t1,
+                    **{f"{k}_launches": after[k] - before[k] for k in ("loop", "rank_step", "publish")}}
+    seeds = top_out_degree(hg, BATCH_Q)
+    qb = ppr_teleport(hg, seeds)
+    x0 = np.full((BATCH_Q, hg.n), 1.0 / hg.n, np.float32)
+    sv = Solver(hg, ppr_problem(), n_workers=P, delta=128, n_shards=SHARDS, group=group)
+    for frontier in ("replicated", "halo"):
+        before = _counts()
+        t1 = time.perf_counter()
+        b = sv.solve_batch(x0, q=qb, frontier=frontier)
+        wall = time.perf_counter() - t1
+        after = _counts()
+        rows[f"batch_{frontier}"] = {"rounds": b.rounds, "rpq": b.rounds_per_query.tolist(), "S": -(-int(
+            np.diff(sv.bounds).max()) // b.delta), "wall_s": wall,
+            **{f"{k}_launches": after[k] - before[k] for k in after}}
+        xs[f"batch_{frontier}"] = b.x
+        before = _counts()
+        st = BatchStepper(sv, BATCH_Q, frontier=frontier)
+        for i in range(BATCH_Q):
+            st.admit(x0[i], q=qb[i], tag=i)
+        retired = st.run(STEPPER_QUANTUM)
+        after = _counts()
+        rows[f"stepper_{frontier}"] = {"retired": [[rq.tag, rq.rounds, rq.converged] for rq in retired],
+                                       "rounds": st.rounds_executed,
+                                       **{f"{k}_launches": after[k] - before[k] for k in after}}
+        xs[f"stepper_{frontier}"] = st._X[:-1].cpu().numpy()
+    return rows
+
+
 def halo_rank_phase(npz: str, dstar: dict) -> dict:
-    """Phase 3, the halo solve across processes: this script with
-    ``--halo-rank one`` (the one-process K2 solves), then RANKS processes
+    """Phase 3, the solves across processes: this script with
+    ``--halo-rank one`` (the one-process solves), then RANKS processes
     with ``--halo-rank R`` on this one card over a ``gloo`` group (NCCL
     takes one rank a card), each holding SHARDS/RANKS shards.  Every rank's
     x, rounds, flushes and flush_bytes must equal the one-process solve's
     bit for bit, K2's rank entry and receive must launch once a step a rank
     (the one-process solve: K2 once a round), and each rank's peak device
-    memory must be below the one-process solve's.  Prints ms a step a rank.
-    Returns the kernels line's launches."""
+    memory must be below the one-process solve's; then the replicated
+    frontier and the batches (``replicated_rank_check``).  Prints ms a step
+    a rank.  Returns the kernels line's launches."""
     t0 = time.perf_counter()
     spec = json.dumps({"pagerank": int(dstar["pagerank"]), "sssp": int(dstar["sssp"])})
     me = str(Path(__file__).resolve())
@@ -1082,10 +1331,11 @@ def halo_rank_phase(npz: str, dstar: dict) -> dict:
                     raise RuntimeError(f"--halo-rank {role} failed ({p.returncode})")
             return [json.loads(o.strip().splitlines()[-1]) for o in outs]
 
-        (one,) = run(["one"])
-        ranks = run([str(r) for r in range(RANKS)])
+        (one_all,) = run(["one"])
+        ranks_all = run([str(r) for r in range(RANKS)])
         x_one = dict(np.load(Path(work) / "one.npz"))
         x_ranks = [dict(np.load(Path(work) / f"{r}.npz")) for r in range(RANKS)]
+    one, ranks = one_all["halo"], [rr["halo"] for rr in ranks_all]
     card = card_line()
     log(f"[3] halo ranks: {RANKS} processes share this one card over gloo, through pinned host memory, so no "
         f"number here is a cross-card wire time ({card})")
@@ -1107,8 +1357,73 @@ def halo_rank_phase(npz: str, dstar: dict) -> dict:
                                      f"one-process solve's {o['peak_bytes']}")
             local += row["local_launches"]
             recv += row["recv_launches"]
-    log(f"[3] halo ranks path: {local} rank-entry and {recv} receive launches; done in {time.perf_counter() - t0:.1f} s")
-    return {"local": local, "recv": recv}
+    log(f"[3] halo ranks path: {local} rank-entry and {recv} receive launches")
+    rep = replicated_rank_check(one_all["replicated"], [rr["replicated"] for rr in ranks_all], x_one, x_ranks, card)
+    log(f"[3] halo and replicated ranks paths done in {time.perf_counter() - t0:.1f} s")
+    return {"local": local, "recv": recv, **rep}
+
+
+def replicated_rank_check(one: dict, ranks: list, x_one: dict, x_ranks: list, card: str) -> dict:
+    """Phase 3, the replicated frontier and the batches across processes
+    (``replicated_rank_cases`` in each ``--halo-rank`` process): each rank's
+    x, rounds, flushes and flush_bytes equal the one-process solve's (K1's
+    loop entry) bit for bit, K1's rank step and publish launch once a step a
+    rank and the loop entry never, and each rank's peak device memory is
+    below the one-process solve's; ``delta="auto"`` across the ranks gives
+    the one-process δ*; the ppr batch on both frontiers equals the
+    one-process batch (x, rounds, ``rounds_per_query``), and so does a
+    stepper's quantum (its state, its retirees).  Returns the kernels
+    line's launches: K1's rank step and publish, and K2's rank entries at
+    C = BATCH_Q."""
+    step = publish = local_c = recv_c = 0
+    for name in ("pagerank_sync", "pagerank_dstar", "sssp_dstar"):
+        o = one[name]
+        if o["loop_launches"] != 1 or o["rank_step_launches"] or o["publish_launches"]:
+            raise AssertionError(f"the one-process replicated solve is not one loop-entry launch: {name} {o}")
+        for r, rr in enumerate(ranks):
+            row = rr[name]
+            equal = ((row["rounds"], row["flushes"], row["flush_bytes"], row["converged"])
+                     == (o["rounds"], o["flushes"], o["flush_bytes"], o["converged"])
+                     and np.array_equal(x_ranks[r][f"rep_{name}"].view(np.int32), x_one[f"rep_{name}"].view(np.int32)))
+            log(f"[3] replicated rank {json.dumps({'card': card, 'case': name, 'rank': r, 'ranks': RANKS, **row, 'equal': equal, 'one_process_peak_bytes': o['peak_bytes'], 'one_process_loop_s': o['loop_s']})}")
+            if not equal:
+                raise AssertionError(f"rank {r}'s replicated {name} differs from the one-process solve")
+            if not row["rank_step_launches"] == row["publish_launches"] == row["rounds"] * row["S"] or row["loop_launches"]:
+                raise AssertionError(f"rank {r}'s replicated {name} did not launch the rank step and publish once a step")
+            if row["peak_bytes"] >= o["peak_bytes"]:
+                raise AssertionError(f"rank {r}'s replicated {name} peak memory {row['peak_bytes']} is not below the "
+                                     f"one-process solve's {o['peak_bytes']}")
+            step += row["rank_step_launches"]
+            publish += row["publish_launches"]
+    for r, rr in enumerate(ranks):
+        log(f"[3] delta='auto' across ranks, s{HALO_SCALE}: rank {r} {json.dumps(rr['auto'])}; one process "
+            f"{one['auto']['delta']}")
+        if rr["auto"]["delta"] != one["auto"]["delta"]:
+            raise AssertionError(f"rank {r}'s δ* {rr['auto']['delta']} is not the one process's {one['auto']['delta']}")
+        step += rr["auto"]["rank_step_launches"]
+        publish += rr["auto"]["publish_launches"]
+        for frontier in ("replicated", "halo"):
+            for kind in ("batch", "stepper"):
+                key = f"{kind}_{frontier}"
+                row, o = rr[key], one[key]
+                same = ({k: v for k, v in row.items() if not k.endswith(("launches", "_s"))}
+                        == {k: v for k, v in o.items() if not k.endswith(("launches", "_s"))}
+                        and np.array_equal(x_ranks[r][key].view(np.int32), x_one[key].view(np.int32)))
+                log(f"[3] {kind} across ranks s{HALO_SCALE} ppr Q={BATCH_Q} δ=128 {frontier}: rank {r} "
+                    f"{json.dumps(row)}; equal to the one process's: {same}")
+                if not same:
+                    raise AssertionError(f"rank {r}'s {kind} on the {frontier} frontier differs from the one process's")
+                if frontier == "replicated":
+                    ok = row["rank_step_launches"] == row["publish_launches"] > 0 and not row["batch_loop_launches"]
+                    step += row["rank_step_launches"]
+                    publish += row["publish_launches"]
+                else:
+                    ok = row["local_launches"] == row["recv_launches"] > 0 and not row["k2_batch_launches"]
+                    local_c += row["local_launches"]
+                    recv_c += row["recv_launches"]
+                if not ok:
+                    raise AssertionError(f"rank {r}'s {kind} on the {frontier} frontier launched {row}")
+    return {"rank_step": step, "publish": publish, f"local_c{BATCH_Q}": local_c, f"recv_c{BATCH_Q}": recv_c}
 
 
 def halo_rank_full_check(dev, pr, ss, dstar: dict) -> dict:
@@ -1148,13 +1463,15 @@ def halo_rank_full_check(dev, pr, ss, dstar: dict) -> dict:
     return {"errs": errs, "launches": launches}
 
 
-def halo_rank_timing(dev, solver, d, card) -> dict:
+def halo_rank_timing(dev, solver, d, card, batch=None) -> dict:
     """Phase 4: K2's rank entry and receive a launch (CUDA events over a
     round's S launches, over S), for the ranks' half [0, SHARDS // RANKS) of
     the full-size PageRank plan at δ ``d``: beside their bounds
     (``halo_rank_bounds``), their plain versions on the card, and one library
     call a step (``torch.sparse.mm`` of the half's rows of the step by x;
-    ``index_copy_`` of the gathered rows into the halo slots)."""
+    ``index_copy_`` of the gathered rows into the halo slots).  ``batch``:
+    ``(name, (n + 1, Q) frontier, its epilogue)``, the entries over a batch's
+    rows (C = Q) instead of PageRank's."""
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.core import engine
     from repro_torch.kernels import ref
@@ -1163,9 +1480,14 @@ def halo_rank_timing(dev, solver, d, card) -> dict:
     sr = solver.problem.semiring
     sched = solver.schedule(d)
     plan = solver.frontier_plan(sched)
-    ep = solver.row_update()
     half = SHARDS // RANKS
-    x_ext = engine.extend_frontier(solver.problem.x0(solver.graph), sr, dev)
+    if batch is None:
+        problem, ep = "pagerank", solver.row_update()
+        x_ext = engine.extend_frontier(solver.problem.x0(solver.graph), sr, dev)
+    else:
+        problem, x_ext, ep = batch
+    feat = tuple(x_ext.shape[1:])
+    C = int(np.prod(feat)) if feat else 1
     x_loc = plan.scatter_x(x_ext)
     mine = x_loc[:half]
     sends = [[halo_local_step_cuda(x_loc[a:b], None, sched, plan, sr, ep, "f32", s, a, b)[0]
@@ -1184,31 +1506,121 @@ def halo_rank_timing(dev, solver, d, card) -> dict:
 
     local_ms = time_ms(local_round) / S
     recv_ms = time_ms(recv_round) / S
+    local_enqueue_ms, recv_enqueue_ms = enqueue_ms(local_round) / S, enqueue_ms(recv_round) / S
     plain_local = mine.clone()
     plain_local_ms = time_ms(lambda: [ref.halo_local_step_ref(plain_local, None, sched, plan, sr, ep, "f32", s, 0, half)
                                       for s in range(S)], max_iters=3, min_iters=1) / S
     plain_recv_ms = time_ms(lambda: [ref.halo_recv_ref(plain_local, gathered[s], None, plan, s, 0, half)
                                      for s in range(S)], max_iters=5, min_iters=1) / S
     del plain_local
-    xn = x_ext[:-1]
+    xn = x_ext[:-1].reshape(x_ext.shape[0] - 1, C)
     mats = step_blocks(solver.graph, sched, dev, workers=slice(0, half * plan.P_loc))
-    lib_local_ms = time_ms(lambda: [torch.sparse.mm(m, xn[:, None]) for m in mats]) / S
+    lib_local_ms = time_ms(lambda: [torch.sparse.mm(m, xn) for m in mats]) / S
     del mats
-    flat = mine.reshape(-1)
+    flat = mine.reshape(-1, C)
     dests, srcs = [], []
     for s in range(S):
         dest = plan.recv_idx[s, :half].long()
         keep = dest < plan.L - 1
         offs = (torch.arange(half, device=dev)[:, None] * plan.L).expand_as(dest)
         dests.append((dest + offs)[keep])
-        srcs.append(gathered[s].reshape(-1).repeat(half)[keep.reshape(-1)])
+        srcs.append(gathered[s].reshape(-1, C).repeat(half, 1)[keep.reshape(-1)])
     lib_recv_ms = time_ms(lambda: [flat.index_copy_(0, dests[s], srcs[s]) for s in range(S)]) / S
-    (lb, lby), (rb, rby) = halo_rank_bounds(sched, plan, "add_const", "f32", 0, half)
-    row = {"card": card, "problem": "pagerank", "delta": sched.delta, "S": S, "shards": [0, half],
+    (lb, lby), (rb, rby) = halo_rank_bounds(sched, plan, ep.tag, "f32", 0, half, C)
+    row = {"card": card, "problem": problem, "C": C, "delta": sched.delta, "S": S, "shards": [0, half],
            "local_ms": local_ms, "local_plain_ms": plain_local_ms, "local_library_ms": lib_local_ms,
            "local_bound_ms": lb, "local_bound_by": lby, "recv_ms": recv_ms, "recv_plain_ms": plain_recv_ms,
-           "recv_library_ms": lib_recv_ms, "recv_bound_ms": rb, "recv_bound_by": rby}
+           "recv_library_ms": lib_recv_ms, "recv_bound_ms": rb, "recv_bound_by": rby,
+           "local_enqueue_ms": local_enqueue_ms, "recv_enqueue_ms": recv_enqueue_ms}
     log(f"[4] K2 rank entries {json.dumps(row)}")
+    return row
+
+
+def rank_step_bounds(sched, cells, tag: str, F: int = 1) -> tuple:
+    """Least time for one launch of K1's rank step over ``cells`` and of its
+    publish, each averaged over the round's S steps.  The step: the cells'
+    real edges (src and value, 8 B), each distinct row of x they gather once
+    (F values), per chunk row its edge range (4 B), its global row (4 B) and
+    its new row written (4F B), and the old row (``min_old``, ``labelprop``)
+    or table row (``add_table``, ``labelprop``) read (4F B each).  The
+    publish: the gathered ``(P·δ, F)`` block and every worker's rows read
+    once, each real row of x written once.  Returns ``((step_ms, by),
+    (publish_ms, by))``."""
+    S, M = sched.S, sched.M
+    dev = cells.val.device
+    real = cells.row_ptr[:, :, -1]  # (S, P_r) real edges a cell
+    edges = int(real.sum())
+    srcs = cells.src[torch.arange(M, device=dev) < real[..., None]]
+    distinct = int(torch.unique(srcs).numel())
+    del srcs
+    rows = cells.rows.numel()
+    per_row = 8 + 4 * F + 4 * F * ((tag in ("min_old", "labelprop")) + (tag in ("add_table", "labelprop")))
+    step = edges * 8 + distinct * 4 * F + rows * per_row
+    n_real = int((sched.rows < sched.n).sum())
+    publish = sched.rows.numel() * (4 * F + 4) + n_real * 4 * F
+    is_f32 = sched.val.dtype == torch.float32
+    return (bound_ms(step / S, (2 * edges + rows) * F / S, is_f32), bound_ms(publish / S, 0.0, is_f32))
+
+
+def k1_rank_timing(dev, solver, d, card) -> dict:
+    """Phase 4: K1's rank step and publish a launch (CUDA events over a
+    round's S launches, over S) for the first of RANKS ranks' workers of the
+    full-size PageRank schedule at δ ``d``: beside the host's time
+    enqueuing them (``enqueue_ms``), their bounds (``rank_step_bounds``), their plain
+    versions on the card, and one library call a step (``torch.sparse.mm``
+    of the rank's rows of the step by x; ``index_copy_`` of the gathered
+    rows into x)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.core import engine
+    from repro_torch.dist import engine_sharded
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.round_block import round_publish_cuda, round_rank_step_cuda
+
+    sr = solver.problem.semiring
+    sched = solver.schedule(d)
+    ep = solver.row_update()
+    per = P // RANKS
+    ranks = [engine_sharded.rank_cells(sched, r * per, (r + 1) * per) for r in range(RANKS)]
+    mine = ranks[0]
+    x = engine.extend_frontier(solver.problem.x0(solver.graph), sr, dev)
+    S = sched.S
+    blocks = [torch.cat([round_rank_step_cuda(x, c, sr, ep, s) for c in ranks]) for s in range(S)]
+    def step_round():
+        for s in range(S):
+            round_rank_step_cuda(x, mine, sr, ep, s)
+
+    xp = x.clone()
+
+    def publish_round():
+        for s in range(S):
+            round_publish_cuda(xp, blocks[s], sched.rows, s)
+
+    step_ms, publish_ms = time_ms(step_round) / S, time_ms(publish_round) / S
+    step_enqueue_ms, publish_enqueue_ms = enqueue_ms(step_round) / S, enqueue_ms(publish_round) / S
+    plain_step_ms = time_ms(lambda: [ref.round_rank_step_ref(x, mine, sr, ep, s) for s in range(S)],
+                            max_iters=3, min_iters=1) / S
+    plain_publish_ms = time_ms(lambda: [ref.round_publish_ref(xp, blocks[s], sched.rows, s) for s in range(S)],
+                               max_iters=5, min_iters=1) / S
+    mats = step_blocks(solver.graph, sched, dev, workers=slice(0, per))
+    xn = x[:-1]
+    lib_step_ms = time_ms(lambda: [torch.sparse.mm(m, xn[:, None]) for m in mats]) / S
+    del mats
+    dests, srcs = [], []
+    for s in range(S):
+        at = sched.rows[s].reshape(-1).long()
+        keep = at < sched.n
+        dests.append(at[keep])
+        srcs.append(blocks[s][keep])
+    lib_publish_ms = time_ms(lambda: [xp.index_copy_(0, dests[s], srcs[s]) for s in range(S)]) / S
+    (sb, sby), (pb, pby) = rank_step_bounds(sched, mine, ep.tag)
+    del blocks, dests, srcs, ranks, mine
+    row = {"card": card, "problem": "pagerank", "delta": sched.delta, "S": S, "workers": [0, per],
+           "step_ms": step_ms, "step_plain_ms": plain_step_ms, "step_library_ms": lib_step_ms,
+           "step_bound_ms": sb, "step_bound_by": sby, "publish_ms": publish_ms,
+           "publish_plain_ms": plain_publish_ms, "publish_library_ms": lib_publish_ms,
+           "publish_bound_ms": pb, "publish_bound_by": pby, "step_enqueue_ms": step_enqueue_ms,
+           "publish_enqueue_ms": publish_enqueue_ms}
+    log(f"[4] K1 rank entries {json.dumps(row)}")
     return row
 
 
@@ -1466,7 +1878,109 @@ def stripes_only_load(solver, whole, timed, stripe_schedule_arrays, DeviceSchedu
     }
 
 
-def serve_phase(dev, g_pr, g_ss, hg_pr, hg_ss, dstar: dict) -> dict:
+SERVE_GRAPH_FOR = {"sssp": ("road",), "ppr": ("social",)}
+
+
+def serve_tenants(g_road, g_social, delta: dict, devices: tuple) -> dict:
+    """The serving path's two tenants, ``"road"`` (SSSP on ``g_road``) and
+    ``"social"`` (ppr on ``g_social``): ``GraphService``s of P workers,
+    lanes of SERVE_BATCH slots, at ``delta[algo]``, on ``devices``; their
+    schedules built (set-up, before any count)."""
+    from repro_torch.launch.serve_graph import GraphService
+
+    kw = dict(n_workers=P, batch_size=SERVE_BATCH, queue_capacity=SERVE_QUEUE)
+    services = {
+        "road": GraphService(g_road, delta=delta["sssp"], algos=("sssp",), device=devices[0], **kw),
+        "social": GraphService(g_social, delta=delta["ppr"], algos=("ppr",), device=devices[1], **kw),
+    }
+    for svc in services.values():
+        svc.solver(svc.algos[0]).schedule()
+    return services
+
+
+def serve_trace(services: dict, rate: float) -> list:
+    """The seed-SERVE_SEED Poisson trace at ``rate`` over SERVE_DURATION rounds."""
+    from repro_torch.launch.service import poisson_trace
+
+    n = {name: svc.graph.n for name, svc in services.items()}
+    return poisson_trace(rate, SERVE_DURATION, n, seed=SERVE_SEED, graph_for=SERVE_GRAPH_FOR)
+
+
+def same_bits(a, b) -> bool:
+    return a.shape == b.shape and bool(np.array_equal(a.view(np.int32), b.view(np.int32)))
+
+
+def serve_small_phase(dev, hg_pr, hg_ss) -> None:
+    """The serving path's checks at HALO_SCALE (phase 2, while the
+    full-size graph is generated): one trace replayed with kernel lanes and
+    with ``ClassPolicy(backend="torch")`` lanes, SSSP's on the card
+    (min-plus is order-free) and ppr's on the CPU (the float plain version
+    in its fixed order): every round-clock field and every answer must be
+    equal.  Then ``python -m repro_torch.launch.serve_graph`` at HALO_SCALE,
+    cold on an empty ``--cache-dir``, then warm with ``--assert-warm`` (must
+    exit 0), and ``--assert-warm`` on another empty directory (must
+    fail)."""
+    from repro_torch.kernels.round_block import fused_batch_solve_cuda
+    from repro_torch.launch.service import DEFAULT_CLASSES, ContinuousScheduler, replay_continuous
+
+    # kernel lanes against plain lanes at HALO_SCALE, over one trace
+    t0 = time.perf_counter()
+    hdelta = {"sssp": SERVE_HALO_DELTA, "ppr": SERVE_HALO_DELTA}
+    kernel_svc = serve_tenants(hg_ss, hg_pr, hdelta, (dev, dev))
+    plain_svc = serve_tenants(hg_ss, hg_pr, hdelta, (dev, "cpu"))
+    trace = serve_trace(kernel_svc, SERVE_HALO_RATE)
+    plain_classes = {name: dataclasses.replace(p, backend="torch") for name, p in DEFAULT_CLASSES.items()}
+    before = fused_batch_solve_cuda.launches
+    k_rep = replay_continuous(ContinuousScheduler(kernel_svc, queue_capacity=SERVE_QUEUE), trace)
+    k_launches = fused_batch_solve_cuda.launches - before
+    p_sched = ContinuousScheduler(plain_svc, classes=plain_classes, queue_capacity=SERVE_QUEUE)
+    p_rep = replay_continuous(p_sched, trace)
+    p_launches = fused_batch_solve_cuda.launches - before - k_launches
+    kr, pr = dict(k_rep["report"]), dict(p_rep["report"])
+    k_wall, p_wall = kr.pop("wall_s"), pr.pop("wall_s")
+    kres = {r.request_id: r for r in k_rep["results"]}
+    pres = {r.request_id: r for r in p_rep["results"]}
+    clock = ("rounds", "converged", "admit_seq", "submitted_clock", "admitted_clock", "finished_clock", "delta")
+    diff = [rid for rid in kres if rid not in pres or not same_bits(kres[rid].x, pres[rid].x)
+            or any(getattr(kres[rid], f) != getattr(pres[rid], f) for f in clock)]
+    row = {"card": card_line(), "scale": HALO_SCALE, "rate": SERVE_HALO_RATE, "delta": SERVE_HALO_DELTA, "kernel": kr,
+           "plain": pr, "kernel_wall_s": k_wall, "plain_wall_s": p_wall, "kernel_launches": k_launches,
+           "plain_launches": p_launches, "answers": len(kres), "differ": diff[:8],
+           "plain_backends": sorted({r.backend for r in p_rep["results"]})}
+    log(f"[2] serve kernel vs plain {json.dumps(row)}")
+    if kr != pr or diff or len(kres) != len(pres) or k_launches == 0 or p_launches != 0 \
+            or row["plain_backends"] != ["torch"]:
+        raise AssertionError(f"the kernel lanes' replay differs from the plain lanes': {row}")
+    log(f"[2] serving kernel vs plain s{HALO_SCALE} done in {time.perf_counter() - t0:.1f} s")
+    del kernel_svc, plain_svc
+
+    # the CLI and its warm-restart gate
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    work = Path(tempfile.mkdtemp(prefix="serve-"))
+    cli = [sys.executable, "-m", "repro_torch.launch.serve_graph", "--graph", "twitter", "--scale",
+           str(HALO_SCALE), "--algo", "both", "--queries", str(SERVE_BATCH), "--repeats", "2", "--delta",
+           str(SERVE_CLI_DELTA), *SERVE_CLI_EXTRA]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    runs = {}
+    try:
+        for label, store, warm in (("cold", "store", False), ("warm", "store", True), ("empty", "empty", True)):
+            t1 = time.perf_counter()
+            res = subprocess.run(cli + ["--cache-dir", str(work / store)] + (["--assert-warm"] if warm else []),
+                                 env=env, cwd=root, capture_output=True, text=True, timeout=SERVE_CLI_TIMEOUT_S)
+            runs[label] = {"rc": res.returncode, "s": time.perf_counter() - t1,
+                           "stdout": res.stdout.strip().splitlines()[-3:], "stderr": res.stderr.strip()[-300:]}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"[2] serve_graph CLI {json.dumps(runs)}")
+    if not (runs["cold"]["rc"] == 0 and runs["warm"]["rc"] == 0 and runs["empty"]["rc"] != 0
+            and any("warm restart verified" in ln for ln in runs["warm"]["stdout"])
+            and "--assert-warm" in runs["empty"]["stderr"]):
+        raise AssertionError(f"the serve_graph warm-restart gate did not pass warm and fail cold: {runs}")
+    log(f"[2] serve_graph CLI gate done in {time.perf_counter() - t0:.1f} s")
+
+
+def serve_phase(dev, g_pr, g_ss, dstar: dict) -> dict:
     """The serving path (end of phase 3): two tenants in one
     ``ContinuousScheduler`` on the full-size graphs, ``"road"`` (SSSP on
     ``g_ss``) and ``"social"`` (ppr on ``g_pr``), each a ``GraphService``
@@ -1486,44 +2000,17 @@ def serve_phase(dev, g_pr, g_ss, hg_pr, hg_ss, dstar: dict) -> dict:
     ``solve_batch`` on the mutated solver.  Each lane quantum's wall time
     is split (CUDA events around the loop entry and its read-back; the
     admissions' x0, teleport and column writes; the query table's rebuild;
-    the rest of ``run``, the retirees' copies back).  At HALO_SCALE one
-    trace is replayed with kernel lanes and with ``ClassPolicy(backend=
-    "torch")`` lanes, SSSP's on the card (min-plus is order-free) and
-    ppr's on the CPU (the float plain version in its fixed order): every
-    round-clock field and every answer must be equal.  Then
-    ``python -m repro_torch.launch.serve_graph`` at HALO_SCALE, cold on an
-    empty ``--cache-dir``, then warm with ``--assert-warm`` (must exit 0),
-    and ``--assert-warm`` on another empty directory (must fail).  Returns
-    the kernels line's serving numbers."""
+    the rest of ``run``, the retirees' copies back).  (Its checks at
+    HALO_SCALE run in phase 2: ``serve_small_phase``.)  Returns the kernels
+    line's serving numbers."""
     from repro_torch.kernels.round_block import fused_batch_solve_cuda
-    from repro_torch.launch.serve_graph import GraphService
-    from repro_torch.launch.service import (
-        DEFAULT_CLASSES,
-        ContinuousScheduler,
-        UpdateRequest,
-        poisson_trace,
-        replay_continuous,
-        replay_fixed,
-    )
+    from repro_torch.launch.service import ContinuousScheduler, UpdateRequest, replay_continuous, replay_fixed
     from repro_torch.launch.service import scheduler as serve_scheduler
     from repro_torch.solve import Solver, multi_source_x0, ppr_teleport, solve_batch
     from repro_torch.solve import batch as batch_module
 
-    graph_for = {"sssp": ("road",), "ppr": ("social",)}
-
-    def tenants(g_road, g_social, delta, devices=(dev, dev)):
-        kw = dict(n_workers=P, batch_size=SERVE_BATCH, queue_capacity=SERVE_QUEUE)
-        services = {
-            "road": GraphService(g_road, delta=delta["sssp"], algos=("sssp",), device=devices[0], **kw),
-            "social": GraphService(g_social, delta=delta["ppr"], algos=("ppr",), device=devices[1], **kw),
-        }
-        for svc in services.values():  # set-up: the schedules, before any count
-            svc.solver(svc.algos[0]).schedule()
-        return services
-
-    def trace_for(services, rate):
-        n = {name: svc.graph.n for name, svc in services.items()}
-        return poisson_trace(rate, SERVE_DURATION, n, seed=SERVE_SEED, graph_for=graph_for)
+    def tenants(g_road, g_social, delta):
+        return serve_tenants(g_road, g_social, delta, (dev, dev))
 
     def fresh(service, r):
         """A fresh one-query solve_batch of the retired query ``r``."""
@@ -1533,8 +2020,7 @@ def serve_phase(dev, g_pr, g_ss, hg_pr, hg_ss, dstar: dict) -> dict:
         x0 = np.full((1, g.n), 1.0 / g.n, np.float32)
         return solve_batch(service.solver("ppr"), x0, q=ppr_teleport(g, [r.payload], service.damping))
 
-    def same(a, b) -> bool:
-        return a.shape == b.shape and bool(np.array_equal(a.view(np.int32), b.view(np.int32)))
+    same = same_bits
 
     class UpdateAt:
         """``sched``, submitting ``req`` at its first pump at or after clock ``at``."""
@@ -1638,7 +2124,7 @@ def serve_phase(dev, g_pr, g_ss, hg_pr, hg_ss, dstar: dict) -> dict:
      batch_module._solve, Solver.batch_row_update) = (lane_init, admit, run_quantum, loop, table)
     try:
         for rate in SERVE_RATES:  # the update's trace last: it mutates the road graph
-            trace = trace_for(services, rate)
+            trace = serve_trace(services, rate)
             for kind in ("fixed", "continuous"):
                 before = fused_batch_solve_cuda.launches
                 current["rate"] = rate
@@ -1749,61 +2235,6 @@ def serve_phase(dev, g_pr, g_ss, hg_pr, hg_ss, dstar: dict) -> dict:
         f"({launches}), {checked} sampled answers equal fresh solves")
     del services, reports, lanes
 
-    # kernel lanes against plain lanes at HALO_SCALE, over one trace
-    t0 = time.perf_counter()
-    hdelta = {"sssp": SERVE_HALO_DELTA, "ppr": SERVE_HALO_DELTA}
-    kernel_svc = tenants(hg_ss, hg_pr, hdelta)
-    plain_svc = tenants(hg_ss, hg_pr, hdelta, devices=(dev, "cpu"))
-    trace = trace_for(kernel_svc, SERVE_HALO_RATE)
-    plain_classes = {name: dataclasses.replace(p, backend="torch") for name, p in DEFAULT_CLASSES.items()}
-    before = fused_batch_solve_cuda.launches
-    k_rep = replay_continuous(ContinuousScheduler(kernel_svc, queue_capacity=SERVE_QUEUE), trace)
-    k_launches = fused_batch_solve_cuda.launches - before
-    p_sched = ContinuousScheduler(plain_svc, classes=plain_classes, queue_capacity=SERVE_QUEUE)
-    p_rep = replay_continuous(p_sched, trace)
-    p_launches = fused_batch_solve_cuda.launches - before - k_launches
-    kr, pr = dict(k_rep["report"]), dict(p_rep["report"])
-    k_wall, p_wall = kr.pop("wall_s"), pr.pop("wall_s")
-    kres = {r.request_id: r for r in k_rep["results"]}
-    pres = {r.request_id: r for r in p_rep["results"]}
-    clock = ("rounds", "converged", "admit_seq", "submitted_clock", "admitted_clock", "finished_clock", "delta")
-    diff = [rid for rid in kres if rid not in pres or not same(kres[rid].x, pres[rid].x)
-            or any(getattr(kres[rid], f) != getattr(pres[rid], f) for f in clock)]
-    row = {"card": card, "scale": HALO_SCALE, "rate": SERVE_HALO_RATE, "delta": SERVE_HALO_DELTA, "kernel": kr,
-           "plain": pr, "kernel_wall_s": k_wall, "plain_wall_s": p_wall, "kernel_launches": k_launches,
-           "plain_launches": p_launches, "answers": len(kres), "differ": diff[:8],
-           "plain_backends": sorted({r.backend for r in p_rep["results"]})}
-    log(f"[3] serve kernel vs plain {json.dumps(row)}")
-    if kr != pr or diff or len(kres) != len(pres) or k_launches == 0 or p_launches != 0 \
-            or row["plain_backends"] != ["torch"]:
-        raise AssertionError(f"the kernel lanes' replay differs from the plain lanes': {row}")
-    log(f"[3] serving kernel vs plain s{HALO_SCALE} done in {time.perf_counter() - t0:.1f} s")
-    del kernel_svc, plain_svc
-
-    # the CLI and its warm-restart gate
-    t0 = time.perf_counter()
-    root = Path(__file__).resolve().parent
-    work = Path(tempfile.mkdtemp(prefix="serve-"))
-    cli = [sys.executable, "-m", "repro_torch.launch.serve_graph", "--graph", "twitter", "--scale",
-           str(HALO_SCALE), "--algo", "both", "--queries", str(SERVE_BATCH), "--repeats", "2", "--delta",
-           str(SERVE_CLI_DELTA), *SERVE_CLI_EXTRA]
-    env = dict(os.environ, PYTHONPATH=str(root / "src"))
-    runs = {}
-    try:
-        for label, store, warm in (("cold", "store", False), ("warm", "store", True), ("empty", "empty", True)):
-            t1 = time.perf_counter()
-            res = subprocess.run(cli + ["--cache-dir", str(work / store)] + (["--assert-warm"] if warm else []),
-                                 env=env, cwd=root, capture_output=True, text=True, timeout=SERVE_CLI_TIMEOUT_S)
-            runs[label] = {"rc": res.returncode, "s": time.perf_counter() - t1,
-                           "stdout": res.stdout.strip().splitlines()[-3:], "stderr": res.stderr.strip()[-300:]}
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
-    log(f"[3] serve_graph CLI {json.dumps(runs)}")
-    if not (runs["cold"]["rc"] == 0 and runs["warm"]["rc"] == 0 and runs["empty"]["rc"] != 0
-            and any("warm restart verified" in ln for ln in runs["warm"]["stdout"])
-            and "--assert-warm" in runs["empty"]["stderr"]):
-        raise AssertionError(f"the serve_graph warm-restart gate did not pass warm and fail cold: {runs}")
-    log(f"[3] serve_graph CLI gate done in {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -2243,6 +2674,11 @@ def smoke(scale: int, gen: subprocess.Popen, npz: str) -> int:
     compare_launches += sum(entries["launches"].values())
     log(f"[2] K2's rank entries and batch entry at s{HALO_SCALE}: {entries['launches']} comparison launches; "
         f"done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    k1_entries = k1_rank_entries_check(dev, hg_pr, hg_ss)
+    compare_launches += sum(k1_entries["launches"].values())
+    log(f"[2] K1's rank step and publish at s{HALO_SCALE}: {k1_entries['launches']} comparison launches; "
+        f"done in {time.perf_counter() - t0:.1f} s")
 
     # the quantized halo's rounding must not depend on the device
     t0 = time.perf_counter()
@@ -2259,6 +2695,8 @@ def smoke(scale: int, gen: subprocess.Popen, npz: str) -> int:
         if not same:
             raise AssertionError(f"halo kernel solve differs from the plain one: {hd}")
     log(f"[2] s{SMALL_SCALE} halo parity done in {time.perf_counter() - t0:.1f} s")
+    # the serving path's checks at HALO_SCALE, while the full-size graph is made
+    serve_small_phase(dev, hg_pr, hg_ss)
 
     t0 = time.perf_counter()
     if gen.wait() != 0:
@@ -3152,7 +3590,7 @@ def smoke(scale: int, gen: subprocess.Popen, npz: str) -> int:
     # both load replays, an update mid-trace, kernel lanes against plain
     # ones, and the serve_graph CLI's warm-restart gate
     t0 = time.perf_counter()
-    serve = serve_phase(dev, g_pr, g_ss, hg_pr, hg_ss, dstar)
+    serve = serve_phase(dev, g_pr, g_ss, dstar)
     log(f"[3] serving path: {serve['serve_launches']} loop-entry launches (C = {SERVE_BATCH}); "
         f"done in {time.perf_counter() - t0:.1f} s")
 
@@ -3300,7 +3738,18 @@ def smoke(scale: int, gen: subprocess.Popen, npz: str) -> int:
     log(f"[4] K2 done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     rank_timing = halo_rank_timing(dev, full["pagerank"], dstar["pagerank"], card_line())
+    seeds = top_out_degree(g_pr, BATCH_Q)
+    batch_ep = Solver(g_pr, ppr_problem(), n_workers=P).batch_row_update(ppr_teleport(g_pr, seeds), BATCH_Q, ())
+    X = torch.full((g_pr.n + 1, BATCH_Q), 1.0 / g_pr.n, dtype=torch.float32, device=dev)
+    X[-1] = 0.0
+    rank_timing_c8 = halo_rank_timing(dev, full["pagerank"], dstar["pagerank"], card_line(),
+                                      batch=("ppr", X, batch_ep))
+    del X, batch_ep
     log(f"[4] K2's rank entries done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    k1_rank = k1_rank_timing(dev, full["pagerank"], dstar["pagerank"], card_line())
+    torch.cuda.empty_cache()
+    log(f"[4] K1's rank entries done in {time.perf_counter() - t0:.1f} s")
 
     # K1 and K2 at F = 4: rwr and labelprop at sync and δ*
     t0 = time.perf_counter()
@@ -3778,6 +4227,40 @@ def smoke(scale: int, gen: subprocess.Popen, npz: str) -> int:
             "bound_by": rank_timing["recv_bound_by"],
             "library_ms": rank_timing["recv_library_ms"],
         },
+        *(
+            {
+                "name": f"{name}_c{BATCH_Q}",
+                "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/round_block.cu",
+                "replaces": replaces,
+                "launches": halo_ranks[f"{key}_c{BATCH_Q}"],
+                "max_abs_err": entries["errs"][f"{name}_c{BATCH_Q}"],
+                "ms": rank_timing_c8[f"{key}_ms"],
+                "plain_ms": rank_timing_c8[f"{key}_plain_ms"],
+                "bound_ms": rank_timing_c8[f"{key}_bound_ms"],
+                "bound_by": rank_timing_c8[f"{key}_bound_by"],
+                "library_ms": rank_timing_c8[f"{key}_library_ms"],
+            }
+            for name, key, replaces in (("halo_local", "local", "src/repro/kernels/round_block.py:204"),
+                                        ("halo_recv", "recv", "src/repro/dist/engine_sharded.py:611"))
+        ),
+        *(
+            {
+                "name": name,
+                "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/round_block.cu",
+                "replaces": "src/repro/kernels/round_block.py:114",
+                "launches": halo_ranks[key],
+                "max_abs_err": k1_entries["errs"][key],
+                "ms": k1_rank[f"{tkey}_ms"],
+                "plain_ms": k1_rank[f"{tkey}_plain_ms"],
+                "bound_ms": k1_rank[f"{tkey}_bound_ms"],
+                "bound_by": k1_rank[f"{tkey}_bound_by"],
+                "library_ms": k1_rank[f"{tkey}_library_ms"],
+            }
+            for name, key, tkey in (("round_block_rank_step", "rank_step", "step"),
+                                    ("round_block_publish", "publish", "publish"))
+        ),
     ]
     next(k for k in kernels["kernels"] if k["name"] == f"halo_round_batch_c{BATCH_Q}")["serve_launches"] = (
         halo_batch["serve_launches"])

@@ -1,17 +1,21 @@
-"""The halo exchange across processes: a rank's shards over ``torch.distributed``.
+"""A rank's share of a solve over ``torch.distributed``: the gathers between commit steps.
 
-The counterpart of what ``repro.dist.engine_sharded.frontier_pallas_round_fn``
-runs under ``shard_map`` between its per-shard kernel calls: an
+The counterpart of the collectives the reference runs under ``shard_map``
+between its per-device kernel calls.  On the halo frontier
+(``repro.dist.engine_sharded.frontier_pallas_round_fn``) that is an
 ``all_gather`` of every shard's ``(H,)+feat`` boundary rows (for an int8 or
 fp8 wire, the 1-byte values and a second ``all_gather`` of the per-shard
-scales).  Here one process runs each rank, and a rank holds a contiguous
-range of the ``D`` shards (:class:`HaloGroup`).
+scales), and a rank holds a contiguous range of the ``D`` shards.  On the
+replicated frontier (``sharded_round_fn_q``) it is an ``all_gather`` of
+every worker's committed chunk, and a rank holds a contiguous range of the
+``P`` workers and the whole frontier.  Here one process runs each rank
+(:class:`HaloGroup`).
 
 The transport follows the group's backend: ``nccl`` gathers tensors on the
 card; ``gloo`` gathers host tensors, so a card's blocks are staged through
 pinned host buffers (``HaloGroup.transport`` names which one ran).  Both
-gather in rank order, which is shard order, so every rank receives the same
-``(D, H)+feat`` block the one-process exchange would.  float8 values cross
+gather in rank order, which is shard (and worker) order, so every rank
+receives the same block the one-process exchange would.  float8 values cross
 as a ``uint8`` view (``gloo`` takes no float8).
 """
 
@@ -25,30 +29,41 @@ __all__ = ["HaloGroup"]
 
 
 class HaloGroup:
-    """A rank's place in a halo solve over a ``torch.distributed`` group.
+    """A rank's place in a solve over a ``torch.distributed`` group.
 
-    ``rank`` and ``world_size`` are the group's; the rank holds shards
-    ``[d0, d1) = [r·D/W, (r+1)·D/W)`` of the ``D = n_shards`` (``D % W``
-    must be 0).  Every method is a collective: all ranks call it in the same
-    order.
+    ``rank`` and ``world_size`` are the group's.  On the halo frontier the
+    rank holds shards ``[d0, d1) = [r·D/W, (r+1)·D/W)`` of the ``D =
+    n_shards`` (``D % W`` must be 0; with ``n_shards=None``, ``d0`` and
+    ``d1`` are None), on the replicated frontier workers ``split(P,
+    "workers")``.  Every gather is a collective: all ranks call it in the
+    same order.
     """
 
-    def __init__(self, group=None, n_shards: int = 1):
+    def __init__(self, group=None, n_shards: int | None = None):
         self.group = dist.group.WORLD if group is None else group
         self.rank = dist.get_rank(self.group)
         self.world_size = dist.get_world_size(self.group)
-        D, W = int(n_shards), self.world_size
-        if D < 1 or D % W:
-            raise ValueError(
-                f"D={D} shards do not split evenly over W={W} ranks: a rank holds "
-                f"D/W whole shards, so D % W must be 0"
-            )
-        self.n_shards = D
-        per = D // W
-        self.d0, self.d1 = self.rank * per, (self.rank + 1) * per
+        self.n_shards = self.d0 = self.d1 = None
+        if n_shards is not None:
+            self.d0, self.d1 = self.split(n_shards)
+            self.n_shards = int(n_shards)
         self.backend = str(dist.get_backend(self.group))
         self.transport = None  # "nccl", "gloo (pinned host)" or "gloo (host)", set by a gather
         self._pinned: dict = {}
+
+    def split(self, count: int, what: str = "shards") -> tuple:
+        """This rank's contiguous range ``[lo, hi)`` of ``count`` shards (or
+        workers) split evenly over the group; raises unless ``count % W ==
+        0``."""
+        n, W = int(count), self.world_size
+        if n < 1 or n % W:
+            c = "D" if what == "shards" else "P"
+            raise ValueError(
+                f"{c}={n} {what} do not split evenly over W={W} ranks: a rank holds "
+                f"{c}/W whole {what}, so {c} % W must be 0"
+            )
+        per = n // W
+        return self.rank * per, (self.rank + 1) * per
 
     def _staging(self, key, shape, dtype) -> torch.Tensor:
         buf = self._pinned.get(key)
@@ -58,8 +73,8 @@ class HaloGroup:
         return buf
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
-        """``(D/W, ...)`` blocks of every rank → ``(D, ...)``, in shard
-        order, on ``t``'s device."""
+        """``(k, ...)`` blocks of every rank → ``(W·k, ...)``, in rank order
+        (shard order, worker order), on ``t``'s device."""
         t = t.contiguous()
         wire = t.view(torch.uint8) if t.element_size() == 1 else t
         shape = (wire.shape[0] * self.world_size,) + tuple(wire.shape[1:])
@@ -82,28 +97,31 @@ class HaloGroup:
             self.transport = "gloo (host)"
         return out.view(t.dtype) if t.element_size() == 1 else out
 
-    def sum_partials(self, partials) -> float:
+    def sum_partials(self, partials):
         """The sum of every shard's partial (this rank's ``partials``, one a
         held shard), added in shard order in float64: the same bits for any
-        ``W``."""
+        ``W``.  ``partials`` ``(D/W,)`` gives a float; ``(D/W, Q)``, one
+        partial a query, gives the ``(Q,)`` float64 sums."""
         local = torch.tensor(np.asarray(partials, dtype=np.float64))
         if self.backend == "nccl":
             local = local.to(torch.device("cuda", torch.cuda.current_device()))
-        total = 0.0
-        for v in self.all_gather(local).cpu().tolist():
-            total += v
-        return total
+        every = self.all_gather(local).cpu().numpy()
+        total = np.zeros(every.shape[1:], np.float64)
+        for v in every:
+            total = total + v
+        return float(total) if total.ndim == 0 else total
 
     def gather_owned(self, x_loc: torch.Tensor, vertex_bounds) -> torch.Tensor:
         """Every shard's owned rows, in vertex order: ``(n,)+feat`` on the
         host, from this rank's ``(D/W, L)+feat`` frontier (each shard keeps
-        its owned block first).  One all-gather, padded to the largest
-        block."""
+        its owned block first; ``D`` from ``vertex_bounds``).  One
+        all-gather, padded to the largest block."""
         owned = np.diff(np.asarray(vertex_bounds, dtype=np.int64))
+        d0, d1 = self.split(owned.size)
         B = int(owned.max())
         feat = tuple(x_loc.shape[2:])
-        buf = torch.zeros((self.d1 - self.d0, B) + feat, dtype=x_loc.dtype, device=x_loc.device)
-        for i, d in enumerate(range(self.d0, self.d1)):
+        buf = torch.zeros((d1 - d0, B) + feat, dtype=x_loc.dtype, device=x_loc.device)
+        for i, d in enumerate(range(d0, d1)):
             buf[i, : owned[d]] = x_loc[i, : owned[d]]
         every = self.all_gather(buf).cpu()
-        return torch.cat([every[d, : owned[d]] for d in range(self.n_shards)])
+        return torch.cat([every[d, : owned[d]] for d in range(owned.size)])

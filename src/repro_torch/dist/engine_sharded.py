@@ -44,7 +44,17 @@ values and the ``(D,)+feat`` scales), and K2's receive
 
 A batch of Q queries runs the halo round over a ``(D, L, Q)+feat`` batch
 frontier (:func:`frontier_batch_round_fn`, one K2 launch a round), the
-reference's vmapped ``frontier_round_ext_fn``.
+reference's vmapped ``frontier_round_ext_fn``; across processes over the
+rank's ``(D/W, L, Q)+feat`` shards (:func:`frontier_rank_batch_round_fn`,
+K2's rank entries at C = Q·F).
+
+The replicated frontier across processes (:func:`replicated_rank_round_fn`,
+the reference's ``sharded_round_fn_q``) splits the workers instead: a rank
+holds the cells of its ``P/W`` workers (:func:`replicated_rank`) and the
+whole frontier, and a commit step is K1's rank step over its workers
+(:func:`repro_torch.kernels.ops.round_rank_step`), the group's all-gather of
+every rank's ``(P/W·δ,)+feat`` rows in worker order, and K1's publish of
+them at the schedule's global rows (:func:`repro_torch.kernels.ops.round_publish`).
 
 The plan is built on the host from the schedule's numpy arrays and equals
 the reference's plan array for array.
@@ -74,6 +84,7 @@ __all__ = [
     "frontier_ef_init",
     "frontier_kernel_round_ext_fn",
     "frontier_kernel_round_fn",
+    "frontier_rank_batch_round_fn",
     "frontier_rank_round_fn",
     "frontier_round_ext_fn",
     "frontier_sharded_round_fn",
@@ -82,7 +93,10 @@ __all__ = [
     "plan_shard_bounds",
     "plan_shard_from_cells",
     "quantize_halo",
+    "rank_cells",
     "rank_schedule",
+    "replicated_rank",
+    "replicated_rank_round_fn",
     "resolve_halo_dtype",
     "schedule_rows",
     "shard_halos",
@@ -596,9 +610,12 @@ class RankSchedule:
 
     ``val``, ``dst_local`` ``(S, P_r, M)``, ``rows`` ``(S, P_r, δ)`` and
     ``row_ptr`` ``(S, P_r, δ + 1)`` with ``P_r = w1 - w0``, on the rank's
-    device; the gathers read the plan's local slots (``src_loc``), so the
-    global ``src`` stays on the host.  ``n``, ``P``, ``S``, ``M``, ``δ`` and
-    the block bounds are the whole schedule's (:func:`rank_schedule`).
+    device.  On the halo frontier the gathers read the plan's local slots
+    (``src_loc``), so the global ``src`` stays on the host and ``src`` and
+    ``rows_all`` are None; on the replicated frontier (:func:`replicated_rank`)
+    ``src`` ``(S, P_r, M)`` and every worker's rows ``rows_all`` ``(S, P,
+    δ)`` are on the device too.  ``n``, ``P``, ``S``, ``M``, ``δ`` and the
+    block bounds are the whole schedule's (:func:`rank_schedule`).
     """
 
     n: int
@@ -614,6 +631,8 @@ class RankSchedule:
     row_ptr: torch.Tensor
     edges: int
     block_bounds: np.ndarray
+    src: torch.Tensor | None = None
+    rows_all: torch.Tensor | None = None
 
     @property
     def n_slots(self) -> int:
@@ -676,6 +695,69 @@ def rank_schedule(graph: CSRGraph, block_bounds, delta: int, pad_val, w0: int, w
     return sched, {"src": src, "dst_local": dst_local, "rows": rows}
 
 
+def replicated_rank(sched: RankSchedule, host: dict) -> RankSchedule:
+    """The rank's cells for the replicated frontier: ``sched`` with its
+    workers' ``src`` (``host``, :func:`rank_schedule`'s) and every worker's
+    rows (:func:`schedule_rows`, from the block bounds) on its device."""
+    rows_all = schedule_rows(sched.block_bounds, sched.S, sched.delta, sched.n)
+    return dataclasses.replace(
+        sched,
+        src=torch.from_numpy(np.ascontiguousarray(host["src"])).to(sched.device),
+        rows_all=torch.from_numpy(rows_all).to(sched.device),
+    )
+
+
+def rank_cells(sched: DeviceSchedule, w0: int, w1: int) -> RankSchedule:
+    """The replicated :class:`RankSchedule` of workers ``[w0, w1)`` cut from
+    a whole schedule (contiguous copies on its device): the arrays a rank
+    would build for itself (:func:`rank_schedule`, :func:`replicated_rank`)."""
+    if not 0 <= w0 < w1 <= sched.P:
+        raise ValueError(f"workers [{w0}, {w1}) are not within [0, {sched.P})")
+    w = slice(w0, w1)
+    return RankSchedule(
+        n=sched.n, P=sched.P, delta=sched.delta, S=sched.S, M=sched.M, w0=w0, w1=w1,
+        val=sched.val[:, w].contiguous(), dst_local=sched.dst_local[:, w].contiguous(),
+        rows=sched.rows[:, w].contiguous(), row_ptr=sched.row_ptr[:, w].contiguous(), edges=sched.edges,
+        block_bounds=np.asarray(sched.block_bounds, dtype=np.int64), src=sched.src[:, w].contiguous(),
+        rows_all=sched.rows,
+    )
+
+
+def replicated_rank_round_fn(sched: RankSchedule, rows, semiring: Semiring, row_update, group,
+                             plain: bool = False) -> Callable:
+    """One rank's replicated round ``x_ext -> x_ext`` (out of place) over
+    the whole ``(n + 1,)+feat`` frontier (``feat`` may be a batch's ``(Q,)``
+    or ``(Q, F)``), collectively over ``group``
+    (:class:`repro_torch.dist.comm.HaloGroup`), the counterpart of the
+    reference's ``sharded_round_fn_q``.  Each commit step is K1's rank step
+    over the rank's workers (:func:`repro_torch.kernels.ops.round_rank_step`,
+    ``sched`` a :func:`replicated_rank` layout), the group's all-gather of
+    every rank's ``(P/W·δ,)+feat`` new rows in worker order, and K1's
+    publish of them at ``rows[s]`` (``rows`` the global ``(S, P, δ)`` rows;
+    :func:`repro_torch.kernels.ops.round_publish`); ``plain`` runs the plain
+    versions instead.  The reference gathers ``rows`` too; here every rank
+    holds them, so only values cross.  Over all ranks a round equals the
+    one-process round (:func:`repro_torch.kernels.ref.fused_round_ref`, K1's
+    ``round_kernel`` on the card) bit for bit."""
+    if sched.src is None:
+        raise ValueError("the replicated rank round needs the rank's src (replicated_rank)")
+    if (sched.w0, sched.w1) != group.split(sched.P, "workers"):
+        raise ValueError(f"the schedule holds workers [{sched.w0}, {sched.w1}), the rank "
+                         f"{list(group.split(sched.P, 'workers'))}")
+    if tuple(rows.shape) != (sched.S, sched.P, sched.delta):
+        raise ValueError(f"rows must be ({sched.S}, {sched.P}, {sched.delta}), got {tuple(rows.shape)}")
+    step = ref.round_rank_step_ref if plain else ops.round_rank_step
+    publish = ref.round_publish_ref if plain else ops.round_publish
+
+    def rnd(x_ext):
+        x = x_ext.clone()
+        for s in range(sched.S):
+            publish(x, group.all_gather(step(x, sched, semiring, row_update, s)), rows, s)
+        return x
+
+    return rnd
+
+
 def rank_plan(graph: CSRGraph, sched: RankSchedule, host: dict, n_shards: int, device=None) -> FrontierPlan:
     """The plan of the rank's shards (those of its workers ``[w0, w1)``),
     from its own cells (``host``, :func:`rank_schedule`'s) and every
@@ -722,8 +804,8 @@ def frontier_rank_round_fn(sched, plan: FrontierPlan, semiring: Semiring, row_up
     resolve_halo_dtype(halo_dtype, semiring)
     if (plan.S, plan.delta) != (sched.S, sched.delta):
         raise ValueError("plan built for another schedule")
-    if (plan.d0, plan.d1) != (group.d0, group.d1):
-        raise ValueError(f"plan holds shards [{plan.d0}, {plan.d1}), the rank [{group.d0}, {group.d1})")
+    if (plan.d0, plan.d1) != group.split(plan.D):
+        raise ValueError(f"plan holds shards [{plan.d0}, {plan.d1}), the rank {list(group.split(plan.D))}")
     local = ref.halo_local_step_ref if plain else ops.halo_local_step
     recv = ref.halo_recv_ref if plain else ops.halo_recv
     d0, d1 = plan.d0, plan.d1
@@ -741,6 +823,17 @@ def frontier_rank_round_fn(sched, plan: FrontierPlan, semiring: Semiring, row_up
         return x_loc, ef
 
     return rnd
+
+
+def frontier_rank_batch_round_fn(sched, plan: FrontierPlan, semiring: Semiring, epilogue, group,
+                                 plain: bool = False) -> Callable:
+    """One rank's halo round of a batch, ``X_loc -> X_loc`` (out of place)
+    over its shards' ``(d1 - d0, L, Q)+feat`` batch frontier: the f32 round
+    of :func:`frontier_rank_round_fn`, K2's rank entry and receive taking a
+    row's Q·F values (``epilogue`` an ``Epilogue.for_batch`` row update).
+    The reference's vmapped ``frontier_round_ext_fn`` across processes."""
+    rnd = frontier_rank_round_fn(sched, plan, semiring, epilogue, group, "f32", plain)
+    return lambda X_loc: rnd(X_loc.clone(), None)[0]
 
 
 def _halo_refresh(plan: FrontierPlan, semiring: Semiring, group) -> Callable:

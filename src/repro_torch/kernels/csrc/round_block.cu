@@ -519,7 +519,8 @@ __global__ void __launch_bounds__(kThreads)
 
 // Blocks of `kernel` that fit on the card at once (the most a cooperative
 // launch may have), asked once per kernel and device and kept in `cache`.
-cudaError_t resident_blocks(const void* kernel, int* cache, int* blocks) {
+// An ordinary launch (cooperative = false) asks the same to size its tiles.
+cudaError_t resident_blocks(const void* kernel, int* cache, int* blocks, bool cooperative = true) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -530,7 +531,7 @@ cudaError_t resident_blocks(const void* kernel, int* cache, int* blocks) {
   int sms = 0, coop = 0, per_sm = 0;
   err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (err != cudaSuccess) return err;
-  if (!coop) return cudaErrorNotSupported;
+  if (cooperative && !coop) return cudaErrorNotSupported;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
@@ -1221,7 +1222,10 @@ cudaError_t launch_halo_round(void* x, void* ef, void* scratch, void* amax,
 //
 // So local and receive over all shards [0, D) is one step of
 // halo_round_kernel, bit for bit: the same walk, publish, quantizer and
-// writes.  The scale is a shard's and a step's, so the quantizer needs
+// writes.  On the f32 and int32 wires both take a batch's rows, C = Q * F
+// values a row of the (Dl, L, Q)+feat frontier (the epilogue in groups of
+// G, as halo_round_batch_launch), so a rank of a halo batch runs them too;
+// a quantized wire takes F alone (the reference quantizes no batch).  The scale is a shard's and a step's, so the quantizer needs
 // nothing from other ranks.  Bound: a rank's share of K2's bytes (its
 // shards' edges, slots, rows and indices) and, for the receive, the D * H
 // gathered rows read once and its halo slots written once
@@ -1229,7 +1233,7 @@ cudaError_t launch_halo_round(void* x, void* ef, void* scratch, void* amax,
 // a round at fine delta pays S launches and S collectives, the cost the
 // in-card exchange avoids.
 template <class Sr, int kWire, int kF>
-__global__ void __launch_bounds__(kThreads, kHaloBlocksPerSm)
+__global__ void __launch_bounds__(kThreads, kHaloMinBlocks<kF>)
     halo_local_kernel(typename Sr::T* x, float* ef, typename Sr::T* scratch, uint32_t* amax,
                       void* out, float* scales, const int32_t* __restrict__ src_loc,
                       const typename Sr::T* __restrict__ val,
@@ -1240,7 +1244,7 @@ __global__ void __launch_bounds__(kThreads, kHaloBlocksPerSm)
                       const typename Sr::T* __restrict__ table, typename Sr::T c,
                       float mix, float one_minus_mix, int tag, int s, int S, int Dl, int Dp,
                       int Ps, int P_loc, int M, int delta, int L, int H, int R,
-                      float inv_qmax, int F_in) {
+                      float inv_qmax, int F_in, int G) {
   using T = typename Sr::T;
   __shared__ __align__(16) T prod[kChunk * kPassCols<kF>];
   __shared__ uint32_t block_max[kWire ? kMaxScales : 1];
@@ -1257,7 +1261,7 @@ __global__ void __launch_bounds__(kThreads, kHaloBlocksPerSm)
   const int32_t* snd = send_idx + static_cast<long long>(s) * Dp * H;  // (Dp, H), from the first shard
   // --- A
   halo_tiles<Sr, kF>(x, scratch, src_loc, val, row_ptr, rows, rows_loc, table, c, mix, one_minus_mix,
-                     tag, s, S, Dl * P_loc, Ps, P_loc, M, delta, R, F, F, shard, prod);
+                     tag, s, S, Dl * P_loc, Ps, P_loc, M, delta, R, F, G, shard, prod);
   grid.sync();
   // --- B: publish, then the send block (f32) or the scales' maxima
   for (long long i = first; i < cells; i += stride) {
@@ -1365,7 +1369,7 @@ cudaError_t launch_halo_local(void* x, void* ef, void* scratch, void* amax, void
                               const void* send_idx, const void* table, double c_in,
                               double mix_in, double one_minus_mix_in, double inv_qmax_in,
                               int tag, int s, int S, int Dl, int Dp, int Ps, int P_loc,
-                              int M, int delta, int L, int H, int F, cudaStream_t stream) {
+                              int M, int delta, int L, int H, int F, int G, cudaStream_t stream) {
   using T = typename Sr::T;
   T* x_p = static_cast<T*>(x);
   float* ef_p = static_cast<float*>(ef);
@@ -1393,7 +1397,7 @@ cudaError_t launch_halo_local(void* x, void* ef, void* scratch, void* amax, void
                   &val_p, &ptr_p, &rows_p,    &rl_p,   &snd_p,  &table_p,  &c,
                   &mix,   &one_minus_mix,     &tag,    &s,      &S,        &Dl,
                   &Dp,    &Ps,    &P_loc,     &M,      &delta,  &L,        &H,
-                  &R,     &inv_qmax,          &F};
+                  &R,     &inv_qmax,          &F,      &G};
   err = cudaLaunchCooperativeKernel(kernel, dim3(static_cast<unsigned>(blocks)),
                                     dim3(kThreads), args, 0, stream);
   if (err != cudaSuccess) return err;
@@ -1417,6 +1421,101 @@ cudaError_t launch_halo_recv(void* x, const void* rows_in, const void* scales,
       static_cast<T*>(x), rows_in, static_cast<const float*>(scales),
       static_cast<const int32_t*>(recv_idx), static_cast<const int32_t*>(dump_last), s, El, Dp, D,
       L, H, F);
+  return cudaGetLastError();
+}
+
+// K1's rank entries: one rank of a replicated solve over processes, each
+// holding a contiguous range [w0, w1) of the P workers and the whole
+// frontier (entry points round_block_rank_step_launch and
+// round_block_publish_launch).  The cross-process form of round_kernel: the
+// reference runs its round under shard_map with the workers split over the
+// devices and all-gathers every worker's chunk at each commit
+// (src/repro/dist/engine_sharded.py sharded_round_fn_q).  The gather leaves
+// the card here (torch.distributed, repro_torch/dist/comm.py), so a rank
+// runs a commit step in two launches with the gather between them:
+//
+//   round_rank_step_kernel, step s of the rank's P_r = w1 - w0 workers:
+//     every tile of the step (step_tiles, round_kernel's phase 1 over the
+//     rank's (S, P_r, M) cells and (S, P_r, delta) rows), reading the whole
+//     x, into out (P_r * delta rows of C values, in chunk order)
+//   round_publish_kernel, step s: the gathered (P * delta, C) block of every
+//     worker into x at the global rows[s] (dump rows, == n, skipped):
+//     round_kernel's phase 2 for one step
+//
+// One step has no grid-wide barrier inside a launch (the launch boundary
+// orders the publish after the step, and the next step after the publish),
+// so both are ordinary launches: neither pays a cooperative launch's fixed
+// cost.  The walk is step_tiles itself, so the bits are round_kernel's and
+// solve_kernel's.  Both take a batch's C = Q * F values a row (the epilogue
+// in groups of G, as round_block_batch_launch), so one pair serves single
+// solves (C = F) and batches.  Bound: the rank's share of a round's bytes a
+// step (its real edges, the x rows they gather, its rows' operands and its
+// out rows), and for the publish the block read once and its real rows
+// written once (chip_smoke.py::rank_step_bounds).
+template <class Sr, int kF>
+__global__ void __launch_bounds__(kThreads)
+    round_rank_step_kernel(const typename Sr::T* x, typename Sr::T* out,
+                           const int32_t* __restrict__ src,
+                           const typename Sr::T* __restrict__ val,
+                           const int32_t* __restrict__ row_ptr,
+                           const int32_t* __restrict__ rows,
+                           const typename Sr::T* __restrict__ table, typename Sr::T c,
+                           float mix, float one_minus_mix, int tag, int s, int P, int M,
+                           int delta, int R, int F_in, int G) {
+  using T = typename Sr::T;
+  __shared__ __align__(16) T prod[kChunk * kPassCols<kF>];
+  const int F = kF > 0 ? kF : F_in;
+  step_tiles<Sr, kF>(x, out, src, val, row_ptr, rows, table, c, mix, one_minus_mix, tag, s, P, M, delta, R, F,
+                     G, prod);
+}
+
+template <class T, int kF>
+__global__ void __launch_bounds__(kThreads)
+    round_publish_kernel(T* x, const T* __restrict__ block, const int32_t* __restrict__ rows, int n,
+                         long long cells, int C_in) {
+  const int C = kF > 0 ? kF : C_in;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < cells; i += stride) {
+    const int row = rows[i];
+    if (row < n) copy_row<kF>(x + static_cast<long long>(row) * C, block + i * C, C);
+  }
+}
+
+template <class Sr, int kF>
+cudaError_t launch_rank_step(const void* x, void* out, const void* src, const void* val,
+                             const void* row_ptr, const void* rows, const void* table, double c_in,
+                             double mix_in, double one_minus_mix_in, int tag, int s, int P, int M,
+                             int delta, int C, int G, cudaStream_t stream) {
+  using T = typename Sr::T;
+  static int cache[kMaxDevices] = {};
+  const void* kernel = reinterpret_cast<const void*>(&round_rank_step_kernel<Sr, kF>);
+  int resident = 0, R = 0, blocks = 0;
+  cudaError_t err = resident_blocks(kernel, cache, &resident, false);
+  if (err != cudaSuccess) return err;
+  tile_grid(P, delta, resident, &R, &blocks);
+  round_rank_step_kernel<Sr, kF><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), static_cast<const int32_t*>(src),
+      static_cast<const T*>(val), static_cast<const int32_t*>(row_ptr), static_cast<const int32_t*>(rows),
+      static_cast<const T*>(table), static_cast<T>(c_in), static_cast<float>(mix_in),
+      static_cast<float>(one_minus_mix_in), tag, s, P, M, delta, R, C, G);
+  return cudaGetLastError();
+}
+
+template <class T, int kF>
+cudaError_t launch_publish(void* x, const void* block, const void* rows, int n, int s, int P, int delta,
+                           int C, cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const long long cells = static_cast<long long>(P) * delta;
+  long long blocks = (cells + kThreads - 1) / kThreads;
+  if (blocks > 8LL * sms) blocks = 8LL * sms;
+  if (blocks < 1) blocks = 1;
+  round_publish_kernel<T, kF><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      static_cast<T*>(x), static_cast<const T*>(block), static_cast<const int32_t*>(rows) + s * cells, n,
+      cells, C);
   return cudaGetLastError();
 }
 
@@ -1605,38 +1704,42 @@ extern "C" int halo_round_batch_launch(int dtype, void* x, void* scratch, const 
 // A rank's commit step s over its Dl shards (K2's rank entry).  The plan's
 // pointers (src_loc, rows_loc, send_idx) start at the launch's first shard,
 // whose per-step arrays hold Dp shards; the schedule's (val, row_ptr, rows)
-// at its first worker, of Ps workers a step.  out: the (Dl, H, F) send block
-// (x's type for wire 0, one byte a value for int8/fp8), scales (Dl, F)
-// floats and ef (Dl, S, H, F) for int8/fp8, amax Dl * F zeroed words.
+// at its first worker, of Ps workers a step.  C: the values a row (a
+// batch's Q * F on wire 0; G as for round_block_batch_launch; a quantized
+// wire takes C = G = F).  out: the (Dl, H, C) send block (x's type for wire
+// 0, one byte a value for int8/fp8), scales (Dl, F) floats and ef (Dl, S,
+// H, F) for int8/fp8, amax Dl * F zeroed words.
 extern "C" int halo_local_launch(int dtype, int wire, void* x, void* ef, void* scratch,
                                  void* amax, void* out, void* scales, const void* src_loc,
                                  const void* val, const void* row_ptr, const void* rows,
                                  const void* rows_loc, const void* send_idx, const void* table,
                                  double c, double mix, double one_minus_mix, double inv_qmax,
                                  int tag, int s, int S, int Dl, int Dp, int Ps, int P_loc, int M,
-                                 int delta, int L, int H, int F, void* stream) {
+                                 int delta, int L, int H, int C, int G, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Dl < 1 || Dl > Dp || F < 1 || s < 0 || s >= S || Dl * P_loc > Ps) return cudaErrorInvalidValue;
+  if (Dl < 1 || Dl > Dp || C < 1 || G < 1 || C % G != 0 || s < 0 || s >= S || Dl * P_loc > Ps) {
+    return cudaErrorInvalidValue;
+  }
   if (!takes(dtype, tag, table)) return cudaErrorInvalidValue;
   if (wire != 0 && (dtype != 0 || ef == nullptr || amax == nullptr || scales == nullptr ||
-                    Dl * F > kMaxScales)) {
+                    Dl * C > kMaxScales || G != C)) {
     return cudaErrorInvalidValue;
   }
 #define KL_ARGS                                                                               \
   x, ef, scratch, amax, out, scales, src_loc, val, row_ptr, rows, rows_loc, send_idx, table, c, \
-      mix, one_minus_mix, inv_qmax, tag, s, S, Dl, Dp, Ps, P_loc, M, delta, L, H, F, st
+      mix, one_minus_mix, inv_qmax, tag, s, S, Dl, Dp, Ps, P_loc, M, delta, L, H, C, G, st
 #define KL_F32(KF) return launch_halo_local<PlusTimes, 0, KF>(KL_ARGS)
 #define KL_INT8(KF) return launch_halo_local<PlusTimes, 1, KF>(KL_ARGS)
 #define KL_FP8(KF) return launch_halo_local<PlusTimes, 2, KF>(KL_ARGS)
 #define KL_MIN(KF) return launch_halo_local<MinPlus, 0, KF>(KL_ARGS)
   if (dtype == 1) {
-    if (wire == 0) DISPATCH_F(F, tag, KL_MIN)
+    if (wire == 0) DISPATCH_C(C, tag, KL_MIN)
   } else if (wire == 0) {
-    DISPATCH_F(F, tag, KL_F32)
+    DISPATCH_C(C, tag, KL_F32)
   } else if (wire == 1) {
-    DISPATCH_F(F, tag, KL_INT8)
+    DISPATCH_F(C, tag, KL_INT8)
   } else if (wire == 2) {
-    DISPATCH_F(F, tag, KL_FP8)
+    DISPATCH_F(C, tag, KL_FP8)
   }
 #undef KL_MIN
 #undef KL_FP8
@@ -1646,23 +1749,26 @@ extern "C" int halo_local_launch(int dtype, int wire, void* x, void* ef, void* s
   return cudaErrorInvalidValue;
 }
 
-// A rank's receive of step s: the gathered (D, H, F) rows (x's type for wire
-// 0; int8/fp8 bytes with (D, F) float scales) into the halo slots of its El
-// shards.  recv_idx and dump_last start at its first shard, of Dp shards a
-// step.  Returns a cudaError_t.
+// A rank's receive of step s: the gathered (D, H, C) rows (x's type for wire
+// 0, C a batch's Q * F values a row; int8/fp8 bytes with (D, C) float
+// scales) into the halo slots of its El shards.  recv_idx and dump_last
+// start at its first shard, of Dp shards a step.  It runs no epilogue, so
+// it takes no group width.  Returns a cudaError_t.
 extern "C" int halo_recv_launch(int dtype, int wire, void* x, const void* rows_in,
                                 const void* scales, const void* recv_idx, const void* dump_last,
-                                int s, int El, int Dp, int D, int L, int H, int F, void* stream) {
+                                int s, int El, int Dp, int D, int L, int H, int C, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (El < 1 || El > Dp || D < 1 || F < 1 || s < 0) return cudaErrorInvalidValue;
+  if (El < 1 || El > Dp || D < 1 || C < 1 || s < 0) return cudaErrorInvalidValue;
   if (wire != 0 && (dtype != 0 || scales == nullptr || dump_last == nullptr)) return cudaErrorInvalidValue;
-#define KR_ARGS x, rows_in, scales, recv_idx, dump_last, s, El, Dp, D, L, H, F, st
+#define KR_ARGS x, rows_in, scales, recv_idx, dump_last, s, El, Dp, D, L, H, C, st
 #define KR_CASES(T, W)                                              \
-  switch (F) {                                                      \
+  switch (C) {                                                      \
     case 1: return launch_halo_recv<T, W, 1>(KR_ARGS);              \
     case 2: return launch_halo_recv<T, W, 2>(KR_ARGS);              \
     case 4: return launch_halo_recv<T, W, 4>(KR_ARGS);              \
     case 8: return launch_halo_recv<T, W, 8>(KR_ARGS);              \
+    case 16: return launch_halo_recv<T, W, 16>(KR_ARGS);            \
+    case 32: return launch_halo_recv<T, W, 32>(KR_ARGS);            \
     default: return launch_halo_recv<T, W, 0>(KR_ARGS);             \
   }
   if (dtype == 1) {
@@ -1676,6 +1782,55 @@ extern "C" int halo_recv_launch(int dtype, int wire, void* x, const void* rows_i
   }
 #undef KR_CASES
 #undef KR_ARGS
+  return cudaErrorInvalidValue;
+}
+
+// K1's rank step: commit step s of a rank's P workers (its (S, P, M) cells,
+// (S, P, delta + 1) row_ptr and (S, P, delta) rows) over the whole x (n+1, C)
+// into out (P * delta, C); C and G as for round_block_batch_launch (a
+// single solve: C = G = F).  An ordinary launch.  Returns a cudaError_t.
+extern "C" int round_block_rank_step_launch(int dtype, const void* x, void* out, const void* src,
+                                            const void* val, const void* row_ptr, const void* rows,
+                                            const void* table, double c, double mix,
+                                            double one_minus_mix, int tag, int s, int S, int P, int M,
+                                            int delta, int C, int G, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (C < 1 || G < 1 || C % G != 0 || s < 0 || s >= S || P < 1 || !takes(dtype, tag, table)) {
+    return cudaErrorInvalidValue;
+  }
+#define KRS_ARGS x, out, src, val, row_ptr, rows, table, c, mix, one_minus_mix, tag, s, P, M, delta, C, G, st
+#define KRS_PLUS(KF) return launch_rank_step<PlusTimes, KF>(KRS_ARGS)
+#define KRS_MIN(KF) return launch_rank_step<MinPlus, KF>(KRS_ARGS)
+  if (dtype == 0) DISPATCH_C(C, tag, KRS_PLUS)
+  DISPATCH_C(C, tag, KRS_MIN)
+#undef KRS_MIN
+#undef KRS_PLUS
+#undef KRS_ARGS
+  return cudaErrorInvalidValue;
+}
+
+// K1's publish of step s: the gathered (P * delta, C) block of every worker
+// into x (n+1, C) at the global rows[s] ((S, P, delta) rows; dump rows, == n,
+// skipped).  An ordinary launch.  Returns a cudaError_t.
+extern "C" int round_block_publish_launch(int dtype, void* x, const void* block, const void* rows, int n,
+                                          int s, int S, int P, int delta, int C, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (C < 1 || s < 0 || s >= S || P < 1 || delta < 1 || dtype < 0 || dtype > 1) return cudaErrorInvalidValue;
+#define KP_ARGS x, block, rows, n, s, P, delta, C, st
+#define KP_CASES(T)                                          \
+  switch (C) {                                               \
+    case 1: return launch_publish<T, 1>(KP_ARGS);            \
+    case 2: return launch_publish<T, 2>(KP_ARGS);            \
+    case 4: return launch_publish<T, 4>(KP_ARGS);            \
+    case 8: return launch_publish<T, 8>(KP_ARGS);            \
+    case 16: return launch_publish<T, 16>(KP_ARGS);          \
+    case 32: return launch_publish<T, 32>(KP_ARGS);          \
+    default: return launch_publish<T, 0>(KP_ARGS);           \
+  }
+  if (dtype == 0) KP_CASES(float)
+  KP_CASES(int32_t)
+#undef KP_CASES
+#undef KP_ARGS
   return cudaErrorInvalidValue;
 }
 

@@ -21,6 +21,8 @@ from repro_torch.kernels.round_block import (
     fused_solve_cuda,
     halo_local_step_cuda,
     halo_recv_cuda,
+    round_publish_cuda,
+    round_rank_step_cuda,
 )
 from repro_torch.kernels.spmv_ell import spmv_ell_cuda
 
@@ -34,6 +36,8 @@ __all__ = [
     "fused_solve",
     "halo_local_step",
     "halo_recv",
+    "round_publish",
+    "round_rank_step",
     "spmv",
 ]
 
@@ -56,6 +60,20 @@ def fused_batch_round(X, sched, semiring, row_update):
     """One round over ``sched`` for a batch of Q queries, ``(n+1, Q)+feat``."""
     fn = _route(X, fused_batch_round_cuda, ref.fused_batch_round_ref, "batch round")
     return fn(X, sched, semiring, row_update)
+
+
+def round_rank_step(x_ext, sched, semiring, row_update, s):
+    """Commit step ``s`` of the workers ``sched`` holds, reading the whole
+    ``(n + 1,)+feat`` frontier: their ``(P_r·δ,)+feat`` new rows."""
+    fn = _route(x_ext, round_rank_step_cuda, ref.round_rank_step_ref, "rank step")
+    return fn(x_ext, sched, semiring, row_update, s)
+
+
+def round_publish(x_ext, block, rows, s):
+    """Step ``s``'s ``(P·δ,)+feat`` rows of every worker into ``x_ext`` at
+    ``rows[s]``, in place; returns ``x_ext``."""
+    fn = _route(x_ext, round_publish_cuda, ref.round_publish_ref, "publish")
+    return fn(x_ext, block, rows, s)
 
 
 def fused_solve(x_ext, sched, semiring, row_update, residual, tol, max_rounds):

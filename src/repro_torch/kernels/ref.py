@@ -17,7 +17,10 @@ for its own shards alone (:func:`halo_local_step_ref`, whose quantized
 wire ships :func:`quantize_halo_wire`'s 1-byte values and scales) and
 writes the gathered boundary rows into its shards' halo slots
 (:func:`halo_recv_ref`); the batch halo round is the plain halo round over
-a batch frontier (:func:`fused_halo_batch_round_ref`).
+a batch frontier (:func:`fused_halo_batch_round_ref`).  A rank of a
+replicated solve over processes runs a commit step for its own workers
+(:func:`round_rank_step_ref`) and publishes every worker's gathered rows
+(:func:`round_publish_ref`).
 """
 
 from __future__ import annotations
@@ -48,6 +51,9 @@ __all__ = [
     "halo_step",
     "quantize_halo",
     "quantize_halo_wire",
+    "round_publish_ref",
+    "round_rank_step_ref",
+    "solve_loop",
     "spmv_ell_ref",
 ]
 
@@ -74,16 +80,38 @@ def fused_batch_round_ref(X, sched, semiring, row_update):
     return round_fn(sched, semiring, row_update)(X)
 
 
-def fused_solve_ref(x_ext, sched, semiring, row_update, residual, tol, max_rounds):
-    """Plain version of :func:`repro_torch.kernels.round_block.fused_solve_cuda`.
+def round_rank_step_ref(x_ext, sched, semiring, row_update, s: int) -> torch.Tensor:
+    """Plain version of :func:`repro_torch.kernels.round_block.round_rank_step_cuda`.
 
-    The body of the reference's ``make_solve_fn_q``: from a residual of
-    ``inf`` and 0 rounds, plain rounds while ``rounds < max_rounds`` and not
-    converged, each round's residual taken as float32 and compared with
-    ``float32(tol)``.  Returns ``(x, residual, rounds, converged)``.  It reads
-    the residual back every round; the kernel reads once a call.
-    """
-    rnd = round_fn(sched, semiring, row_update)
+    Commit step ``s`` of the workers ``sched`` holds (a rank's, or all),
+    reading the whole ``(n + 1,)+feat`` frontier and writing nothing: each
+    worker's chunk ⊕ over its edges (:func:`chunk_reduce`) and the row
+    update, as :func:`repro_torch.core.engine.round_fn`'s step computes
+    them.  Returns the ``(P_r·δ,)+feat`` new rows in chunk order."""
+    rows_s = sched.rows[s]
+    reduced = chunk_reduce(x_ext, sched.src[s], sched.val[s], sched.dst_local[s], sched.delta, semiring)
+    new = row_update(x_ext[rows_s], reduced, rows_s)
+    return new.reshape((-1,) + tuple(x_ext.shape[1:])).to(x_ext.dtype)
+
+
+def round_publish_ref(x_ext, block, rows, s: int) -> torch.Tensor:
+    """Plain version of :func:`repro_torch.kernels.round_block.round_publish_cuda`.
+
+    The ``(P·δ,)+feat`` block of every worker into ``x_ext`` at the global
+    rows ``rows[s]``, in place; dump rows (``== n``) are skipped, so the
+    dump row keeps its value.  Returns ``x_ext``."""
+    at = rows[s].reshape(-1).long()
+    keep = at < x_ext.shape[0] - 1
+    x_ext[at[keep]] = block[keep]
+    return x_ext
+
+
+def solve_loop(rnd, x_ext, residual, tol, max_rounds):
+    """The body of the reference's ``make_solve_fn_q`` over a round ``rnd:
+    x -> x``: from a residual of ``inf`` and 0 rounds, rounds while
+    ``rounds < max_rounds`` and not converged, each round's residual (over
+    the frontier's real rows) taken as float32 and compared with
+    ``float32(tol)``.  Returns ``(x, residual, rounds, converged)``."""
     tol32 = np.float32(tol)
     res, rounds, converged = np.float32(np.inf), 0, False
     while rounds < max_rounds and not converged:
@@ -93,6 +121,13 @@ def fused_solve_ref(x_ext, sched, semiring, row_update, residual, tol, max_round
         rounds += 1
         converged = bool(res <= tol32)
     return x_ext, res, rounds, converged
+
+
+def fused_solve_ref(x_ext, sched, semiring, row_update, residual, tol, max_rounds):
+    """Plain version of :func:`repro_torch.kernels.round_block.fused_solve_cuda`:
+    :func:`solve_loop` over plain rounds.  It reads the residual back every
+    round; the kernel reads once a call."""
+    return solve_loop(round_fn(sched, semiring, row_update), x_ext, residual, tol, max_rounds)
 
 
 def _batch_residuals(residual, X, X_new) -> np.ndarray:
@@ -114,7 +149,7 @@ def fused_batch_solve_ref(X, sched, semiring, row_update, residual, tol, max_rou
     return batch_loop(rnd, X, residual, tol, max_rounds, conv0)
 
 
-def batch_loop(rnd, X, residual, tol, max_rounds, conv0=None):
+def batch_loop(rnd, X, residual, tol, max_rounds, conv0=None, residuals=None, axis: int = 1):
     """The reference's batch loops over a batch round ``rnd: X -> X`` of the
     ``(n+1, Q)+feat`` batch frontier ``X``.
 
@@ -125,23 +160,30 @@ def batch_loop(rnd, X, residual, tol, max_rounds, conv0=None):
     ``conv0`` start converged, and a row freezes, state and residual, at its
     first convergence.  Returns ``(X, residuals, rounds, converged,
     rounds_per_query)``.
+
+    Any other state whose query axis is ``axis`` (a rank's ``(D/W, L,
+    Q)+feat`` shards, ``axis = 2``) runs the same loop given
+    ``residuals(X, X_new)``, the ``(Q,)`` float32 residuals of a round.
     """
     tol32 = np.float32(tol)
-    Q = X.shape[1]
+    Q = X.shape[axis]
+    if residuals is None:
+        def residuals(old, new):
+            return _batch_residuals(residual, old[:-1], new[:-1])
     res = np.full(Q, np.inf, np.float32)
     conv = np.zeros(Q, bool) if conv0 is None else np.array(conv0, dtype=bool)
     rpq = np.zeros(Q, np.int32)
     rounds = 0
     while rounds < max_rounds and not conv.all():
         X_new = rnd(X)
-        r = _batch_residuals(residual, X[:-1], X_new[:-1])
+        r = residuals(X, X_new)
         hit = r <= tol32
         rpq[~conv & hit] = rounds + 1  # stamped only at first convergence
         if conv0 is None:
             res = r
         else:
             if conv.any():
-                frozen = torch.as_tensor(conv, device=X.device).reshape((1, Q) + (1,) * (X.dim() - 2))
+                frozen = torch.as_tensor(conv, device=X.device).reshape((1,) * axis + (Q,) + (1,) * (X.dim() - axis - 1))
                 X_new = torch.where(frozen, X, X_new)
             res = np.where(conv, res, r)
         conv |= hit

@@ -38,6 +38,13 @@ reference gets by vmapping ``fused_round_fn_q`` over Q queries
 ``(n+1, Q)`` or ``(n+1, Q, F)``, vertex-major, so a vertex's Q·F values are
 one row and a tile's edges are walked once for all Q queries.
 
+K1's rank entries run one rank of a replicated solve over processes, one
+commit step in two ordinary launches: :func:`round_rank_step_cuda` takes the
+step for the rank's own workers, reading the whole frontier, and after the
+group's all-gather of every rank's rows :func:`round_publish_cuda` writes
+them into the frontier.  Both together over every worker are one step of
+:func:`fused_round_cuda`, bit for bit; both take the query axis.
+
 K1's loop entry (:func:`fused_solve_cuda`, :func:`fused_batch_solve_cuda`)
 is the loop the reference wraps around ``fused_round_fn_q``
 (``repro.core.engine.make_solve_fn_q``, and the batch loops of
@@ -76,6 +83,8 @@ __all__ = [
     "fused_solve_cuda",
     "halo_local_step_cuda",
     "halo_recv_cuda",
+    "round_publish_cuda",
+    "round_rank_step_cuda",
 ]
 
 ADD_CONST = "add_const"  # c + reduced            (pagerank)
@@ -283,6 +292,18 @@ def _feature_width(x, lead: int) -> tuple:
     return feat, (feat[0] if feat else 1)
 
 
+def _row_widths(x, lead: int, tag: str) -> tuple:
+    """``(feat, C, G)`` of a frontier with ``lead`` leading axes whose rows
+    have shape ``feat``: ``()``, ``(F,)``, or a batch's ``(Q,)`` or ``(Q,
+    F)``.  C is the values a row, G the epilogue's group width (labelprop:
+    each query's own F columns, the last axis; C for every other tag)."""
+    feat = tuple(x.shape[lead:])
+    if len(feat) > 2 or 0 in feat:
+        raise ValueError(f"the kernels take rows of shape (), (F,), (Q,) or (Q, F), got {feat}")
+    C = int(np.prod(feat)) if feat else 1
+    return feat, C, (feat[-1] if tag == LABELPROP and feat else C)
+
+
 def _check_aligned(F: int, named: dict, widths=VECTOR_F) -> None:
     """Rows of F in ``widths`` are loaded as vectors: each F-wide tensor
     must start at a multiple of its row's vector width."""
@@ -339,10 +360,14 @@ def _library():
         lib.halo_round_launch.restype = i32
         lib.halo_round_batch_launch.argtypes = [i32] + [ptr] * 10 + [f64] * 3 + [i32] * 10 + [ptr]
         lib.halo_round_batch_launch.restype = i32
-        lib.halo_local_launch.argtypes = [i32] * 2 + [ptr] * 13 + [f64] * 4 + [i32] * 12 + [ptr]
+        lib.halo_local_launch.argtypes = [i32] * 2 + [ptr] * 13 + [f64] * 4 + [i32] * 13 + [ptr]
         lib.halo_local_launch.restype = i32
         lib.halo_recv_launch.argtypes = [i32] * 2 + [ptr] * 5 + [i32] * 7 + [ptr]
         lib.halo_recv_launch.restype = i32
+        lib.round_block_rank_step_launch.argtypes = [i32] + [ptr] * 7 + [f64] * 3 + [i32] * 8 + [ptr]
+        lib.round_block_rank_step_launch.restype = i32
+        lib.round_block_publish_launch.argtypes = [i32] + [ptr] * 3 + [i32] * 6 + [ptr]
+        lib.round_block_publish_launch.restype = i32
         lib.round_block_error_string.argtypes = [i32]
         lib.round_block_error_string.restype = ctypes.c_char_p
     return lib
@@ -445,6 +470,129 @@ def fused_batch_round_cuda(X, sched, semiring, epilogue) -> torch.Tensor:
 
 
 fused_batch_round_cuda.launches = 0  # batch kernel launches, apart from K1's single-query count
+
+
+def _check_rank_step_args(x_ext, sched, semiring, epilogue, s: int) -> tuple:
+    """Raise on anything K1's rank step does not take (before any launch);
+    returns ``(C, G)`` as :func:`_check_batch_args` does.  The shapes are
+    checked before the device."""
+    _check_epilogue(x_ext, semiring, epilogue)
+    feat, C, G = _row_widths(x_ext, 1, epilogue.tag)
+    if epilogue.tag == LABELPROP and not feat:
+        raise ValueError("a labelprop epilogue needs a matrix frontier (n + 1, F)")
+    if getattr(sched, "src", None) is None:
+        raise ValueError("K1's rank step reads the rank's src: a replicated rank layout holds it")
+    if not 0 <= s < sched.S:
+        raise ValueError(f"step {s} outside [0, {sched.S})")
+    S, M, delta, Pr = sched.S, sched.M, sched.delta, sched.val.shape[1]
+    expect = {
+        "x_ext": (x_ext, (sched.n_slots,) + feat, x_ext.dtype),
+        "src": (sched.src, (S, Pr, M), torch.int32),
+        "val": (sched.val, (S, Pr, M), x_ext.dtype),
+        "row_ptr": (sched.row_ptr, (S, Pr, delta + 1), torch.int32),
+        "rows": (sched.rows, (S, Pr, delta), torch.int32),
+    }
+    if epilogue.table is not None:
+        expect["table"] = (epilogue.table, (sched.n_slots,) + feat, x_ext.dtype)
+    _check_tensors(expect, x_ext.device)
+    if max(sched.n_slots, Pr * delta) * C >= 2**31:
+        raise ValueError("the frontier and the step's rows must hold fewer than 2**31 values")
+    _check_aligned(C, {"x_ext": x_ext, "table": epilogue.table}, VECTOR_C)
+    _check_cuda(x_ext)
+    return C, G
+
+
+def round_rank_step_cuda(x_ext, sched, semiring, epilogue, s: int) -> torch.Tensor:
+    """Commit step ``s`` of a rank's workers on the card, one ordinary
+    launch: K1's step over the rank's cells (a replicated
+    :class:`~repro_torch.dist.engine_sharded.RankSchedule`, or a whole
+    schedule) reading the whole ``(n + 1,)+feat`` frontier ``x_ext``, which
+    it does not write.  ``feat`` is ``()``, ``(F,)``, or a batch's ``(Q,)``
+    or ``(Q, F)`` (an ``(n + 1,)+feat`` table, :meth:`Epilogue.for_batch`).
+    Returns the new rows of the step, ``(P_r·δ,)+feat`` in chunk order
+    (padded rows hold unspecified values).  Launches on the current stream
+    and does not synchronise."""
+    C, G = _check_rank_step_args(x_ext, sched, semiring, epilogue, s)
+    lib = _library()
+    dev = x_ext.device
+    Pr = sched.val.shape[1]
+    out = torch.empty((Pr * sched.delta,) + tuple(x_ext.shape[1:]), dtype=x_ext.dtype, device=dev)
+    table = epilogue.table.data_ptr() if epilogue.table is not None else None
+    with torch.cuda.device(dev):
+        err = lib.round_block_rank_step_launch(
+            _DTYPE_CODES[x_ext.dtype],
+            x_ext.data_ptr(),
+            out.data_ptr(),
+            sched.src.data_ptr(),
+            sched.val.data_ptr(),
+            sched.row_ptr.data_ptr(),
+            sched.rows.data_ptr(),
+            table,
+            float(epilogue.const),
+            float(epilogue.mix),
+            float(epilogue.one_minus_mix),
+            TAG_CODES[epilogue.tag],
+            s,
+            sched.S,
+            Pr,
+            sched.M,
+            sched.delta,
+            C,
+            G,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on(lib, err, "round_block_rank_step")
+    round_rank_step_cuda.launches += 1
+    return out
+
+
+round_rank_step_cuda.launches = 0  # K1 rank step launches (one a step a rank)
+
+
+def round_publish_cuda(x_ext, block, rows, s: int) -> torch.Tensor:
+    """Step ``s``'s gathered ``(P·δ,)+feat`` block of every worker into the
+    ``(n + 1,)+feat`` frontier at the schedule's global rows ``rows[s]``
+    (``rows`` the ``(S, P, δ)`` int32 rows; dump rows, ``== n``, skipped),
+    in place, one ordinary launch.  Returns ``x_ext``.  Launches on the
+    current stream and does not synchronise."""
+    feat, C, _ = _row_widths(x_ext, 1, None)
+    if x_ext.dtype not in _DTYPE_CODES:
+        raise ValueError(f"the kernels take float32 or int32 frontiers, got {x_ext.dtype}")
+    if rows.dim() != 3 or not 0 <= s < rows.shape[0]:
+        raise ValueError(f"rows must be (S, P, delta) with step {s} inside, got {tuple(rows.shape)}")
+    S, P, delta = rows.shape
+    _check_tensors(
+        {"block": (block, (P * delta,) + feat, x_ext.dtype), "rows": (rows, (S, P, delta), torch.int32)},
+        x_ext.device,
+    )
+    if not x_ext.is_contiguous():
+        raise ValueError(f"x_ext must be contiguous on {x_ext.device}")
+    if max(x_ext.shape[0], P * delta) * C >= 2**31:
+        raise ValueError("the frontier and the step's rows must hold fewer than 2**31 values")
+    _check_aligned(C, {"x_ext": x_ext, "block": block}, VECTOR_C)
+    _check_cuda(x_ext)
+    lib = _library()
+    dev = x_ext.device
+    with torch.cuda.device(dev):
+        err = lib.round_block_publish_launch(
+            _DTYPE_CODES[x_ext.dtype],
+            x_ext.data_ptr(),
+            block.data_ptr(),
+            rows.data_ptr(),
+            x_ext.shape[0] - 1,
+            s,
+            S,
+            P,
+            delta,
+            C,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on(lib, err, "round_block_publish")
+    round_publish_cuda.launches += 1
+    return x_ext
+
+
+round_publish_cuda.launches = 0  # K1 publish launches (one a step a rank)
 
 
 def _residual_code(residual, dtype) -> int:
@@ -808,21 +956,22 @@ def _check_rank_plan(sched, plan) -> None:
 
 def _check_local_args(x_loc, ef, sched, plan, semiring, epilogue, wire, s, d0, d1) -> tuple:
     """Raise on anything K2's rank entry does not take (before any launch);
-    returns ``(i0, w0, F)``."""
+    returns ``(i0, w0, C, G)``."""
     _check_epilogue(x_loc, semiring, epilogue)
-    feat, F = _feature_width(x_loc, 2)
+    feat, C, G = _row_widths(x_loc, 2, epilogue.tag)
     if epilogue.tag == LABELPROP and not feat:
         raise ValueError("a labelprop epilogue needs a matrix frontier (D, L, F)")
     if wire not in _WIRE_CODES:
         raise ValueError(f"halo_dtype must be one of {tuple(_WIRE_CODES)}, got {wire!r}")
-    if wire != "f32" and x_loc.dtype != torch.float32:
-        raise ValueError(f"a {wire} wire needs a float32 frontier, got {x_loc.dtype}")
+    if wire != "f32" and (x_loc.dtype != torch.float32 or len(feat) > 1):
+        raise ValueError(f"a {wire} wire needs a float32 frontier of (D, L) or (D, L, F), got "
+                         f"{x_loc.dtype} {tuple(x_loc.shape)}: a batch runs the f32 wire")
     i0, w0 = _check_rank_range(sched, plan, d0, d1)
     if not 0 <= s < sched.S:
         raise ValueError(f"step {s} outside [0, {sched.S})")
     Dl = d1 - d0
-    if wire != "f32" and Dl * F > MAX_SCALES:
-        raise ValueError(f"a {wire} wire keeps at most {MAX_SCALES} scales a step, got {Dl * F}")
+    if wire != "f32" and Dl * C > MAX_SCALES:
+        raise ValueError(f"a {wire} wire keeps at most {MAX_SCALES} scales a step, got {Dl * C}")
     _check_rank_plan(sched, plan)
     expect = {"x_loc": (x_loc, (Dl, plan.L) + feat, x_loc.dtype)}
     if wire != "f32":
@@ -832,11 +981,12 @@ def _check_local_args(x_loc, ef, sched, plan, semiring, epilogue, wire, s, d0, d
     _check_tensors(expect, x_loc.device)
     if sched.val.dtype != x_loc.dtype:
         raise ValueError(f"val is {sched.val.dtype}, the frontier {x_loc.dtype}")
-    if max(Dl * plan.L * F, sched.val.shape[1] * sched.delta * F, sched.S * Dl * plan.H * F) >= 2**31:
+    if max(Dl * plan.L * C, sched.val.shape[1] * sched.delta * C, sched.S * Dl * plan.H * C,
+           sched.n_slots * C) >= 2**31:
         raise ValueError("the rank's frontier and its indices must stay below 2**31 entries")
-    _check_aligned(F, {"x_loc": x_loc, "table": epilogue.table})
+    _check_aligned(C, {"x_loc": x_loc, "table": epilogue.table}, VECTOR_C)
     _check_cuda(x_loc)
-    return i0, w0, F
+    return i0, w0, C, G
 
 
 def halo_local_step_cuda(x_loc, ef, sched, plan, semiring, epilogue, halo_dtype: str, s: int, d0: int, d1: int):
@@ -846,22 +996,24 @@ def halo_local_step_cuda(x_loc, ef, sched, plan, semiring, epilogue, halo_dtype:
     S, H)+feat`` residuals ``ef``).  ``sched`` and ``plan`` hold at least
     those shards (a :class:`~repro_torch.dist.engine_sharded.RankSchedule`
     and a :meth:`~repro_torch.dist.engine_sharded.FrontierPlan.for_shards`
-    plan, or whole ones).  Returns the send block ``(rows, scales)``: the
-    ``(d1 - d0, H)+feat`` boundary rows and None (f32), or their int8/fp8
-    values and ``(d1 - d0,)+feat`` float32 scales.  Launches on the current
-    stream and does not synchronise."""
-    i0, w0, F = _check_local_args(x_loc, ef, sched, plan, semiring, epilogue, halo_dtype, s, d0, d1)
+    plan, or whole ones).  On the f32 wire ``feat`` may be a batch's
+    ``(Q,)`` or ``(Q, F)`` (an ``(n + 1, Q)+feat`` table,
+    :meth:`Epilogue.for_batch`).  Returns the send block ``(rows,
+    scales)``: the ``(d1 - d0, H)+feat`` boundary rows and None (f32), or
+    their int8/fp8 values and ``(d1 - d0,)+feat`` float32 scales.  Launches
+    on the current stream and does not synchronise."""
+    i0, w0, C, G = _check_local_args(x_loc, ef, sched, plan, semiring, epilogue, halo_dtype, s, d0, d1)
     lib = _library()
     dev = x_loc.device
     Dl, H, S = d1 - d0, plan.H, sched.S
     Dp, Ps = plan.d1 - plan.d0, sched.val.shape[1]
     feat = tuple(x_loc.shape[2:])
     quant = halo_dtype != "f32"
-    scratch = torch.empty(Dl * plan.P_loc * sched.delta * F, dtype=x_loc.dtype, device=dev)
+    scratch = torch.empty(Dl * plan.P_loc * sched.delta * C, dtype=x_loc.dtype, device=dev)
     if quant:
         out = torch.empty((Dl, H) + feat, dtype=HALO_QUANT[halo_dtype][0], device=dev)
         scales = torch.empty((Dl,) + feat, dtype=torch.float32, device=dev)
-        amax = torch.zeros(Dl * F, dtype=torch.int32, device=dev)
+        amax = torch.zeros(Dl * C, dtype=torch.int32, device=dev)
     else:
         out = torch.empty((Dl, H) + feat, dtype=x_loc.dtype, device=dev)
         scales = amax = None
@@ -900,7 +1052,8 @@ def halo_local_step_cuda(x_loc, ef, sched, plan, semiring, epilogue, halo_dtype:
             delta,
             plan.L,
             H,
-            F,
+            C,
+            G,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(lib, err, "halo_local")
@@ -915,11 +1068,11 @@ def halo_recv_cuda(x_loc, recv_rows, recv_scales, plan, s: int, e0: int, e1: int
     """Step ``s``'s gathered ``(D, H)+feat`` boundary rows into the halo
     slots of shards ``[e0, e1)`` on the card, one launch, in place on their
     ``(e1 - e0, L)+feat`` frontier: f32 rows as they are (``recv_scales``
-    None; dump slots skipped), or int8/fp8 values dequantized with the
-    ``(D,)+feat`` scales, the dump slot taking the entry ``dump_last``
-    names.  Returns ``x_loc``.  Launches on the current stream and does not
-    synchronise."""
-    feat, F = _feature_width(x_loc, 2)
+    None; dump slots skipped; ``feat`` may be a batch's ``(Q,)`` or ``(Q,
+    F)``), or int8/fp8 values dequantized with the ``(D,)+feat`` scales, the
+    dump slot taking the entry ``dump_last`` names.  Returns ``x_loc``.
+    Launches on the current stream and does not synchronise."""
+    feat, C, _ = _row_widths(x_loc, 2, None)
     D, H = plan.D, plan.H
     if not plan.d0 <= e0 < e1 <= plan.d1:
         raise ValueError(f"shards [{e0}, {e1}) are not within the plan's [{plan.d0}, {plan.d1})")
@@ -928,7 +1081,7 @@ def halo_recv_cuda(x_loc, recv_rows, recv_scales, plan, s: int, e0: int, e1: int
     quant = recv_scales is not None
     if quant:
         wire = {torch.int8: "int8", torch.float8_e4m3fn: "fp8"}.get(recv_rows.dtype)
-        if wire is None or x_loc.dtype != torch.float32:
+        if wire is None or x_loc.dtype != torch.float32 or len(feat) > 1:
             raise ValueError(f"quantized rows are int8 or float8_e4m3fn into float32, got {recv_rows.dtype}")
     else:
         wire = "f32"
@@ -944,9 +1097,9 @@ def halo_recv_cuda(x_loc, recv_rows, recv_scales, plan, s: int, e0: int, e1: int
     if quant:
         expect["recv_scales"] = (recv_scales, (D,) + feat, torch.float32)
     _check_tensors(expect, x_loc.device)
-    if max(El * plan.L * F, D * H * F, plan.S * Dp * D * H) >= 2**31:
+    if max(El * plan.L * C, D * H * C, plan.S * Dp * D * H) >= 2**31:
         raise ValueError("the rank's frontier and its indices must stay below 2**31 entries")
-    _check_aligned(F, {"x_loc": x_loc, "recv_rows": None if quant else recv_rows})
+    _check_aligned(C, {"x_loc": x_loc, "recv_rows": None if quant else recv_rows}, VECTOR_C)
     _check_cuda(x_loc)
     lib = _library()
     dev = x_loc.device
@@ -965,7 +1118,7 @@ def halo_recv_cuda(x_loc, recv_rows, recv_scales, plan, s: int, e0: int, e1: int
             D,
             plan.L,
             H,
-            F,
+            C,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(lib, err, "halo_recv")

@@ -38,6 +38,17 @@ version on the CPU and for ``backend="torch"``), under the reference's
 batch loops with one residual read back a round
 (:func:`repro_torch.kernels.ref.batch_loop`).  The reference quantizes no
 batch, so a halo batch runs the f32 wire.
+
+A solver with a ``group`` batches across processes on both frontiers, under
+the same loops: on the replicated frontier each rank holds the whole batch
+and runs K1's rank step and publish a commit step
+(:func:`repro_torch.dist.engine_sharded.replicated_rank_round_fn`), its
+per-query residuals its own; on the halo frontier its shards' ``(D/W, L,
+Q)+feat`` frontier over K2's rank entries
+(:func:`repro_torch.dist.engine_sharded.frontier_rank_batch_round_fn`), each
+query's residual summed over the shards in shard order across the group.
+Every rank must admit the same queries in the same order: then it reads the
+same bits and takes the same retire and compaction decisions.
 """
 
 from __future__ import annotations
@@ -86,15 +97,9 @@ class RetiredQuery:
 
 def _resolve(solver, backend, frontier) -> tuple:
     """The batch's backend and frontier.  A halo batch runs the f32 wire (a
-    solver whose default wire is int8 or fp8 raises), and a solver whose
-    shards span processes raises."""
+    solver whose default wire is int8 or fp8 raises)."""
     backend = backend or solver.default_backend
     solver._check_backend(backend)
-    if solver.group is not None:
-        raise NotImplementedError(
-            "a batch across processes (Solver(group=...)) is not ported yet: "
-            "ROADMAP queue A, A9 rest"
-        )
     frontier = solver.resolve_frontier(frontier)
     wire = solver.default_halo_dtype
     if frontier == "halo" and wire != "f32":
@@ -105,17 +110,56 @@ def _resolve(solver, backend, frontier) -> tuple:
     return backend, frontier
 
 
+def _schedule(solver, delta, frontier):
+    """The batch's schedule: the solver's, or a rank's cells on a group."""
+    if solver.group is None:
+        return solver.schedule(delta)
+    return solver.rank_layout(delta, frontier)[0]
+
+
+def _rank_residuals(plan, residual, group):
+    """``(X_loc, X_loc_new) -> (Q,)`` float32: each query's residual over a
+    rank's ``(D/W, L, Q)+feat`` shards, every shard's partial over its owned
+    rows summed in shard order across ``group`` (the same bits for any
+    number of ranks)."""
+    owned = plan.owned_sizes
+
+    def fn(old, new):
+        parts = []
+        for i, o in enumerate(owned):
+            a, b = old[i, :o], new[i, :o]
+            parts.append(residual(a, b, dim=(0,) + tuple(range(2, a.dim()))).double().cpu().numpy())
+        return group.sum_partials(np.stack(parts)).astype(np.float32)
+
+    return fn
+
+
 def _solve(solver, sched, backend: str, frontier: str, epilogue, residual, X, tol, max_rounds, conv0=None):
     """One loop over the batch ``X`` until every query's residual is ≤ tol
     or ``max_rounds`` (``conv0``: an open batch's flags; see
     :func:`repro_torch.kernels.ref.batch_loop`): K1's loop entry, or the
     plain loop, on the replicated frontier; rounds of K2's batch entry (or
-    its plain version) on the halo frontier.  Returns ``(X, residuals,
-    rounds, converged, rounds_per_query)``."""
+    its plain version) on the halo frontier; across a group the ranks'
+    rounds (module docstring).  Returns ``(X, residuals, rounds, converged,
+    rounds_per_query)``."""
     semiring = solver.problem.semiring
+    plain = backend == "torch"
+    if solver.group is not None:
+        g = solver.group
+        if frontier == "replicated":
+            rnd = engine_sharded.replicated_rank_round_fn(sched, sched.rows_all, semiring, epilogue, g, plain)
+            return ref.batch_loop(rnd, X, residual, tol, max_rounds, conv0)
+        plan = solver.rank_layout(sched.delta, "halo")[1]
+        rnd = engine_sharded.frontier_rank_batch_round_fn(sched, plan, semiring, epilogue, g, plain)
+        X_loc, res, r, conv, rpq = ref.batch_loop(
+            rnd, plan.scatter_x(X), residual, tol, max_rounds, conv0, residuals=_rank_residuals(plan, residual, g),
+            axis=2,
+        )
+        X = torch.cat([g.gather_owned(X_loc, plan.vertex_bounds).to(X.device), X[-1:]])
+        return X, res, r, conv, rpq
     if frontier == "halo":
         plan = solver.frontier_plan(sched)
-        rnd = engine_sharded.frontier_batch_round_fn(sched, plan, semiring, epilogue, plain=backend == "torch")
+        rnd = engine_sharded.frontier_batch_round_fn(sched, plan, semiring, epilogue, plain=plain)
         return ref.batch_loop(rnd, X, residual, tol, max_rounds, conv0)
     loop = ops.fused_batch_solve if backend == "kernel" else ref.fused_batch_solve_ref
     return loop(X, sched, semiring, epilogue, residual, tol, max_rounds, conv0)
@@ -190,7 +234,7 @@ class BatchStepper:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
         self.backend, self.frontier = _resolve(solver, backend, frontier)
         self.solver = solver
-        self.sched = solver.schedule(delta)
+        self.sched = _schedule(solver, delta, self.frontier)
         self.capacity = capacity
         self.tol = solver.tol if tol is None else tol
         self.max_rounds = solver.max_rounds if max_rounds is None else max_rounds
@@ -353,7 +397,7 @@ def solve_batch(
     problem = solver.problem
     sr = problem.semiring
     backend, frontier = _resolve(solver, backend, frontier)
-    sched = solver.schedule(delta)
+    sched = _schedule(solver, delta, frontier)
     tol = solver.tol if tol is None else tol
     max_rounds = solver.max_rounds if max_rounds is None else max_rounds
     if compact_every is not None and compact_every < 1:

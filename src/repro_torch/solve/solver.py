@@ -33,9 +33,11 @@ between shards.  ``halo_dtype`` ∈ ``{"f32",
 "kernel"`` only; f32 gives the replicated solve's answer bit for bit).
 Both backends run both frontiers.
 
-``solve_batch`` answers Q queries together on the replicated frontier, one
-launch of K1's batch entry a round for all Q (:mod:`repro_torch.solve.batch`,
-which also holds the open batch :class:`~repro_torch.solve.batch.BatchStepper`).
+``solve_batch`` answers Q queries together, on the replicated frontier in
+one launch of K1's loop entry a compaction chunk for all Q
+(:mod:`repro_torch.solve.batch`, which also holds the open batch
+:class:`~repro_torch.solve.batch.BatchStepper`), on the halo frontier one
+launch of K2's batch entry a round.
 
 Evolving graphs: ``apply_updates(batch)`` applies an
 :class:`~repro_torch.graphs.updates.EdgeBatch` to the bound graph with the
@@ -59,17 +61,23 @@ cold answer.  Every solve logs its ``(δ, rounds, time)`` there;
 ``reprobe_every=N`` does so every N observations.  ``partition_method``
 names the block partitioner (:data:`~repro_torch.graphs.partition.PARTITION_METHODS`).
 
-Across processes: ``Solver(..., frontier="halo", n_shards=D,
-group=...)`` (a ``torch.distributed`` process group, or a
-:class:`~repro_torch.dist.comm.HaloGroup`) runs one rank of a halo solve.
-Every rank constructs the solver on the same graph and calls ``solve()``
-collectively; a rank keeps on its device only its own ``D/W`` shards'
-frontier, plan blocks and workers' schedule cells (the CSR stays on the
-host), each commit step is K2's rank entry, the group's all-gather of the
-boundary rows and K2's receive, and every rank returns the same whole
-:class:`EngineResult`.  The replicated frontier, ``delta="auto"`` (whose
-probes run replicated), ``cache_dir``, ``apply_updates``/``resolve`` and
-batches across processes raise ``NotImplementedError`` (ROADMAP queue A).
+Across processes: ``Solver(..., group=...)`` (a ``torch.distributed``
+process group, or a :class:`~repro_torch.dist.comm.HaloGroup`) runs one
+rank of a solve.  Every rank constructs the solver on the same graph and
+calls ``solve()`` (``solve_batch``, a ``BatchStepper``'s ``admit`` and
+``run``) collectively, and every rank returns the one-process answer bit
+for bit.  On the halo frontier (``n_shards=D``) a rank keeps on its device
+only its own ``D/W`` shards' frontier, plan blocks and workers' schedule
+cells (the CSR stays on the host), and each commit step is K2's rank entry,
+the group's all-gather of the boundary rows and K2's receive.  On the
+replicated frontier a rank keeps the whole frontier and its ``P/W``
+workers' cells, and each commit step is K1's rank step over its workers,
+the group's all-gather of every worker's new rows and K1's publish; the
+residual is taken over the whole frontier, the same bits on every rank, so
+the stopping test needs no collective.  ``delta="auto"`` probes on the
+replicated frontier across the group, so every rank fits the same δ-model.
+``cache_dir``, ``apply_updates`` and ``resolve`` across processes raise
+``NotImplementedError`` (ROADMAP queue A).
 
 The solver runs on CUDA unless it is given ``device="cpu"``; with no CUDA
 device and no ``device`` it raises.
@@ -173,22 +181,18 @@ class Solver:
         if n_shards < 1 or n_workers % n_shards:
             raise ValueError(f"P={n_workers} not divisible by D={n_shards}")
         if group is not None:
-            if frontier != "halo":
-                raise NotImplementedError(
-                    "Solver(group=...) runs the halo frontier over processes; the "
-                    "replicated sharded round across processes is ROADMAP queue A (A9 rest)"
-                )
             if cache_dir is not None:
                 raise NotImplementedError(
                     "Solver(group=..., cache_dir=...): persistence across processes is "
-                    "ROADMAP queue A (A9 rest)"
+                    "ROADMAP queue A (A9, third part)"
                 )
             from repro_torch.dist.comm import HaloGroup
 
             if not isinstance(group, HaloGroup):
-                group = HaloGroup(group, n_shards)
-            if group.n_shards != n_shards:
+                group = HaloGroup(group, n_shards if frontier == "halo" else None)
+            if frontier == "halo" and group.n_shards not in (None, n_shards):
                 raise ValueError(f"the group splits {group.n_shards} shards, the solver has {n_shards}")
+            group.split(n_workers, "workers")
         self.group = group
         self.device = resolve_device(device)
         self.graph = graph
@@ -220,7 +224,8 @@ class Solver:
         self._auto_delta_incremental = None
         self._schedules: dict[int, DeviceSchedule] = {}
         self._plans: dict[tuple, engine_sharded.FrontierPlan] = {}
-        self._rank_layouts: dict[int, tuple] = {}  # δ -> (RankSchedule, rank plan)
+        self._rank_cells: dict[int, tuple] = {}  # δ -> (RankSchedule, its host arrays)
+        self._rank_layouts: dict[tuple, tuple] = {}  # (δ, frontier) -> (RankSchedule, rank plan or None)
         self._last_x = None  # fixed point of the most recent solve (host copy)
         self._last_report = None  # UpdateReport of the most recent apply_updates
         self.stats = {
@@ -368,17 +373,14 @@ class Solver:
             return min(self.min_chunk, B)
         if delta == "auto":
             if self._auto_delta is None:
-                if self.group is not None:
-                    raise NotImplementedError(
-                        "delta='auto' probes on the replicated frontier, which does not "
-                        "run across processes yet (ROADMAP queue A, A9 rest): pass a δ"
-                    )
                 self._auto_delta = self._probe_auto_delta()
             return self._auto_delta
         return int(min(max(int(delta), 1), B))
 
     def _probe_auto_delta(self) -> int:
-        """Fit the δ cost model from two measured probes (sync + finest δ)."""
+        """Fit the δ cost model from two measured probes (sync + finest δ),
+        on the replicated frontier (across the group where there is one:
+        the model reads round counts alone, so every rank fits the same)."""
         r_sync = self.solve(delta="sync", frontier="replicated")
         r_async = self.solve(delta="async", frontier="replicated")
         self.delta_model = fit_delta_model(
@@ -563,25 +565,39 @@ class Solver:
         self.persist.save_plan(plan, sched)
         return plan
 
-    def rank_layout(self, delta=None) -> tuple:
-        """This rank's ``(RankSchedule, plan)`` for ``delta`` (a solver with
-        a ``group``): its workers' schedule cells and its shards' plan
-        blocks, built from the graph on the host (its own stripes, every
-        shard's halo) and cached per δ."""
+    def rank_layout(self, delta=None, frontier=None) -> tuple:
+        """This rank's layout for ``delta`` on ``frontier`` (a solver with a
+        ``group``): on the halo frontier ``(RankSchedule, plan)``, its
+        workers' schedule cells and its shards' plan blocks; on the
+        replicated frontier ``(RankSchedule, None)``, the same cells with
+        their ``src`` and every worker's rows on the device
+        (:func:`~repro_torch.dist.engine_sharded.replicated_rank`).  A rank
+        holds the same ``P/W`` workers on both, so their cells are built
+        once a δ from the graph on the host (its own stripes; the plan from
+        every shard's halo), and each layout is cached per δ."""
         if self.group is None:
             raise ValueError("rank_layout needs a Solver(group=...)")
+        frontier = self.resolve_frontier(frontier)
         delta_eff = self.resolve_delta(delta)
-        hit = self._rank_layouts.get(delta_eff)
+        hit = self._rank_layouts.get((delta_eff, frontier))
         if hit is None:
-            g, P_loc = self.group, self.n_workers // self.n_shards
-            sched, host = engine_sharded.rank_schedule(
-                self._sched_graph, self.bounds, delta_eff, self.problem.semiring.pad_edge_val,
-                g.d0 * P_loc, g.d1 * P_loc, self.device,
-            )
-            plan = engine_sharded.rank_plan(self._sched_graph, sched, host, self.n_shards, self.device)
-            hit = self._rank_layouts[delta_eff] = (sched, plan)
-            self.stats["schedule_builds"] += 1
-            self.stats["plan_builds"] += 1
+            cells = self._rank_cells.get(delta_eff)
+            if cells is None:
+                w0, w1 = self.group.split(self.n_workers, "workers")
+                cells = self._rank_cells[delta_eff] = engine_sharded.rank_schedule(
+                    self._sched_graph, self.bounds, delta_eff, self.problem.semiring.pad_edge_val,
+                    w0, w1, self.device,
+                )
+                self.stats["schedule_builds"] += 1
+            sched, host = cells
+            if frontier == "halo":
+                self.group.split(self.n_shards)  # a rank holds whole shards
+                plan = engine_sharded.rank_plan(self._sched_graph, sched, host, self.n_shards, self.device)
+                self.stats["plan_builds"] += 1
+                hit = (sched, plan)
+            else:
+                hit = (engine_sharded.replicated_rank(sched, host), None)
+            self._rank_layouts[(delta_eff, frontier)] = hit
         return hit
 
     # ------------------------------------------------------------------ #
@@ -678,11 +694,7 @@ class Solver:
         tol = self.tol if tol is None else tol
         max_rounds = self.max_rounds if max_rounds is None else max_rounds
         if self.group is not None:
-            if frontier != "halo":
-                raise NotImplementedError(
-                    "the replicated sharded round across processes is ROADMAP queue A (A9 rest)"
-                )
-            return self._solve_ranks(x0, q, delta, backend, halo_dtype, tol, max_rounds)
+            return self._solve_ranks(x0, q, delta, backend, frontier, halo_dtype, tol, max_rounds)
         sched = self.schedule(delta)
         x_ext = self._x_ext(x0)
         feat = tuple(x_ext.shape[1:])
@@ -712,17 +724,25 @@ class Solver:
         self._record_observation(sched.delta, result.rounds, result.total_time_s, backend, regime=regime)
         return result
 
-    def _solve_ranks(self, x0, q, delta, backend, halo_dtype, tol, max_rounds) -> EngineResult:
-        """This rank's share of a halo solve across processes (collective).
+    def _solve_ranks(self, x0, q, delta, backend, frontier, halo_dtype, tol, max_rounds) -> EngineResult:
+        """This rank's share of a solve across processes (collective).
 
-        The host loop of the one-process halo solve over the rank's shards:
-        each round :func:`~repro_torch.dist.engine_sharded.frontier_rank_round_fn`
+        Replicated: the one-process solve's loop (the reference's
+        ``make_solve_fn_q``, an f32 residual against an f32 ``tol``, the
+        result holding the final residual alone) over
+        :func:`~repro_torch.dist.engine_sharded.replicated_rank_round_fn`;
+        every rank holds the whole frontier, so its residual is the
+        one-process loop's, with the same bits on every rank and for any
+        number of ranks.
+
+        Halo: the host loop of the one-process halo solve over the rank's
+        shards: each round :func:`~repro_torch.dist.engine_sharded.frontier_rank_round_fn`
         (S commit steps, each with its all-gather), then every shard's
         residual over its owned vertices, summed in shard order across the
         group (the same bits for any number of ranks), against ``tol``.  The
         owned rows are gathered once at the end, so every rank returns the
         whole answer."""
-        sched, plan = self.rank_layout(delta)
+        sched, plan = self.rank_layout(delta, frontier)
         sr, residual, g = self.problem.semiring, self.problem.residual, self.group
         x_host = extend_frontier(self._x0_host(x0), sr, "cpu")
         feat = tuple(x_host.shape[1:])
@@ -737,6 +757,16 @@ class Solver:
             load("round_block")
             build_s = time.perf_counter() - t0
         self.stats["solves"] += 1
+        if frontier == "replicated":
+            rnd = engine_sharded.replicated_rank_round_fn(sched, sched.rows_all, sr, row_update, g,
+                                                          plain=backend == "torch")
+
+            def loop(x, tol, max_rounds):
+                return ref.solve_loop(rnd, x, residual, tol, max_rounds)
+
+            result = fused_loop(loop, sched, sr, x_host.to(self.device), tol, max_rounds, compile_time_s=build_s)
+            self._last_x = np.asarray(result.x)
+            return result
         x_loc = x_host[plan.gather_index.cpu().long()].contiguous().to(self.device)
         ef = torch.zeros((plan.d1 - plan.d0, plan.S, plan.H) + feat, dtype=torch.float32, device=self.device)
         rank_round = engine_sharded.frontier_rank_round_fn(
@@ -814,7 +844,7 @@ class Solver:
         if self.group is not None:
             raise NotImplementedError(
                 f"{what} across processes (Solver(group=...)) is not ported yet: "
-                "ROADMAP queue A (A9 rest)"
+                "ROADMAP queue A (A9, third part)"
             )
 
     def _carry_persist_over(self):

@@ -440,13 +440,20 @@ def test_batch_refusals(name, kwargs, exc, match, tmp_path):
         ts = t_solve.Solver(ts.graph, ts.problem, n_workers=P, min_chunk=MIN_CHUNK, n_shards=2, halo_dtype=wire,
                             device="cpu")
     if kwargs.pop("group", None):  # a solver whose shards span processes: a group of one rank here
+        # A batch across processes runs (it gives the one-process batch's
+        # answer); what such a solver still refuses is an update.
+        one = t_solve.Solver(ts.graph, ts.problem, n_workers=P, min_chunk=MIN_CHUNK, frontier="halo", device="cpu")
+        want = one.solve_batch(x0, delta=24, **kwargs)
         with _one_rank_group(tmp_path) as pg:
             grouped = t_solve.Solver(ts.graph, ts.problem, n_workers=P, min_chunk=MIN_CHUNK, frontier="halo",
                                      device="cpu", group=pg)
+            got = grouped.solve_batch(x0, delta=24, **kwargs)
+            assert got.rounds == want.rounds
+            np.testing.assert_array_equal(got.x, want.x)
+            np.testing.assert_array_equal(got.rounds_per_query, want.rounds_per_query)
+            assert t_solve.BatchStepper(grouped, capacity=2).capacity == 2
             with pytest.raises(exc, match=match):
-                grouped.solve_batch(x0, delta=24, **kwargs)
-            with pytest.raises(exc, match=match):
-                t_solve.BatchStepper(grouped, capacity=2)
+                grouped.resolve(x0=x0[0])
         return
     if kwargs.pop("x0", None):
         x0 = np.zeros((Q, ts.graph.n + 1), x0.dtype)

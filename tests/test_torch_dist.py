@@ -11,8 +11,8 @@ the JAX reference, and K2's rank entries' plain versions.
   one-process plain K2 solve, and their x and error-feedback residuals
   after three rounds equal the one-process plain K2 rounds'; each rank
   holds only its own shards' arrays; ``D % W != 0`` and the paths not
-  ported across processes raise; the ranks load neither ``jax`` nor
-  ``repro``.
+  ported across processes raise, and the ones ported since run and give
+  ``repro``'s answers; the ranks load neither ``jax`` nor ``repro``.
 * In one process: a rank's schedule cells and plan blocks equal the
   whole schedule's and plan's slices, and the local step plus the receive
   over any split of the shards equals ``fused_halo_round_ref`` one step at
@@ -191,17 +191,34 @@ def test_each_rank_holds_only_its_shards(ranks, W, D):
             assert tuple(got[tag + "/x_loc"]) == (Dr, plan.L) + F
 
 
+@functools.cache
+def _lifted_reference():
+    """``repro``'s jit answers of the paths across processes that once
+    raised and now run: SSSP at δ = 32 (replicated, on a halo solver and
+    not), at ``delta="auto"``, and a two-source batch at δ = 32."""
+    gname, scale, kind = R.graph_spec("sssp")
+    g = j_gen.make_graph(gname, scale=scale, efactor=8, kind=kind)
+    sv = j_solve.Solver(g, j_solve.sssp_problem(), n_workers=R.P, min_chunk=R.MIN_CHUNK, backend="jit")
+    at32 = sv.solve(delta=32)
+    return {"replicated": at32, "solve replicated": at32, "auto": sv.solve(delta="auto"),
+            "batch": j_solve.solve_batch(sv, j_solve.multi_source_x0(g, [0, 3]), delta=32)}
+
+
 def test_refusals_across_processes(ranks):
+    """The refusals that still stand raise; the paths a later port lifted
+    (the replicated frontier, ``delta="auto"``, batches) run and give
+    ``repro``'s jit answers."""
+    lifted = _lifted_reference()
     for r in range(WORLD):
         got = list(ranks[r]["refusals"])
         want = {
             "D % W": "ValueError: D=6 shards do not split evenly over W=4",
             "D % W solver": "ValueError: D=2 shards do not split evenly over W=4",
-            "replicated": "NotImplementedError",
+            "replicated": "ran",
             "cache_dir": "NotImplementedError",
-            "solve replicated": "NotImplementedError",
-            "auto": "NotImplementedError",
-            "batch": "NotImplementedError",
+            "solve replicated": "ran",
+            "auto": "ran",
+            "batch": "ran",
             "apply_updates": "NotImplementedError",
             "resolve": "NotImplementedError",
         }
@@ -210,6 +227,10 @@ def test_refusals_across_processes(ranks):
             assert line.startswith(f"{what}: {start}"), line
             if start == "NotImplementedError":
                 assert "ROADMAP queue A" in line, line
+            if start == "ran":
+                jr = lifted[what]
+                assert ranks[r][f"lifted/{what}/rounds"][0] == jr.rounds, what
+                np.testing.assert_array_equal(ranks[r][f"lifted/{what}/x"], np.asarray(jr.x))
 
 
 def test_ranks_load_neither_jax_nor_repro(ranks):

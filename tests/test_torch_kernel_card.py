@@ -1331,3 +1331,161 @@ def test_two_process_gloo_solve_on_the_card_equals_one_process(cuda_device, tmp_
             assert local == recv == rounds * S  # one launch of each a step
             np.testing.assert_array_equal(got[name].view(np.int32), one.x.view(np.int32))
             assert str(got["transport"][0]) == "gloo (pinned host)"
+
+
+# K1's rank entries (a rank's commit step over its workers, the publish of
+# every worker's rows) and K2's rank entries over a batch's rows, against
+# their plain versions, bit for bit; the solves across two cards over nccl.
+K1_RANK_SPLITS = {"halves": ((0, 4), (4, 8)), "uneven": ((0, 1), (1, 6), (6, 8))}
+K1_RANK_CASES = [(ADD_CONST, "single", 1), (ADD_CONST, "single", 4), (ADD_TABLE, "single", 1),
+                 (ADD_TABLE, "single", 4), (MIN_OLD, "single", 1), (LABELPROP, "single", 4)] + [
+    (tag, layout, C) for C in (8, 32) for tag, layout in BATCH_CASES]
+
+
+def _k1_rank_inputs(tag, layout, C):
+    """Graph, semiring, the ``(n + 1,)+feat`` frontier on the host and its
+    epilogue: a single frontier of F = C columns, or a batch of C values a
+    row (:func:`_batch_card_inputs`)."""
+    if layout == "single":
+        g, sr, x0, ep = _rank_case_inputs(tag, C, np.random.default_rng(C))
+        return g, sr, engine.extend_frontier(x0, sr, "cpu"), ep
+    g, sr, x, ep = _batch_card_inputs(tag, layout, C)
+    return g, sr, torch.as_tensor(x), ep
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("split", list(K1_RANK_SPLITS))
+@pytest.mark.parametrize("mode,delta", [("sync", None), ("delayed", 96)])
+@pytest.mark.parametrize("tag,layout,C", K1_RANK_CASES)
+def test_k1_rank_step_and_publish_match_plain_versions(cuda_device, tag, layout, C, mode, delta, split):
+    """Each step: K1's rank step over each range of workers (its real rows)
+    and the publish of the joined blocks (x's real rows) against their
+    plain versions; one launch of the step a range a step and of the
+    publish a step; the round equal to K1's round entry's."""
+    g, sr, x, ep = _k1_rank_inputs(tag, layout, C)
+    cpu = engine.make_schedule(g, 8, delta, sr, mode=mode, min_chunk=32)
+    dev = engine.make_schedule(g, 8, delta, sr, mode=mode, min_chunk=32, device=cuda_device)
+    ranges = K1_RANK_SPLITS[split]
+    cells_cpu = [engine_sharded.rank_cells(cpu, a, b) for a, b in ranges]
+    cells_dev = [engine_sharded.rank_cells(dev, a, b) for a, b in ranges]
+    want, got = x.clone(), x.to(cuda_device)
+    ep_dev = ep.to(cuda_device)
+    launches = (ops.round_rank_step_cuda.launches, ops.round_publish_cuda.launches)
+    for s in range(cpu.S):
+        blocks_w = [ref.round_rank_step_ref(want, c, sr, ep, s) for c in cells_cpu]
+        blocks_g = [ops.round_rank_step(got, c, sr, ep_dev, s) for c in cells_dev]
+        torch.cuda.synchronize()
+        for bw, bg, c in zip(blocks_w, blocks_g, cells_cpu):
+            real = c.rows[s].reshape(-1) < g.n  # padded rows' values are unspecified
+            assert _bits_equal(bg.cpu()[real], bw[real]), s
+        ref.round_publish_ref(want, torch.cat(blocks_w), cpu.rows, s)
+        ops.round_publish(got, torch.cat(blocks_g), dev.rows, s)
+        torch.cuda.synchronize()
+        assert _bits_equal(got.cpu()[:-1], want[:-1]), s
+    n = cpu.S * len(ranges)
+    assert (ops.round_rank_step_cuda.launches, ops.round_publish_cuda.launches) == (launches[0] + n,
+                                                                                    launches[1] + cpu.S)
+    whole = (fused_round_cuda if layout == "single" else fused_batch_round_cuda)(x.to(cuda_device), dev, sr, ep_dev)
+    torch.cuda.synchronize()
+    assert _bits_equal(got.cpu()[:-1], whole.cpu()[:-1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("split", ["halves", "uneven"])
+@pytest.mark.parametrize("mode,delta", [("sync", None), ("delayed", 96)])
+@pytest.mark.parametrize("C", [8, 16, 32])
+@pytest.mark.parametrize("tag,layout", HALO_BATCH_CASES)
+def test_halo_rank_entries_take_the_query_axis(cuda_device, tag, layout, C, mode, delta, split):
+    """K2's rank entry and receive over a batch's ``(D, L, Q)+feat`` rows (f32
+    wire) against their plain versions each step, and the round against
+    K2's batch entry's."""
+    g, sr, x, ep = _batch_card_inputs(tag, layout, C)
+    cpu = engine.make_schedule(g, 8, delta, sr, mode=mode, min_chunk=32)
+    dev = engine.make_schedule(g, 8, delta, sr, mode=mode, min_chunk=32, device=cuda_device)
+    plan_cpu = engine_sharded.make_frontier_plan(cpu, 4)
+    plan = engine_sharded.make_frontier_plan(dev, 4)
+    start = plan_cpu.scatter_x(torch.as_tensor(x))
+    want, got = start.clone(), start.to(cuda_device)
+    ep_dev = ep.to(cuda_device)
+    ranges = RANK_SPLITS[split]
+    for s in range(cpu.S):
+        rows_w = torch.cat([ref.halo_local_step_ref(want[a:b], None, cpu, plan_cpu, sr, ep, "f32", s, a, b)[0]
+                            for a, b in ranges])
+        rows_g = torch.cat([ops.halo_local_step(got[a:b], None, dev, plan, sr, ep_dev, "f32", s, a, b)[0]
+                            for a, b in ranges])
+        torch.cuda.synchronize()
+        assert _bits_equal(rows_g.cpu(), rows_w), s
+        for a, b in ranges:
+            ref.halo_recv_ref(want[a:b], rows_w, None, plan_cpu, s, a, b)
+            ops.halo_recv(got[a:b], rows_g, None, plan, s, a, b)
+        torch.cuda.synchronize()
+        assert _bits_equal(got.cpu()[:, :-1], want[:, :-1]), s
+    whole = ops.fused_halo_batch_round(start.to(cuda_device), dev, plan, sr, ep_dev)
+    torch.cuda.synchronize()
+    assert _bits_equal(got.cpu()[:, :-1], whole.cpu()[:, :-1])
+
+
+_TWO_CARDS = """
+import sys, datetime, numpy as np, torch, torch.distributed as dist
+from repro_torch.graphs.generators import make_graph
+from repro_torch.solve import Solver, multi_source_x0, pagerank_problem, sssp_problem
+rank, init, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+torch.cuda.set_device(rank)
+dist.init_process_group("nccl", init_method=init, rank=rank, world_size=2, timeout=datetime.timedelta(seconds=120))
+res = {}
+for name, prob in (("pagerank", pagerank_problem()), ("sssp", sssp_problem())):
+    g = make_graph("twitter" if name == "pagerank" else "kron", scale=10, efactor=8, kind=name)
+    sv = Solver(g, prob, n_workers=8, delta=96, min_chunk=32, n_shards=4, group=dist.group.WORLD)
+    for frontier in ("replicated", "halo"):
+        r = sv.solve(frontier=frontier)
+        res[f"{name}/{frontier}"] = r.x
+        res[f"{name}/{frontier}/counts"] = np.array([r.rounds, r.flushes, r.flush_bytes])
+    if name == "sssp":
+        for frontier in ("replicated", "halo"):
+            b = sv.solve_batch(multi_source_x0(g, [0, 5, 17]), frontier=frontier)
+            res[f"batch/{frontier}"] = b.x
+            res[f"batch/{frontier}/rpq"] = b.rounds_per_query
+res["transport"] = np.array([sv.group.transport])
+np.savez(f"{out}/rank{rank}.npz", **res)
+dist.destroy_process_group()
+"""
+
+
+@pytest.mark.gpu
+def test_two_card_nccl_solves_equal_one_process(cuda_device, tmp_path):
+    """Two processes, one card each, over an nccl group (HaloGroup's nccl
+    branches: the gathers on the card): PageRank and SSSP on the replicated
+    and halo frontiers and an SSSP batch on both equal the one-process
+    solves bit for bit."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: an nccl group takes one rank a card")
+    repo = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(repo / "src"))
+    init = f"file://{tmp_path / 'store'}"
+    procs = [subprocess.Popen([sys.executable, "-c", _TWO_CARDS, str(r), init, str(tmp_path)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = [p.communicate(timeout=600)[0] for p in procs]
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-4000:]
+    for name, prob in (("pagerank", pagerank_problem()), ("sssp", sssp_problem())):
+        g = make_graph("twitter" if name == "pagerank" else "kron", scale=10, efactor=8, kind=name)
+        sv = Solver(g, prob, n_workers=8, delta=96, min_chunk=32, n_shards=4)
+        for frontier in ("replicated", "halo"):
+            one = sv.solve(frontier=frontier)
+            for r in range(2):
+                got = np.load(tmp_path / f"rank{r}.npz")
+                assert tuple(got[f"{name}/{frontier}/counts"]) == (one.rounds, one.flushes, one.flush_bytes)
+                np.testing.assert_array_equal(got[f"{name}/{frontier}"].view(np.int32), one.x.view(np.int32))
+                assert str(got["transport"][0]) == "nccl"
+        if name == "sssp":
+            for frontier in ("replicated", "halo"):
+                b = sv.solve_batch(multi_source_x0(g, [0, 5, 17]), frontier=frontier)
+                for r in range(2):
+                    got = np.load(tmp_path / f"rank{r}.npz")
+                    np.testing.assert_array_equal(got[f"batch/{frontier}"], b.x)
+                    np.testing.assert_array_equal(got[f"batch/{frontier}/rpq"], b.rounds_per_query)

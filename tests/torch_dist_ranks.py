@@ -5,7 +5,7 @@ file:///path/store --out DIR`` in W processes (``PYTHONPATH=src``): the ranks
 join one ``gloo`` group, run every case on the CPU (each problem of
 :data:`PROBLEMS` at each δ of :data:`DELTAS` on each ``(W, D)`` of
 :data:`LAYOUTS`, the quantized PageRank cases of :data:`QUANT`, and the
-refusals; a case with fewer ranks on the subgroup of ranks ``[0, W)``), and
+refusals, of which the lifted ones now run; a case with fewer ranks on the subgroup of ranks ``[0, W)``), and
 each writes its results to ``DIR/rank<R>.npz``.  It imports ``torch`` and ``repro_torch``
 only; the test holds the results to ``repro`` and to the port's one-process
 halo solve.
@@ -149,7 +149,8 @@ def main(argv=None) -> int:
         out[key(tag, "ef")] = ef.numpy()
         out[key(tag, "shards")] = np.array([plan.d0, plan.d1])
 
-    # refusals, on the four-rank group
+    # refusals, on the four-rank group; the paths a later port lifted run,
+    # and their answers are saved under "lifted/<what>"
     g, prob = graphs["sssp"]
     refusals = []
 
@@ -161,19 +162,24 @@ def main(argv=None) -> int:
         else:
             refusals.append(f"{what}: no {exc.__name__}")
 
+    def ran(what, fn):
+        r = fn()
+        out[key("lifted", what, "x")] = r.x
+        out[key("lifted", what, "rounds")] = np.array([r.rounds])
+        refusals.append(f"{what}: ran")
+
     grp = groups[4]
     refused("D % W", lambda: HaloGroup(grp, 6), ValueError)
     refused("D % W solver", lambda: Solver(g, prob, n_workers=P, frontier="halo", n_shards=2, delta=32,
                                            device="cpu", group=grp), ValueError)
-    refused("replicated", lambda: Solver(g, prob, n_workers=P, n_shards=4, device="cpu", group=grp),
-            NotImplementedError)
+    ran("replicated", lambda: Solver(g, prob, n_workers=P, n_shards=4, device="cpu", group=grp).solve(delta=32))
     refused("cache_dir", lambda: Solver(g, prob, n_workers=P, frontier="halo", n_shards=4, device="cpu",
                                         group=grp, cache_dir=a.out), NotImplementedError)
     sv = Solver(g, prob, n_workers=P, min_chunk=MIN_CHUNK, delta=32, frontier="halo", n_shards=4,
                 device="cpu", group=grp)
-    refused("solve replicated", lambda: sv.solve(frontier="replicated"), NotImplementedError)
-    refused("auto", lambda: sv.solve(delta="auto"), NotImplementedError)
-    refused("batch", lambda: sv.solve_batch(multi_source_x0(g, [0, 3])), NotImplementedError)
+    ran("solve replicated", lambda: sv.solve(frontier="replicated"))
+    ran("auto", lambda: sv.solve(delta="auto"))
+    ran("batch", lambda: sv.solve_batch(multi_source_x0(g, [0, 3])))
     refused("apply_updates", lambda: sv.apply_updates(None), NotImplementedError)
     refused("resolve", lambda: sv.resolve(x0=np.zeros(g.n, np.int32)), NotImplementedError)
     out["refusals"] = np.array(refusals)
