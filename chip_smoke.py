@@ -168,7 +168,14 @@ smaller graphs:
    the CPU) in every round-clock field and answer; then ``python -m
    repro_torch.launch.serve_graph`` at scale 16 runs cold on an empty
    ``--cache-dir``, then with ``--assert-warm`` (must exit 0), and with
-   ``--assert-warm`` on another empty directory (must fail).
+   ``--assert-warm`` on another empty directory (must fail).  Also in that
+   wait (``ft_serve_small``): two ``GraphService(degrade=True)`` tenants at
+   scale 16 with one ``kernel.dispatch`` fault in the first lane quantum
+   must show one lane fault, deliver every query and give a fault-free
+   service's answers bit for bit (the lanes retry on the same kernel; they
+   have no ladder), and a caller's ``svc.solver("sssp").solve()`` under one
+   ``kernel.dispatch`` fault must record one ``Degradation`` (kernel →
+   torch) and give the fault-free solver's answer bit for bit.
    Then the batched halo path (``halo_batch_phase``): ``solve_batch(
    frontier="halo")`` over D = 4 shards, ppr and multi-source sssp at Q = 8
    and δ*, ppr at Q = 32 at sync, one launch of K2's batch entry a round,
@@ -199,6 +206,25 @@ smaller graphs:
    ``BatchStepper`` with the same queries, must equal the one process's.
    Two processes on one card through pinned host memory: no number there
    is a cross-card wire time.
+   Then the fault-tolerance path (``ft_phase``), K1's and K2's counts reset
+   before and read after: checkpointed PageRank and SSSP solves
+   (``repro_torch.ft.elastic.checkpointed_solve``, a snapshot every 4
+   rounds on the background writer) at δ* on the full-size graphs, each
+   round one launch of K1's single-round entry: with no fault, with a
+   ``solver.round`` fault at round 6 and with the first snapshot torn, the
+   same x, rounds and residuals bit for bit, the planned restores and
+   rounds executed, one launch a round executed, x equal to the loop
+   entry's over as many rounds, and a run killed at round 6 resumed by a
+   fresh solver at round 4 to the same answer; a checkpointed halo PageRank
+   (D = 4, one K2 launch a round) likewise, its fresh solver at D = 2, equal
+   to the replicated x; the snapshot's bytes and write time; then
+   ``Solver(degrade=True)`` with one ``kernel.dispatch`` fault on
+   ``backend="kernel"``: SSSP one rung down to the plain round on the card
+   and the kernel's x bit for bit, PageRank at the kernel's round count
+   within ``reorder_ulp_bound`` (the plain round adds with atomics on
+   CUDA), a halo solve to the replicated kernel first; every other solver
+   of the run still alive before the phase and at the end may record no
+   ``Degradation`` nor carry ``degrade=True`` (``stray_degradations``).
 4. K1's time per round at the full-size shapes, at sync, 128, 1024 and
    auto's δ* (CUDA events), beside its byte bound, the same round with no
    edges to walk (barriers, epilogues and publishes alone), the plain round's
@@ -245,13 +271,15 @@ smaller graphs:
    path's replays', beside ``serve_ms_a_round``; a loop entry's
    ``library_ms`` is phase 4's library call for a round of its workload;
    K2's batch entry at C = 8 and 32 with its batch-path and serving
-   launches, its rank entry and receive with the cross-process path's
+   launches, K1's single-round entry (``round_block``) with the
+   checkpointed solves' launches and K2 with theirs (``ckpt_launches``), its rank entry and receive with the cross-process path's
    (and at C = 8 with the cross-process batches'), K1's rank step and
    publish with the replicated cross-process path's;
-   K1's single-round entries, which no path launches now, show the
-   main path's 0 with ``on_path: false``, the loop entry that superseded
-   each, and their launches in phase 3's host-loop comparisons, which must
-   be nonzero), the card's name and power limit, and the result line.
+   K1's other single-round entries (F = 4, the batch's), which no path
+   launches now, show the main path's 0 with ``on_path: false``, the loop
+   entry that superseded each, and their launches in phase 3's host-loop
+   comparisons, which must be nonzero), the card's name and power limit,
+   and the result line.
 
 It imports neither jax nor the JAX package ``repro``.
 
@@ -273,6 +301,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -282,6 +311,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -453,7 +483,9 @@ def ulp_gap(a: torch.Tensor, b: torch.Tensor) -> int:
 
 
 def time_ms(fn, budget_s: float = 0.4, max_iters: int = 50, min_iters: int = 3) -> float:
-    """Mean milliseconds per call, CUDA events around a run of calls."""
+    """Mean milliseconds per call, CUDA events around a run of calls.  With
+    ``min_iters`` 1, a call that alone fills the budget is timed once (the
+    plain rounds at fine δ take seconds a call)."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -462,6 +494,8 @@ def time_ms(fn, budget_s: float = 0.4, max_iters: int = 50, min_iters: int = 3) 
     end.record()
     end.synchronize()
     est = max(start.elapsed_time(end), 1e-3)
+    if min_iters <= 1 and est >= budget_s * 1e3:
+        return est
     iters = int(min(max_iters, max(min_iters, math.ceil(budget_s * 1e3 / est))))
     start.record()
     for _ in range(iters):
@@ -1881,14 +1915,14 @@ def stripes_only_load(solver, whole, timed, stripe_schedule_arrays, DeviceSchedu
 SERVE_GRAPH_FOR = {"sssp": ("road",), "ppr": ("social",)}
 
 
-def serve_tenants(g_road, g_social, delta: dict, devices: tuple) -> dict:
+def serve_tenants(g_road, g_social, delta: dict, devices: tuple, degrade: bool = False) -> dict:
     """The serving path's two tenants, ``"road"`` (SSSP on ``g_road``) and
     ``"social"`` (ppr on ``g_social``): ``GraphService``s of P workers,
-    lanes of SERVE_BATCH slots, at ``delta[algo]``, on ``devices``; their
-    schedules built (set-up, before any count)."""
+    lanes of SERVE_BATCH slots, at ``delta[algo]``, on ``devices``, with
+    ``degrade``; their schedules built (set-up, before any count)."""
     from repro_torch.launch.serve_graph import GraphService
 
-    kw = dict(n_workers=P, batch_size=SERVE_BATCH, queue_capacity=SERVE_QUEUE)
+    kw = dict(n_workers=P, batch_size=SERVE_BATCH, queue_capacity=SERVE_QUEUE, degrade=degrade)
     services = {
         "road": GraphService(g_road, delta=delta["sssp"], algos=("sssp",), device=devices[0], **kw),
         "social": GraphService(g_social, delta=delta["ppr"], algos=("ppr",), device=devices[1], **kw),
@@ -2236,6 +2270,289 @@ def serve_phase(dev, g_pr, g_ss, dstar: dict) -> dict:
     del services, reports, lanes
 
     return out
+
+
+# The fault-tolerance path: checkpointed solves over K1's single-round entry
+# (and K2 on the halo frontier), snapshots every FT_EVERY rounds, the chaos
+# trace's checkpoint fault at round FT_FAULT_ROUND; the degradation ladder;
+# a degrading service's lane fault at HALO_SCALE (FT_SERVE_QUERIES a tenant).
+FT_EVERY, FT_FAULT_ROUND, FT_SERVE_QUERIES = 4, 6, 8
+
+
+def ft_serve_small(dev, hg_pr, hg_ss) -> dict:
+    """``GraphService(degrade=True)`` at HALO_SCALE (phase 2, while the
+    full-size graph is generated): SSSP and ppr tenants, FT_SERVE_QUERIES
+    queries each, with one ``kernel.dispatch`` fault in the first lane
+    quantum: one lane fault, every query delivered, each answer equal to a
+    fault-free service's bit for bit, and every solver carrying ``degrade``
+    (the lanes retry on the same kernel: they have no ladder); then a
+    caller's ``svc.solver("sssp").solve()`` under one ``kernel.dispatch``
+    fault, which the flag does reach: one Degradation, kernel → torch, to
+    the fault-free solver's answer bit for bit."""
+    from repro_torch.ft.inject import FaultPlan, FaultSpec, inject
+    from repro_torch.launch.service import QueryRequest
+
+    t0 = time.perf_counter()
+    hubs = np.argsort(-hg_pr.out_degree, kind="stable")[:FT_SERVE_QUERIES]
+    answers, counters, tenants = {}, {}, {}
+    for key, degrade, specs in (("clean", False, ()), ("fault", True, (FaultSpec(site="kernel.dispatch"),))):
+        services = serve_tenants(hg_ss, hg_pr, {"sssp": SERVE_HALO_DELTA, "ppr": SERVE_HALO_DELTA}, (dev, dev),
+                                 degrade=degrade)
+        tenants[key] = services
+        plan = FaultPlan(list(specs))
+        got = {}
+        with inject(plan):
+            for tenant, algo in (("road", "sssp"), ("social", "ppr")):
+                svc = services[tenant]
+                for v in hubs:
+                    if not svc.submit(QueryRequest(algo=algo, payload=int(v))).accepted:
+                        raise AssertionError(f"{tenant} refused a query")
+                got.update({(tenant, r.payload): r for r in svc.drain()})
+                if svc.take_failures():
+                    raise AssertionError(f"{tenant} failed a query under {key}")
+        answers[key] = got
+        counters[key] = {t: dict(svc.scheduler.counters) for t, svc in services.items()}
+        counters[key]["fired"] = plan.fired
+        counters[key]["degrade"] = sorted({sv.degrade for svc in services.values() for sv in svc._solvers.values()})
+    faults = sum(c["lane_faults"] for t, c in counters["fault"].items() if t in ("road", "social"))
+    differ = [k for k in answers["clean"] if k not in answers["fault"]
+              or not same_bits(answers["clean"][k].x, answers["fault"][k].x)]
+    # what the flag itself reaches: a caller's solve on the degrading
+    # tenant's solver steps down one rung to the fault-free answer (SSSP:
+    # min-plus, bit for bit on the card)
+    clean_sv, sv = (tenants[key]["road"].solver("sssp") for key in ("clean", "fault"))
+    for svc in tenants["fault"].values():
+        LADDER_SOLVERS.update(svc._solvers.values())
+    want = clean_sv.solve()
+    with inject(FaultPlan([FaultSpec(site="kernel.dispatch", match={"backend": "kernel"})])):
+        got = sv.solve()
+    recs = [(d.from_backend, d.from_frontier, d.to_backend, d.to_frontier) for d in sv.degradations]
+    solve = {"records": recs, "rounds": got.rounds, "kernel_rounds": want.rounds,
+             "equal": same_bits(got.x, want.x) and got.rounds == want.rounds,
+             "degraded_s": got.total_time_s, "kernel_s": want.total_time_s}
+    row = {"card": card_line(), "scale": HALO_SCALE, "queries": len(answers["fault"]), "lane_faults": faults,
+           "counters": counters, "differ": [list(map(str, k)) for k in differ[:8]], "solver_solve": solve,
+           "s": time.perf_counter() - t0}
+    log(f"[2] degrading service {json.dumps(row)}")
+    if faults != 1 or counters["fault"]["fired"] != 1 or differ or len(answers["fault"]) != 2 * FT_SERVE_QUERIES \
+            or counters["fault"]["degrade"] != [True] or counters["clean"]["degrade"] != [False]:
+        raise AssertionError(f"the degrading service did not retry its lane fault to the fault-free answers: {row}")
+    if recs != [("kernel", "replicated", "torch", "replicated")] or not solve["equal"]:
+        raise AssertionError(f"the degrading service's solver did not step down to the same answer: {solve}")
+    return row
+
+
+def ft_checkpointed(name, solver, fresh, delta: int, work: Path, frontier: str = "replicated") -> dict:
+    """A checkpointed solve of ``solver`` at ``delta`` (every FT_EVERY
+    rounds, on the background writer): with no fault, with a
+    ``solver.round`` fault at FT_FAULT_ROUND, with the first snapshot torn
+    (``ckpt.write``): the same x, rounds and residuals bit for bit, and the
+    planned restores and rounds executed, one kernel launch a round
+    executed; then a run killed at the fault (``max_restores=0``) that the
+    solver ``fresh`` (another Solver: on the halo frontier, another shard
+    count) resumes at the last snapshot, to the same x."""
+    from repro_torch.ft.elastic import checkpointed_solve
+    from repro_torch.ft.inject import FaultPlan, FaultSpec, InjectedFault, inject
+    from repro_torch.kernels.round_block import fused_halo_round_cuda, fused_round_cuda
+
+    counter = fused_halo_round_cuda if frontier == "halo" else fused_round_cuda
+    fault = (FaultSpec(site="solver.round", match={"round": FT_FAULT_ROUND}),)
+    plans = {"clean": (), "round_fault": fault, "torn_first": (FaultSpec(site="ckpt.write", kind="torn"),)}
+    outs, rows = {}, {}
+    start = counter.launches
+    kw = dict(delta=delta, backend="kernel", frontier=frontier, every=FT_EVERY)
+    for key, specs in plans.items():
+        before = counter.launches
+        t0 = time.perf_counter()
+        with inject(FaultPlan(list(specs))):
+            out = checkpointed_solve(solver, ckpt_dir=work / f"{name}-{frontier}-{key}", **kw)
+        secs = time.perf_counter() - t0
+        outs[key] = out
+        n = counter.launches - before
+        r = out.result
+        rows[key] = {"restores": out.restores, "rounds_executed": out.rounds_executed, "resumed_at": out.resumed_at,
+                     "rounds": r.rounds, "launches": n, "s": secs, "ms_a_round_executed": secs / out.rounds_executed * 1e3,
+                     "round_ms": float(np.mean(r.round_times_s)) * 1e3}
+        if n != out.rounds_executed:
+            raise AssertionError(f"{name} {frontier} {key}: {n} launches for {out.rounds_executed} rounds")
+    R = outs["clean"].result.rounds
+    want = {"clean": (0, R, None), "round_fault": (1, R + FT_FAULT_ROUND % FT_EVERY, None), "torn_first": (0, R, None)}
+    bad = [key for key, out in outs.items()
+           if (out.restores, out.rounds_executed, out.resumed_at) != want[key] or out.result.rounds != R
+           or out.result.residuals != outs["clean"].result.residuals
+           or not same_bits(out.result.x, outs["clean"].result.x)]
+    if bad or R <= FT_FAULT_ROUND or not outs["clean"].result.converged:
+        raise AssertionError(f"{name} {frontier}: checkpointed runs differ {bad}: {rows}")
+    d = work / f"{name}-{frontier}-kill"
+    before = counter.launches
+    with inject(FaultPlan(list(fault))):
+        try:
+            checkpointed_solve(solver, ckpt_dir=d, max_restores=0, **kw)
+            raise AssertionError("the killed run was not killed")
+        except InjectedFault:
+            pass
+    rows["killed"] = {"launches": counter.launches - before}
+    before = counter.launches
+    t0 = time.perf_counter()
+    res = checkpointed_solve(fresh, ckpt_dir=d, **kw)
+    n = counter.launches - before
+    rows["fresh_resume"] = {"restores": res.restores, "rounds_executed": res.rounds_executed,
+                            "resumed_at": res.resumed_at, "rounds": res.result.rounds, "launches": n,
+                            "s": time.perf_counter() - t0, "n_shards": fresh.n_shards}
+    resumed_at = FT_FAULT_ROUND // FT_EVERY * FT_EVERY
+    if (res.restores, res.rounds_executed, res.resumed_at) != (0, R - resumed_at, resumed_at) \
+            or res.result.rounds != R or not same_bits(res.result.x, outs["clean"].result.x) \
+            or res.result.residuals != outs["clean"].result.residuals or n != res.rounds_executed \
+            or rows["killed"]["launches"] != FT_FAULT_ROUND:
+        raise AssertionError(f"{name} {frontier}: the fresh solver did not resume to the same answer: {rows}")
+    return {"rows": rows, "launches": counter.launches - start, "result": outs["clean"].result}
+
+
+def ft_phase(dev, full: dict, dstar: dict) -> dict:
+    """The fault-tolerance path at full size (end of phase 3): (a) the
+    checkpointed PageRank and SSSP solves at δ* over K1's single-round entry
+    (``ft_checkpointed``), their x equal to the loop entry's over as many
+    rounds, the snapshot's bytes and write time; (b) a checkpointed halo
+    PageRank (D = SHARDS, f32, one K2 launch a round) resumed at D = 2, equal
+    to the uninterrupted D = SHARDS x and to the replicated one; (c)
+    ``Solver(degrade=True)`` with one ``kernel.dispatch`` fault on
+    ``backend="kernel"``: SSSP one Degradation to the plain round on the card
+    and the kernel's x bit for bit, PageRank at the kernel's round count
+    within ``reorder_ulp_bound``, a halo solve to the replicated kernel
+    first.  The fresh solvers (D = 2, ``degrade=True``) serve (a)'s resume,
+    (b) and (c), so their schedules are built once.  Returns the launches
+    and the rows."""
+    from repro_torch.ckpt.checkpoint import save_checkpoint
+    from repro_torch.ft.degrade import reorder_ulp_bound
+    from repro_torch.ft.elastic import checkpointed_solve
+    from repro_torch.ft.inject import FaultPlan, FaultSpec, inject
+    from repro_torch.kernels.round_block import fused_halo_round_cuda, fused_round_cuda
+    from repro_torch.solve import Solver
+
+    t_phase = time.perf_counter()
+    stray = stray_degradations()  # the phases before this one, while their solvers live
+    if stray:
+        raise AssertionError(f"degradations outside the ladder's checks: {stray}")
+    work = Path(tempfile.mkdtemp(prefix="ckpt-"))
+    out = {"card": card_line()}
+    try:
+        t0 = time.perf_counter()
+        fresh = {name: Solver(sv.graph, sv.problem, n_workers=P, n_shards=2, degrade=True)
+                 for name, sv in full.items()}
+        LADDER_SOLVERS.update(fresh.values())
+        for name, sv in fresh.items():
+            sv.schedule(int(dstar[name]))
+        out["fresh_setup_s"] = time.perf_counter() - t0
+        # (a) the counts of the checkpointed paths: reset before, read after
+        fused_round_cuda.launches = 0
+        fused_halo_round_cuda.launches = 0
+        ck = {name: ft_checkpointed(name, full[name], fresh[name], int(dstar[name]), work) for name in full}
+        # the same PageRank solve with no snapshot but the last: what the
+        # snapshots cost a round
+        r = ck["pagerank"]["result"]
+        t0 = time.perf_counter()
+        ns = checkpointed_solve(full["pagerank"], delta=int(dstar["pagerank"]), backend="kernel",
+                                ckpt_dir=work / "no-snapshot", every=r.rounds + 1)
+        secs = time.perf_counter() - t0
+        out["no_snapshot"] = {"rounds": ns.result.rounds, "s": secs, "ms_a_round_executed": secs / ns.rounds_executed * 1e3,
+                              "round_ms": float(np.mean(ns.result.round_times_s)) * 1e3,
+                              "equal": same_bits(ns.result.x, r.x) and ns.result.residuals == r.residuals}
+        log(f"[3] checkpointed pagerank, no snapshot before the last {json.dumps(out['no_snapshot'])}")
+        if not out["no_snapshot"]["equal"]:
+            raise AssertionError(f"the solve without snapshots differs: {out['no_snapshot']}")
+        out["k1_launches"] = fused_round_cuda.launches
+        t0 = time.perf_counter()
+        hk = ft_checkpointed("pagerank", full["pagerank"], fresh["pagerank"], int(dstar["pagerank"]), work, "halo")
+        out["k2_launches"] = fused_halo_round_cuda.launches
+        out["halo_s"] = time.perf_counter() - t0
+        if out["k1_launches"] != sum(c["launches"] for c in ck.values()) + ns.rounds_executed \
+                or out["k2_launches"] != hk["launches"] \
+                or not same_bits(hk["result"].x, ck["pagerank"]["result"].x):
+            raise AssertionError(f"the halo checkpointed solve or the counts differ: {out}")
+        for name, c in ck.items():
+            r = c["result"]
+            loop = full[name].solve(delta=int(dstar[name]), tol=-1.0, max_rounds=r.rounds)
+            row = {"problem": name, "delta": r.delta, "rounds": r.rounds, **c["rows"],
+                   "loop_entry_ms_a_round": loop.total_time_s / loop.rounds * 1e3,
+                   "equal_to_loop_entry": same_bits(loop.x, r.x) and loop.rounds == r.rounds}
+            log(f"[3] checkpointed {json.dumps(row)}")
+            out[name] = row
+            if not row["equal_to_loop_entry"]:
+                raise AssertionError(f"the checkpointed solve differs from the loop entry: {row}")
+        log(f"[3] checkpointed halo {json.dumps({'problem': 'pagerank', **hk['rows']})}")
+        out["halo"] = hk["rows"]
+        # the snapshot itself: its bytes, a blocking write, and what a
+        # background write costs the loop (the copy to the host)
+        r = ck["pagerank"]["result"]
+        x = torch.as_tensor(np.append(r.x, np.float32(0))).to(dev)
+        tree = {"x_ext": x, "residuals": np.asarray(r.residuals, np.float32)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(work / "timing", r.rounds, tree, block=True)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        th = save_checkpoint(work / "timing", r.rounds + 1, tree, block=False)
+        enqueue_s = time.perf_counter() - t0
+        th.join()
+        snap = work / "timing" / f"step_{r.rounds:09d}"
+        out["snapshot"] = {"bytes": sum(f.stat().st_size for f in snap.iterdir()), "x_ext_bytes": x.numel() * 4,
+                           "write_s": write_s, "background_enqueue_s": enqueue_s}
+        log(f"[3] snapshot {json.dumps(out['snapshot'])}")
+
+        # (c) the degradation ladder on the fresh solvers (degrade=True)
+        t0 = time.perf_counter()
+        deg = {}
+        dispatch = [FaultSpec(site="kernel.dispatch", match={"backend": "kernel"})]
+        for name, sv in fresh.items():
+            d = int(dstar[name])
+            kern = full[name].solve(delta=d)
+            fixed = dict(tol=-1.0, max_rounds=kern.rounds) if name == "pagerank" else {}
+            with inject(FaultPlan(list(dispatch))):
+                got = sv.solve(delta=d, **fixed)
+            gap = int(np.abs(got.x.view(np.int32).astype(np.int64) - kern.x.view(np.int32)).max())
+            bound = reorder_ulp_bound(sv.graph, kern.rounds) if name == "pagerank" else 0
+            deg[name] = {"rounds": got.rounds, "kernel_rounds": kern.rounds, "max_ulp": gap, "ulp_bound": bound,
+                         "degraded_s": got.total_time_s, "kernel_s": kern.total_time_s,
+                         "degraded_over_kernel": got.total_time_s / kern.total_time_s,
+                         "records": [dataclasses.asdict(x) for x in sv.degradations]}
+            recs = [(x.from_backend, x.from_frontier, x.to_backend, x.to_frontier) for x in sv.degradations]
+            if recs != [("kernel", "replicated", "torch", "replicated")] or got.rounds != kern.rounds or gap > bound:
+                raise AssertionError(f"{name}: the degraded solve is not one rung down to the same answer: {deg[name]}")
+        sv = fresh["pagerank"]
+        sv.degradations.clear()
+        before = fused_halo_round_cuda.launches
+        with inject(FaultPlan(list(dispatch))):
+            h = sv.solve(delta=int(dstar["pagerank"]), frontier="halo")
+        recs = [(x.from_backend, x.from_frontier, x.to_backend, x.to_frontier) for x in sv.degradations]
+        deg["halo"] = {"records": recs, "rounds": h.rounds, "k2_launches": fused_halo_round_cuda.launches - before,
+                       "equal_to_replicated": same_bits(h.x, ck["pagerank"]["result"].x)}
+        if recs != [("kernel", "halo", "kernel", "replicated")] or deg["halo"]["k2_launches"] \
+                or not deg["halo"]["equal_to_replicated"]:
+            raise AssertionError(f"the halo solve did not degrade to the replicated kernel: {deg['halo']}")
+        out["degrade"] = deg
+        out["degrade_s"] = time.perf_counter() - t0
+        log(f"[3] degrade {json.dumps(deg)}")
+        del fresh
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["s"] = time.perf_counter() - t_phase
+    return out
+
+
+# The solvers of the ladder's checks (ft_serve_small, ft_phase): the only
+# ones of the run that may record a Degradation.
+LADDER_SOLVERS = weakref.WeakSet()
+
+
+def stray_degradations() -> list:
+    """The Degradation records of every live Solver outside the ladder's
+    checks, and every such solver that carries ``degrade=True``."""
+    from repro_torch.solve import Solver
+
+    gc.collect()
+    live = [o for o in gc.get_objects() if issubclass(type(o), Solver) and o not in LADDER_SOLVERS]
+    return [dataclasses.asdict(d) for sv in live for d in sv.degradations] + \
+        [f"degrade=True on {sv.problem.name}" for sv in live if sv.degrade]
 
 
 def ab(others: list[str], scale: int) -> int:
@@ -2697,6 +3014,8 @@ def smoke(scale: int, gen: subprocess.Popen, npz: str) -> int:
     log(f"[2] s{SMALL_SCALE} halo parity done in {time.perf_counter() - t0:.1f} s")
     # the serving path's checks at HALO_SCALE, while the full-size graph is made
     serve_small_phase(dev, hg_pr, hg_ss)
+    ft_small = ft_serve_small(dev, hg_pr, hg_ss)
+    log(f"[2] degrading service s{HALO_SCALE} done in {ft_small['s']:.1f} s")
 
     t0 = time.perf_counter()
     if gen.wait() != 0:
@@ -3609,6 +3928,12 @@ def smoke(scale: int, gen: subprocess.Popen, npz: str) -> int:
     compare_launches += rank_full["launches"]
     torch.cuda.empty_cache()
     log(f"[3] K2's rank entries vs plain at full size: done in {time.perf_counter() - t0:.1f} s")
+    # the fault-tolerance path: checkpointed solves, the degradation ladder
+    ft = ft_phase(dev, full, dstar)
+    torch.cuda.empty_cache()
+    log(f"[3] fault-tolerance path: {ft['k1_launches']} K1 and {ft['k2_launches']} K2 launches on the "
+        f"checkpointed solves; fresh solvers' set-up {ft['fresh_setup_s']:.1f} s, halo {ft['halo_s']:.1f} s, "
+        f"degrade {ft['degrade_s']:.1f} s; done in {ft['s']:.1f} s")
 
     # ---------------------------------------------------------------- 4 ---
     t0 = time.perf_counter()
@@ -4050,13 +4375,13 @@ def smoke(scale: int, gen: subprocess.Popen, npz: str) -> int:
 
     # ---------------------------------------------------------------- 5 ---
     head = next(t for t in timings if t["problem"] == "pagerank" and t["delta"] == full["pagerank"].block_size)
-    # K1's single-round entries: no path of the port launches them (phase 3
-    # counts 0 on the replicated, matrix and batch paths); their arithmetic
-    # runs on every path inside the loop entry, which takes each round's steps
-    # through the same step_tiles.  launches is the main path's count; the
-    # launches of phase 3's host-loop comparisons stand apart.
+    # K1's single-round entry at F = 1 is the checkpointed solve's round
+    # (ft_phase); the others no path of the port launches (phase 3 counts 0
+    # on the replicated, matrix and batch paths): their arithmetic runs on
+    # every path inside the loop entry, which takes each round's steps
+    # through the same step_tiles.  launches is a path's count; the launches
+    # of phase 3's host-loop comparisons stand apart.
     off_path = {
-        "round_block": ("round_block_solve", host_launches),
         "round_block_f4": ("round_block_solve_f4", matrix_launches["round_block"]),
         **{
             f"round_block_batch_c{C}": (f"round_block_batch_solve_c{C}", batch_round_launches_by_c.get(C, 0))
@@ -4070,7 +4395,8 @@ def smoke(scale: int, gen: subprocess.Popen, npz: str) -> int:
                 "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/round_block.cu",
                 "replaces": "src/repro/kernels/round_block.py:114",
-                "launches": 0,
+                "launches": ft["k1_launches"],  # the checkpointed solves' (fault-tolerance path)
+                "host_loop_launches": host_launches,
                 "max_abs_err": max_abs_err,
                 "ms": head["ms"],
                 "plain_ms": head["plain_ms"],
@@ -4085,6 +4411,7 @@ def smoke(scale: int, gen: subprocess.Popen, npz: str) -> int:
                 "replaces": "src/repro/kernels/round_block.py:204",
                 "launches": halo_launches,
                 "resolve_launches": evolve_halo_launches,
+                "ckpt_launches": ft["k2_launches"],
                 "max_abs_err": halo_err,
                 "ms": halo_timings[0]["ms"],
                 "plain_ms": halo_timings[0]["plain_ms"],
@@ -4274,6 +4601,11 @@ def smoke(scale: int, gen: subprocess.Popen, npz: str) -> int:
             k["superseded_by"], k["host_loop_launches"] = off_path[k["name"]]
     unused = [k["name"] for k in kernels["kernels"] if k["launches"] == 0 and k["name"] not in off_path]
     unused += [f"{k['name']} (serving)" for k in kernels["kernels"] if k.get("serve_launches", 1) == 0]
+    unused += [f"{k['name']} (checkpointed)" for k in kernels["kernels"] if k.get("ckpt_launches", 1) == 0]
+    # only ft_phase's ladder checks may degrade: every other solve ran with degrade=False
+    stray = stray_degradations()
+    if stray:
+        raise AssertionError(f"degradations outside the ladder's checks: {stray}")
     if unused or min(k["host_loop_launches"] for k in kernels["kernels"] if k["name"] in off_path) == 0:
         raise AssertionError(f"kernels never launched on their paths: {unused}, or off them: {off_path}")
     log(f"[5] total {time.perf_counter() - t_all:.1f} s; {compare_launches} comparison launches")

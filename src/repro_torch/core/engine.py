@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.semiring import Semiring
+from repro_torch.ft.inject import fire
 from repro_torch.graphs.formats import CSRGraph, build_stripe_schedule
 from repro_torch.graphs.partition import balanced_blocks
 
@@ -353,6 +354,9 @@ def host_loop(
     converged = False
     rounds = 0
     for rounds in range(1, max_rounds + 1):
+        # chaos hook at the natural recovery boundary: between committed
+        # rounds, with `round` = rounds already executed (0-based)
+        fire("solver.round", round=rounds - 1)
         t0 = time.perf_counter()
         x_new = rnd(x_ext)
         if x_new.is_cuda:

@@ -1,11 +1,15 @@
 """Typed, deterministic chaos injection — one harness for every fault site.
 
 A copy of ``repro.ft.inject`` (pure Python), so the port imports nothing of
-``repro``.  The port wires the ``persist.write`` and ``persist.read`` sites
-(:mod:`repro_torch.persist.store`) and ``scheduler.lane``
-(:meth:`repro_torch.launch.service.scheduler.ContinuousScheduler.pump`);
-the other sites below are the reference's and come with the port's
-fault-tolerance modules (ROADMAP queue A, A11).
+``repro``.  The port wires every site below but ``train.step``, which waits
+for the port's training half (ROADMAP queue A, A12): ``solver.round``
+(:func:`repro_torch.core.engine.host_loop` and
+:func:`repro_torch.ft.elastic.checkpointed_solve`), ``kernel.dispatch``
+(:meth:`repro_torch.solve.Solver.solve`'s dispatch and
+:meth:`repro_torch.solve.BatchStepper.run`), ``persist.write`` and
+``persist.read`` (:mod:`repro_torch.persist.store`), ``ckpt.write``
+(:func:`repro_torch.ckpt.checkpoint.save_checkpoint`) and ``scheduler.lane``
+(:meth:`repro_torch.launch.service.scheduler.ContinuousScheduler.pump`).
 
 A :class:`FaultPlan` is a list of :class:`FaultSpec` rules evaluated at
 instrumented *sites* across the stack.  Sites call :func:`fire` with a site

@@ -19,7 +19,7 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "SOURCES", "NVCC_FLAGS", "build", "build_log", "load", "nvcc_command"]
+__all__ = ["BUILD_DIR", "SOURCES", "NVCC_FLAGS", "build", "build_log", "load", "load_seconds", "nvcc_command"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -111,3 +111,14 @@ def load(name: str) -> ctypes.CDLL:
     if not path.exists():
         build([name])
     return ctypes.CDLL(str(path))
+
+
+def load_seconds(backend: str, device, name: str = "round_block") -> float:
+    """Seconds spent loading ``csrc/<name>.cu``'s library (building it on
+    first use) for a ``backend="kernel"`` solve on a CUDA ``device``; 0.0
+    for any other backend or device, where no kernel runs."""
+    if backend != "kernel" or device.type != "cuda":
+        return 0.0
+    t0 = time.perf_counter()
+    load(name)
+    return time.perf_counter() - t0

@@ -104,9 +104,12 @@ class GraphService:
     submit/drain (any query count — longer lists split across queue slots).
 
     ``device`` is each solver's (``None``: the current CUDA device, and an
-    error where there is none).  ``degrade=True`` (the reference's
-    degradation ladder) is ROADMAP queue A's A11 and raises
-    ``NotImplementedError``.
+    error where there is none).  ``degrade=True`` gives each solver the
+    degradation ladder (:class:`~repro_torch.solve.Solver` ``degrade``),
+    which only a caller's ``svc.solver(name).solve(...)`` climbs: the lanes
+    (:class:`~repro_torch.solve.BatchStepper`) have no ladder, and a fault
+    in a lane quantum is the scheduler's to retry on the same kernel either
+    way.
     """
 
     def __init__(
@@ -131,11 +134,6 @@ class GraphService:
         degrade: bool = False,
         device=None,
     ):
-        if degrade:
-            raise NotImplementedError(
-                "GraphService(degrade=True): the degradation ladder is not "
-                "ported yet (ROADMAP queue A, A11)"
-            )
         self.device = resolve_device(device)
         self.graph = graph
         self.n_workers = n_workers
@@ -154,6 +152,8 @@ class GraphService:
         self.classes = classes
         self.algos = tuple(algos)
         self.feature_dim = feature_dim  # F for the matrix algos (rwr/labelprop)
+        # reaches the solvers' own solve() alone; lanes retry, never degrade
+        self.degrade = degrade
         self._solvers: dict[str, Solver] = {}
         self._scheduler = None
         self._unclaimed: list[QueryResult] = []
@@ -183,6 +183,7 @@ class GraphService:
                 min_chunk=self.min_chunk,
                 cache_dir=self.cache_dir,
                 reprobe_every=self.reprobe_every,
+                degrade=self.degrade,
                 device=self.device,
             )
             self._solvers[name] = sv

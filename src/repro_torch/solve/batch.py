@@ -60,7 +60,8 @@ import numpy as np
 import torch
 
 from repro_torch.dist import engine_sharded
-from repro_torch.kernels import ops, ref
+from repro_torch.ft.inject import fire
+from repro_torch.kernels import build, ops, ref
 
 __all__ = ["BatchResult", "BatchStepper", "RetiredQuery", "solve_batch"]
 
@@ -187,17 +188,6 @@ def _columns(epilogue, keep):
     return dataclasses.replace(epilogue, table=epilogue.table[:, keep].contiguous())
 
 
-def _build_s(solver, backend: str) -> float:
-    """Seconds spent loading (building, on first use) K1's library."""
-    if backend != "kernel" or solver.device.type != "cuda":
-        return 0.0
-    from repro_torch.kernels.build import load
-
-    t0 = time.perf_counter()
-    load("round_block")
-    return time.perf_counter() - t0
-
-
 class BatchStepper:
     """A fixed-capacity *open* batch: admit mid-flight, retire converged.
 
@@ -318,10 +308,13 @@ class BatchStepper:
         occ = self._occupied.copy()
         if not occ.any():
             return []
+        # chaos hook before any state changes: a kernel fault here leaves the
+        # stepper untouched, so the scheduler can evict and retry its riders
+        fire("kernel.dispatch", backend=self.backend, frontier=self.frontier)
         t0 = time.perf_counter()
         if self._epilogue is None:
             self._epilogue = self.solver.batch_row_update(self._qb, self.capacity, self._feat)
-        _build_s(self.solver, self.backend)
+        build.load_seconds(self.backend, self.solver.device)
         residual = self.solver.problem.residual
         self._X, res, r, conv, rpq = _solve(
             self.solver, self.sched, self.backend, self.frontier, self._epilogue, residual, self._X,
@@ -409,7 +402,7 @@ def solve_batch(
     Q, feat = x0.shape[0], tuple(x0.shape[2:])
     epilogue = solver.batch_row_update(q, Q, feat)
     X = _to_device(x0, sr, solver.device)
-    compile_time_s = _build_s(solver, backend)
+    compile_time_s = build.load_seconds(backend, solver.device)
     bytes_per = np.dtype(sr.dtype).itemsize * (int(np.prod(feat)) if feat else 1)
 
     solver.stats["solves"] += 1

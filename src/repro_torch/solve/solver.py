@@ -76,8 +76,19 @@ the group's all-gather of every worker's new rows and K1's publish; the
 residual is taken over the whole frontier, the same bits on every rank, so
 the stopping test needs no collective.  ``delta="auto"`` probes on the
 replicated frontier across the group, so every rank fits the same δ-model.
-``cache_dir``, ``apply_updates`` and ``resolve`` across processes raise
-``NotImplementedError`` (ROADMAP queue A).
+``cache_dir``, ``degrade``, ``apply_updates`` and ``resolve`` across
+processes raise ``NotImplementedError`` (ROADMAP queue A).
+
+Fault tolerance: with ``degrade=True`` a fault that the ``kernel.dispatch``
+site raises (:class:`~repro_torch.ft.inject.InjectedFault`) does not
+propagate; the solve retries one rung down
+:func:`~repro_torch.ft.degrade.degradation_ladder` (halo → replicated, then
+``kernel`` → ``torch``) and records a
+:class:`~repro_torch.ft.degrade.Degradation` in ``degradations``.  Every
+other error raises: a kernel that fails to launch, an out-of-memory error,
+a caller's error, ``NotImplementedError``; the kernels' build runs before
+the ladder, so a kernel that does not build raises too.  :func:`repro_torch.ft.elastic.checkpointed_solve`
+snapshots a solve every few rounds and resumes it after a fault.
 
 The solver runs on CUDA unless it is given ``device="cpu"``; with no CUDA
 device and no ``device`` it raises.
@@ -86,7 +97,6 @@ device and no ``device`` it raises.
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
@@ -105,9 +115,11 @@ from repro_torch.core.engine import (
 )
 from repro_torch.dist import engine_sharded
 from repro_torch.evolve.restart import warm_start_state
+from repro_torch.ft.degrade import Degradation, degradation_ladder
+from repro_torch.ft.inject import InjectedFault, fire
 from repro_torch.graphs.formats import CSRGraph, assemble_stripe_schedule, build_worker_stripe
 from repro_torch.graphs.partition import PARTITION_METHODS
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels.round_block import Epilogue
 from repro_torch.persist import SolverCache
 from repro_torch.persist.keys import plan_shard_fingerprint, stripe_fingerprint
@@ -166,6 +178,7 @@ class Solver:
         max_rounds: int | None = None,
         cache_dir=None,
         reprobe_every: int | None = None,
+        degrade: bool = False,
         device=None,
         group=None,
     ):
@@ -185,6 +198,11 @@ class Solver:
                 raise NotImplementedError(
                     "Solver(group=..., cache_dir=...): persistence across processes is "
                     "ROADMAP queue A (A9, third part)"
+                )
+            if degrade:
+                raise NotImplementedError(
+                    "Solver(group=..., degrade=True): every rank would have to step down the ladder "
+                    "together; ROADMAP queue A (A9, third part)"
                 )
             from repro_torch.dist.comm import HaloGroup
 
@@ -207,6 +225,11 @@ class Solver:
         self.min_chunk = min_chunk
         self.tol = problem.tol if tol is None else tol
         self.max_rounds = problem.max_rounds if max_rounds is None else max_rounds
+        # degrade=True climbs down repro_torch.ft.degrade.degradation_ladder on
+        # a fault injected at the dispatch site instead of raising; a
+        # kernel's own error raises either way.
+        self.degrade = degrade
+        self.degradations: list[Degradation] = []
         self.delta_model = None  # set by the first δ="auto" probe
         self.delta_model_incremental = None  # per-regime fit (evolving graphs)
         self._sched_graph = (
@@ -237,6 +260,7 @@ class Solver:
             "plan_shard_builds": 0,
             "plan_shard_loads": 0,
             "cache_loads": 0,
+            "degradations": 0,
         }
         self.reprobe_every = reprobe_every
         self._obs_since_refit = 0
@@ -659,13 +683,19 @@ class Solver:
             return engine_sharded.frontier_round_ext_fn(sched, plan, sr, row_update)
         fn = engine_sharded.frontier_kernel_round_ext_fn(sched, plan, sr, row_update, halo_dtype)
         # The error-feedback residuals are loop state of one solve: fresh
-        # zeros per solve, carried from round to round.
-        state = {"ef": engine_sharded.frontier_ef_init(plan, feat)}
+        # zeros per solve, carried from round to round.  (``fn`` works on a
+        # copy of ``ef``, so ``ef_init`` stays zero.)
+        ef0 = engine_sharded.frontier_ef_init(plan, feat)
+        state = {"ef": ef0}
 
         def rnd(x):
             x, state["ef"] = fn(x, state["ef"])
             return x
 
+        # exposed so that a checkpointed solve (repro_torch.ft.elastic) can
+        # snapshot, restore or reset them between rounds
+        rnd.ef_state = state
+        rnd.ef_init = ef0
         return rnd
 
     def solve(
@@ -686,6 +716,14 @@ class Solver:
         ``regime`` tags the persisted observation row (``"cold"`` for
         from-scratch solves, ``"incremental"`` when :meth:`resolve` seeds
         from a prior fixed point), so the δ-model learns each curve apart.
+
+        With ``degrade=True`` (constructor knob) a fault injected at the
+        ``kernel.dispatch`` site does not propagate: the solve retries one
+        rung down the degradation ladder (halo → replicated, then ``kernel``
+        → ``torch``), recording a :class:`~repro_torch.ft.degrade.Degradation`
+        a fallback in ``self.degradations``.  Any other error propagates: a
+        kernel's launch error is never answered by the plain round.  A
+        degraded solve logs no observation: its time is a lower rung's.
         """
         backend = backend or self.default_backend
         self._check_backend(backend)
@@ -701,28 +739,56 @@ class Solver:
         row_update = self.row_update(q)
         if isinstance(row_update, Epilogue):  # fit its table to x's rows
             row_update = row_update.for_frontier(feat)
-        sr, residual = self.problem.semiring, self.problem.residual
-        build_s = 0.0
-        if backend == "kernel" and self.device.type == "cuda":
-            from repro_torch.kernels.build import load
-
-            t0 = time.perf_counter()
-            load("round_block")  # built once per process; timed apart from rounds
-            build_s = time.perf_counter() - t0
+        # the kernels' build stays outside the ladder's fault domain: a
+        # kernel that does not build raises, it is never degraded
+        build_s = build.load_seconds(backend, self.device)
         self.stats["solves"] += 1
+        attempts = degradation_ladder(backend, frontier) if self.degrade else [(backend, frontier)]
+        result = None
+        for rung, (b, f) in enumerate(attempts):
+            hd = halo_dtype if rung == 0 else self.resolve_halo_dtype(None, b, f)
+            try:
+                result = self._solve_once(b, f, hd, sched, x_ext, row_update, feat, tol, max_rounds, build_s)
+                break
+            except InjectedFault as err:
+                # the fault domain is the dispatch site alone: a kernel's own
+                # launch error, an OOM or a caller's error raises, and is
+                # never answered by the plain round
+                if rung + 1 == len(attempts):
+                    raise
+                nb, nf = attempts[rung + 1]
+                self.degradations.append(
+                    Degradation(
+                        site="solve",
+                        from_backend=b,
+                        from_frontier=f,
+                        to_backend=nb,
+                        to_frontier=nf,
+                        error=repr(err),
+                        rung=rung + 1,
+                    )
+                )
+                self.stats["degradations"] += 1
+        self._last_x = np.asarray(result.x)
+        if rung == 0:  # a lower rung's time is not the requested backend's
+            self._record_observation(sched.delta, result.rounds, result.total_time_s, backend, regime=regime)
+        return result
+
+    def _solve_once(self, backend, frontier, halo_dtype, sched, x_ext, row_update, feat, tol, max_rounds,
+                    build_s) -> EngineResult:
+        """One dispatch at a fixed (backend, frontier) rung: the fault domain
+        the degradation ladder retries.  Neither path writes ``x_ext``."""
+        fire("kernel.dispatch", backend=backend, frontier=frontier)
+        sr, residual = self.problem.semiring, self.problem.residual
         if frontier == "halo":
             rnd = self._halo_round(sched, backend, halo_dtype, row_update, feat)
-            result = host_loop(rnd, sched, sr, x_ext, residual, tol, max_rounds, compile_time_s=build_s)
-        else:
-            loop = ops.fused_solve if backend == "kernel" else ref.fused_solve_ref
+            return host_loop(rnd, sched, sr, x_ext, residual, tol, max_rounds, compile_time_s=build_s)
+        loop = ops.fused_solve if backend == "kernel" else ref.fused_solve_ref
 
-            def solve(x, tol, max_rounds):
-                return loop(x, sched, sr, row_update, residual, tol, max_rounds)
+        def solve(x, tol, max_rounds):
+            return loop(x, sched, sr, row_update, residual, tol, max_rounds)
 
-            result = fused_loop(solve, sched, sr, x_ext, tol, max_rounds, compile_time_s=build_s)
-        self._last_x = np.asarray(result.x)
-        self._record_observation(sched.delta, result.rounds, result.total_time_s, backend, regime=regime)
-        return result
+        return fused_loop(solve, sched, sr, x_ext, tol, max_rounds, compile_time_s=build_s)
 
     def _solve_ranks(self, x0, q, delta, backend, frontier, halo_dtype, tol, max_rounds) -> EngineResult:
         """This rank's share of a solve across processes (collective).
@@ -749,13 +815,7 @@ class Solver:
         row_update = self.row_update(q)
         if isinstance(row_update, Epilogue):
             row_update = row_update.for_frontier(feat)
-        build_s = 0.0
-        if backend == "kernel" and self.device.type == "cuda":
-            from repro_torch.kernels.build import load
-
-            t0 = time.perf_counter()
-            load("round_block")
-            build_s = time.perf_counter() - t0
+        build_s = build.load_seconds(backend, self.device)
         self.stats["solves"] += 1
         if frontier == "replicated":
             rnd = engine_sharded.replicated_rank_round_fn(sched, sched.rows_all, sr, row_update, g,

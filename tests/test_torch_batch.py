@@ -244,6 +244,7 @@ def test_batch_stats_and_schedule_cache():
         "plan_shard_builds": 0,
         "plan_shard_loads": 0,
         "cache_loads": 0,
+        "degradations": 0,  # the degradation ladder's fallbacks, as the reference counts them
     }
 
 

@@ -363,7 +363,8 @@ def test_port_imports_neither_jax_nor_repro():
         "import sys, repro_torch, repro_torch.kernels.ops, repro_torch.kernels.build, "
         "repro_torch.core.delta_model, repro_torch.dist.engine_sharded, "
         "repro_torch.kernels.spmv_ell, repro_torch.persist, repro_torch.persist.store, "
-        "repro_torch.ft, repro_torch.ft.inject\n"
+        "repro_torch.ft, repro_torch.ft.inject, repro_torch.ckpt, repro_torch.ckpt.checkpoint, "
+        "repro_torch.ft.elastic, repro_torch.ft.degrade\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"

@@ -1489,3 +1489,117 @@ def test_two_card_nccl_solves_equal_one_process(cuda_device, tmp_path):
                     got = np.load(tmp_path / f"rank{r}.npz")
                     np.testing.assert_array_equal(got[f"batch/{frontier}"], b.x)
                     np.testing.assert_array_equal(got[f"batch/{frontier}/rpq"], b.rounds_per_query)
+
+
+# --------------------------------------------------------------------------- #
+# fault tolerance: checkpointed solves over K1's single-round entry, and the
+# degradation ladder
+# --------------------------------------------------------------------------- #
+def _ft_solver(name, device, **kw):
+    g = make_graph("twitter", scale=13, efactor=8, kind=name)
+    problem = pagerank_problem() if name == "pagerank" else sssp_problem()
+    return Solver(g, problem, n_workers=8, delta=1024, device=device, **kw)
+
+
+def _plan(*specs):
+    from repro_torch.ft.inject import FaultPlan, FaultSpec
+
+    return FaultPlan([FaultSpec(**s) for s in specs])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["pagerank", "sssp"])
+def test_checkpointed_solve_on_card_resumes_bit_for_bit(cuda_device, tmp_path, name):
+    """No fault, a fault at round 6 and a torn first snapshot give the same
+    x, rounds and residuals; one K1 single-round launch a round executed; x
+    equals the loop entry's over as many rounds; a fresh solver resumes."""
+    from repro_torch.ft.elastic import checkpointed_solve
+    from repro_torch.ft.inject import InjectedFault, inject
+
+    sv = _ft_solver(name, cuda_device)
+    plans = {
+        "clean": (),
+        "round": ({"site": "solver.round", "match": {"round": 6}},),
+        "torn": ({"site": "ckpt.write", "kind": "torn"},),
+    }
+    outs = {}
+    for key, specs in plans.items():
+        before = fused_round_cuda.launches
+        with inject(_plan(*specs)):
+            outs[key] = checkpointed_solve(sv, ckpt_dir=tmp_path / key, every=4)
+        assert fused_round_cuda.launches - before == outs[key].rounds_executed
+    R = outs["clean"].result.rounds
+    assert R > 6 and outs["clean"].result.converged
+    want = {"clean": (0, R, None), "round": (1, R + 2, None), "torn": (0, R, None)}
+    for key, out in outs.items():
+        assert (out.restores, out.rounds_executed, out.resumed_at) == want[key]
+        assert out.result.rounds == R and out.result.residuals == outs["clean"].result.residuals
+        np.testing.assert_array_equal(out.result.x, outs["clean"].result.x)
+    loop = sv.solve(tol=-1.0, max_rounds=R)
+    assert loop.rounds == R
+    np.testing.assert_array_equal(loop.x, outs["clean"].result.x)
+    with inject(_plan(*plans["round"])):
+        with pytest.raises(InjectedFault):
+            checkpointed_solve(sv, ckpt_dir=tmp_path / "kill", every=4, max_restores=0)
+    fresh = checkpointed_solve(_ft_solver(name, cuda_device), ckpt_dir=tmp_path / "kill", every=4)
+    assert (fresh.restores, fresh.rounds_executed, fresh.resumed_at) == (0, R - 4, 4)
+    np.testing.assert_array_equal(fresh.result.x, outs["clean"].result.x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["pagerank", "sssp"])
+def test_degraded_solve_on_card(cuda_device, name):
+    """One kernel.dispatch fault on backend="kernel": one Degradation to the
+    plain round on the card; SSSP bit for bit, PageRank within
+    ``reorder_ulp_bound`` at the kernel's round count; a halo solve steps to
+    the replicated kernel first."""
+    from repro_torch.ft.degrade import reorder_ulp_bound
+    from repro_torch.ft.inject import inject
+
+    kern = _ft_solver(name, cuda_device).solve()
+    sv = _ft_solver(name, cuda_device, degrade=True)
+    with inject(_plan({"site": "kernel.dispatch", "match": {"backend": "kernel"}})):
+        out = sv.solve(tol=-1.0, max_rounds=kern.rounds) if name == "pagerank" else sv.solve()
+    (d,) = sv.degradations
+    assert (d.from_backend, d.from_frontier, d.to_backend, d.to_frontier) == ("kernel", "replicated", "torch",
+                                                                              "replicated")
+    assert out.rounds == kern.rounds
+    if name == "sssp":
+        np.testing.assert_array_equal(out.x, kern.x)
+    else:
+        gap = int(np.abs(out.x.view(np.int32).astype(np.int64) - kern.x.view(np.int32)).max())
+        assert gap <= reorder_ulp_bound(sv.graph, kern.rounds), gap
+    halo = _ft_solver(name, cuda_device, degrade=True, frontier="halo", n_shards=4)
+    launches = fused_solve_cuda.launches
+    with inject(_plan({"site": "kernel.dispatch", "match": {"backend": "kernel"}})):
+        h = halo.solve()
+    (d,) = halo.degradations
+    assert (d.from_frontier, d.to_backend, d.to_frontier) == ("halo", "kernel", "replicated")
+    assert fused_solve_cuda.launches == launches + 1
+    np.testing.assert_array_equal(h.x, kern.x)
+
+
+@pytest.mark.gpu
+def test_launch_error_raises_with_degrade_on_card(cuda_device, monkeypatch):
+    """A kernel that fails to launch raises through ``Solver(degrade=True)``:
+    the ladder answers faults injected at ``kernel.dispatch`` alone, never a
+    kernel's own error with the plain round."""
+    from repro_torch.kernels import round_block
+
+    lib = round_block._library()
+
+    class Refused:  # the library, its loop entry refusing the launch
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        @staticmethod
+        def round_block_solve_launch(*args):
+            return 720  # cudaErrorCooperativeLaunchTooLarge
+
+    sv = _ft_solver("pagerank", cuda_device, degrade=True)
+    monkeypatch.setattr(round_block, "_library", Refused)
+    launches = fused_solve_cuda.launches
+    with pytest.raises(RuntimeError, match="cudaError 720"):
+        sv.solve()
+    assert sv.degradations == [] and sv.stats["degradations"] == 0
+    assert fused_solve_cuda.launches == launches

@@ -18,8 +18,8 @@ twitter s8 PageRank; P = 4, δ = 32, capacity 4, ``min_chunk=8``):
   ``benchmarks/serve_load.py``);
 * the update barrier, lane-fault recovery through ``FaultSpec(site=
   "scheduler.lane")``, deadlines, the ``--assert-warm`` gate, a halo lane
-  (which once raised, and now serves), the refusals (``degrade=True``, no
-  CUDA device), and that
+  (which once raised, and now serves), ``degrade=True`` (which once
+  raised, and now builds), the refusal without a CUDA device, and that
   ``repro_torch.launch`` imports neither jax nor ``repro``.
 
 The round clock advances by each lane quantum's executed rounds, so equal
@@ -632,9 +632,12 @@ def test_not_implemented_inside_a_quantum_is_not_a_lane_fault(sides, monkeypatch
 
 
 def test_degrade_and_missing_card_refused(sides, monkeypatch):
+    """``degrade=True`` builds and each solver carries it (it once raised:
+    the ladder is tests/test_torch_chaos.py's); no card and no ``device``
+    is refused."""
     g = sides["kernel"].graphs["sssp"]
-    with pytest.raises(NotImplementedError, match="A11"):
-        t_serve.GraphService(g, degrade=True, device="cpu")
+    svc = t_serve.GraphService(g, degrade=True, device="cpu", algos=("sssp", "ppr"))
+    assert svc.degrade and all(svc.solver(a).degrade for a in ("sssp", "ppr"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         t_serve.GraphService(g)

@@ -125,6 +125,7 @@ def test_schedule_cache_and_stats():
         "plan_shard_builds": 0,
         "plan_shard_loads": 0,
         "cache_loads": 0,
+        "degradations": 0,  # the degradation ladder's fallbacks, as the reference counts them
     }
     assert fused_round_cuda.launches == launches  # the CPU never launches K1
 
