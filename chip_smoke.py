@@ -204,6 +204,22 @@ smaller graphs:
    process's δ*; a ppr batch of Q = 8 at δ = 128 at scale 16 through
    ``solve_batch`` on both frontiers, and one quantum of a
    ``BatchStepper`` with the same queries, must equal the one process's.
+   The same processes then run updates, the store and serving across
+   processes (``rank_resolve``, ``rank_s16_cases``, checked by
+   ``rank_evolve_check``): each rank's SSSP solvers at δ* on both
+   frontiers ``resolve`` after the first batch of the evolving-graph path
+   (k = 64, seed EVOLVE_SEED), which must equal that path's one-process
+   resolve (x, rounds, flushes, flush_bytes) bit for bit, with K2's rank
+   entry and receive (halo) or K1's rank step and publish (replicated) once
+   a step a rank; they print ``apply_updates_s``, ``patch_s``, the warm
+   start's seconds, the rounds and ms a step a rank.  At scale 16 PageRank
+   resolves on both frontiers must equal the one process's; a cold group
+   fills a store and a fresh group on it must build no schedule, plan,
+   stripe or plan piece and give the same x, as must a one-process solver
+   on that store, loading all the group's stripes and plan pieces; and a
+   ``GraphService(group=...)`` of SSSP lanes, rank 0 its front end, must
+   give every query of two waves around an update batch the one-process
+   service's answer and clocks, with no lane fault.
    Two processes on one card through pinned host memory: no number there
    is a cross-card wire time.
    Then the fault-tolerance path (``ft_phase``), K1's and K2's counts reset
@@ -300,6 +316,7 @@ of versions on one card.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -378,6 +395,12 @@ RANKS = 2
 RANK_TIMEOUT_S = 900
 REFRESH_REPS = 20  # timed calls of a quantized rank round's refresh
 STEPPER_QUANTUM = 4  # rounds of the open batch's quantum across processes
+# Updates, the store and serving across processes (the same processes): the
+# s16 service's lanes and its SSSP queries a wave (two waves, an update
+# batch of EVOLVE_BATCHES[0] operations between them); the solver counters
+# a warm group must hold at zero.
+RANK_SERVE_SLOTS = RANK_SERVE_QUERIES = 4
+COLD_COUNTERS = ("schedule_builds", "plan_builds", "stripe_builds", "plan_shard_builds")
 
 
 def log(msg: str) -> None:
@@ -1148,9 +1171,11 @@ def halo_rank_child(role: str, npz: str, out: str, init: str, spec: str) -> int:
     construction and solve, ms a step, the bytes a rank gathers a round (the
     steps' send blocks and scales, and for int8/fp8 the f32 refresh of the
     halo copies that starts each round) and, for int8/fp8, that refresh
-    alone in ms (REFRESH_REPS calls after the solve, collective); then
-    ``replicated_rank_cases``.  x goes to ``out/<role>.npz``; the last line
-    printed is ``{"halo": ..., "replicated": ...}``."""
+    alone in ms (REFRESH_REPS calls after the solve, collective); on the
+    ranks the SSSP solver then resolves (``rank_resolve``); then
+    ``replicated_rank_cases`` and ``rank_s16_cases``.  x goes to
+    ``out/<role>.npz``; the last line printed is ``{"halo": ...,
+    "replicated": ..., "evolve": ..., "s16": ...}``."""
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import datetime
 
@@ -1181,7 +1206,7 @@ def halo_rank_child(role: str, npz: str, out: str, init: str, spec: str) -> int:
         (f"pagerank_s{HALO_SCALE}_int8", hg, pagerank_problem(), 128, "int8", {"tol": QUANT_TOL}),
         (f"pagerank_s{HALO_SCALE}_fp8", hg, pagerank_problem(), 128, "fp8", {"tol": QUANT_TOL}),
     ]
-    rows, xs = {}, {}
+    rows, xs, evolve = {}, {}, {}
     for name, g, prob, d, wire, kw in cases:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -1228,10 +1253,14 @@ def halo_rank_child(role: str, npz: str, out: str, init: str, spec: str) -> int:
             "f32_wire_bytes_per_round": S * plan.D * plan.H * 4, "refresh_ms": refresh_ms,
         }
         xs[name] = r.x
+        if group is not None and name == "sssp_dstar":  # the one process's is phase 3's evolve resolve
+            evolve["halo"] = rank_resolve(sv, sssp_event(g_ss, EVOLVE_BATCHES[0], np.random.default_rng(EVOLVE_SEED)),
+                                          xs, "resolve_halo")
         del sv, r
-    rep = replicated_rank_cases(group, g_pr, g_ss, hub, hg, spec, xs)
+    rep = replicated_rank_cases(group, g_pr, g_ss, hub, hg, spec, xs, evolve)
+    small = rank_s16_cases(group, hg, out, xs)
     np.savez(Path(out) / f"{role}.npz", **xs)
-    print(json.dumps({"halo": rows, "replicated": rep}), flush=True)
+    print(json.dumps({"halo": rows, "replicated": rep, "evolve": evolve, "s16": small}), flush=True)
     if group is not None:
         dist.barrier()
         dist.destroy_process_group()
@@ -1256,7 +1285,7 @@ def _counts():
     return {k: f.launches for k, f in fns.items()}
 
 
-def replicated_rank_cases(group, g_pr, g_ss, hub, hg, spec: dict, xs: dict) -> dict:
+def replicated_rank_cases(group, g_pr, g_ss, hub, hg, spec: dict, xs: dict, evolve: dict) -> dict:
     """The replicated frontier and the batches in a ``--halo-rank`` process
     (``group`` None: the one-process solves): PageRank at sync and δ* and
     SSSP at δ* on the full-size graph (``Solver(group=...)``, K1's rank step
@@ -1265,7 +1294,9 @@ def replicated_rank_cases(group, g_pr, g_ss, hub, hg, spec: dict, xs: dict) -> d
     HALO_SCALE; ppr Q = BATCH_Q at δ = 128 at HALO_SCALE through
     ``solve_batch`` on both frontiers, and one quantum of a ``BatchStepper``
     (capacity BATCH_Q, the same queries) on both.  x, the batches' x and the
-    stepper's state go into ``xs``; returns each case's counts and launches."""
+    stepper's state go into ``xs``; returns each case's counts and launches.
+    On the ranks the SSSP solver then resolves after EVOLVE_BATCHES[0] edge
+    operations (``rank_resolve``, into ``evolve["replicated"]``)."""
     from repro_torch.solve import BatchStepper, Solver, pagerank_problem, ppr_problem, ppr_teleport, sssp_problem
 
     rows = {}
@@ -1295,6 +1326,9 @@ def replicated_rank_cases(group, g_pr, g_ss, hub, hg, spec: dict, xs: dict) -> d
             **{f"{k}_launches": after[k] - before[k] for k in ("loop", "rank_step", "publish")},
         }
         xs[f"rep_{name}"] = r.x
+        if group is not None and name == "sssp_dstar":
+            evolve["replicated"] = rank_resolve(
+                sv, sssp_event(g_ss, EVOLVE_BATCHES[0], np.random.default_rng(EVOLVE_SEED)), xs, "resolve_replicated")
         del sv, r
     torch.cuda.empty_cache()
     before = _counts()
@@ -1331,7 +1365,235 @@ def replicated_rank_cases(group, g_pr, g_ss, hub, hg, spec: dict, xs: dict) -> d
     return rows
 
 
-def halo_rank_phase(npz: str, dstar: dict) -> dict:
+def rank_resolve(sv, batch, xs: dict, key: str) -> dict:
+    """A rank's ``resolve(updates=batch)`` on its solver's frontier, after a
+    cold solve there: its counts, seconds (``apply_updates`` with the rank's
+    patch of its cells, ``patch_s``; the loop; the warm start and the rest),
+    ms a step a rank and launches; x into ``xs[key]``."""
+    apply_s, patch_s = [], []
+
+    def timed(fn, secs):
+        def run(*args):
+            t1 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t1)
+            return out
+
+        return run
+
+    sv.apply_updates = timed(sv.apply_updates, apply_s)
+    sv._patch_rank_cells = timed(sv._patch_rank_cells, patch_s)
+    before = _counts()
+    t1 = time.perf_counter()
+    r = sv.resolve(updates=batch)
+    total_s = time.perf_counter() - t1
+    after = _counts()
+    S = sv.rank_layout()[0].S
+    loop_s = float(np.sum(r.round_times_s)) if sv.default_frontier == "halo" else r.total_time_s
+    xs[key] = r.x
+    return {"rounds": int(r.rounds), "converged": bool(r.converged), "flushes": int(r.flushes),
+            "flush_bytes": int(r.flush_bytes), "delta": int(r.delta), "S": int(S), "total_s": total_s, "apply_updates_s": apply_s[-1], "patch_s": patch_s[-1],
+            "loop_s": loop_s, "warm_start_and_rest_s": total_s - apply_s[-1] - loop_s,
+            "ms_per_step": loop_s / (r.rounds * S) * 1e3, "schedule_builds": sv.stats["schedule_builds"],
+            **{f"{k}_launches": after[k] - before[k] for k in after}}
+
+
+@contextlib.contextmanager
+def collective_seconds(group, out: dict):
+    """While the block runs, time ``group``'s collectives: the seconds and
+    calls of each outermost one (an ``any`` holds its all-gather) go into
+    ``out`` as ``{name: [seconds, calls]}``.  The card is synchronized
+    before each is timed, so a gather's seconds hold no wait for the
+    kernels before it."""
+    names = ("all_gather", "sum_partials", "gather_owned", "broadcast_object", "any")
+    depth = [0]
+
+    def wrap(name):
+        fn = getattr(group, name)
+
+        def timed(*a, **k):
+            outer = depth[0] == 0
+            if outer:
+                torch.cuda.synchronize()
+            depth[0] += 1
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                depth[0] -= 1
+                if outer:
+                    secs, calls = out.get(name, [0.0, 0])
+                    out[name] = [secs + time.perf_counter() - t, calls + 1]
+
+        return timed
+
+    for name in names:
+        setattr(group, name, wrap(name))
+    try:
+        yield out
+    finally:
+        for name in names:
+            delattr(group, name)
+
+
+def rank_s16_cases(group, hg, work: str, xs: dict) -> dict:
+    """The HALO_SCALE checks of updates, the store and serving in a
+    ``--halo-rank`` process (``group`` None: the one-process answers):
+    PageRank ``resolve`` after EVOLVE_BATCHES[0] mass-conserving deletes on
+    both frontiers (δ = EVOLVE_HALO_DELTA, D = SHARDS, a fresh solver each);
+    on the ranks, a group's store (a cold group fills ``work/store16`` with
+    a halo PageRank, a fresh group on it builds nothing, then a one-process
+    solver in rank 0 loads the group's stripes and plan pieces); a
+    ``GraphService`` of SSSP lanes (RANK_SERVE_SLOTS slots) answering two
+    waves of RANK_SERVE_QUERIES queries with an update batch of
+    EVOLVE_BATCHES[0] operations between them, rank 0 the front end.  x
+    goes into ``xs``; returns each case's counts, seconds and launches (the
+    service's also its collectives' seconds, :func:`collective_seconds`),
+    and the seconds of the whole."""
+    import torch.distributed as dist
+
+    from repro_torch.graphs.generators import sssp_values
+    from repro_torch.launch.serve_graph import GraphService
+    from repro_torch.launch.service import QueryRequest, UpdateRequest
+    from repro_torch.solve import Solver, pagerank_problem
+
+    t0 = time.perf_counter()
+    rows = {}
+    batch = pagerank_event(hg, EVOLVE_BATCHES[0], np.random.default_rng(EVOLVE_SEED))
+    for frontier in ("replicated", "halo"):
+        sv = Solver(hg, pagerank_problem(), n_workers=P, delta=EVOLVE_HALO_DELTA, frontier=frontier, n_shards=SHARDS,
+                    group=group)
+        sv.solve()
+        before = _counts()
+        t1 = time.perf_counter()
+        r = sv.resolve(updates=batch)
+        after = _counts()
+        rows[f"resolve_{frontier}"] = {"rounds": int(r.rounds), "converged": bool(r.converged), "flushes": int(r.flushes),
+                                       "flush_bytes": int(r.flush_bytes), "s": time.perf_counter() - t1,
+                                       **{f"{k}_launches": after[k] - before[k] for k in after}}
+        xs[f"s16_resolve_{frontier}"] = r.x
+        del sv
+    if group is not None:
+        kw = dict(n_workers=P, delta=EVOLVE_HALO_DELTA, frontier="halo", n_shards=SHARDS,
+                  cache_dir=Path(work) / "store16")
+        for phase in ("cold", "warm"):
+            t1 = time.perf_counter()
+            sv = Solver(hg, pagerank_problem(), group=group, **kw)
+            r = sv.solve()
+            rows[f"store_{phase}"] = {"s": time.perf_counter() - t1, "rounds": int(r.rounds), **sv.stats}
+            xs[f"s16_store_{phase}"] = r.x
+            dist.barrier()
+        if dist.get_rank() == 0:
+            t1 = time.perf_counter()
+            one = Solver(hg, pagerank_problem(), **kw)
+            r = one.solve()
+            rows["store_one"] = {"s": time.perf_counter() - t1, "rounds": int(r.rounds), **one.stats}
+            xs["s16_store_one"] = r.x
+        dist.barrier()
+    hg_ss = hg.with_values(sssp_values(hg.indices), name=f"{hg.name}-sssp")
+    svc = GraphService(hg_ss, n_workers=P, delta=EVOLVE_HALO_DELTA, batch_size=RANK_SERVE_SLOTS, algos=("sssp",),
+                       group=group)
+    seeds = top_out_degree(hg_ss, 2 * RANK_SERVE_QUERIES)
+    update = sssp_event(hg_ss, EVOLVE_BATCHES[0], np.random.default_rng(EVOLVE_SEED))
+    front = group is None or dist.get_rank() == 0
+    before = _counts()
+    collectives = {}
+    t1 = time.perf_counter()
+    answers = {}
+    with collective_seconds(svc.group, collectives) if group is not None else contextlib.nullcontext():
+        for wave in range(2):
+            if front:
+                if wave:
+                    svc.submit_update(UpdateRequest(batch=update))
+                for v in seeds[wave::2]:
+                    svc.submit(QueryRequest(algo="sssp", payload=int(v)))
+            for res in svc.drain():
+                answers[res.request_id] = [int(res.payload), int(res.rounds), bool(res.converged),
+                                           int(res.admitted_clock), int(res.finished_clock)]
+                xs[f"s16_serve_{res.request_id}"] = res.x
+    after = _counts()
+    rows["serve"] = {"s": time.perf_counter() - t1, "collectives": collectives, "pumps": int(svc.scheduler.counters["pumps"]),
+                     "answers": answers, "clock": int(svc.clock_rounds),
+                     "updates": [[u.request_id, int(u.applied_clock), int(u.affected_rows)]
+                                 for u in svc.take_update_results()],
+                     **{k: int(svc.scheduler.counters[k]) for k in ("completed", "lane_faults", "failed", "updates_applied")},
+                     **{f"{k}_launches": after[k] - before[k] for k in after}}
+    rows["s"] = time.perf_counter() - t0
+    return rows
+
+
+def rank_evolve_check(one: dict, ranks: list, x_one: dict, x_ranks: list, evolve_ref: dict, card: str) -> dict:
+    """Phase 3, updates, the store and serving across processes
+    (``rank_resolve`` and ``rank_s16_cases`` in each ``--halo-rank``
+    process).  At full size each rank's SSSP ``resolve`` on both frontiers
+    must equal the one-process resolve of phase 3's evolve part
+    (``evolve_ref``: x, rounds, flushes, flush_bytes) bit for bit, with K2's
+    rank entry and receive (halo) or K1's rank step and publish (replicated)
+    once a step a rank and no other launch.  At HALO_SCALE: each rank's
+    PageRank resolves equal the one-process ones; the warm group builds no
+    schedule, plan, stripe or plan piece and gives the cold group's x, and
+    the one-process solver on the group's store loads every stripe and plan
+    piece and gives it too; every served query's answer (x, rounds, clocks)
+    equals the one-process service's, with no lane fault and the update
+    applied.  Returns the kernels line's launches."""
+    launches = {"local": 0, "recv": 0, "rank_step": 0, "publish": 0}
+    for r, rr in enumerate(ranks):
+        for frontier, (a, b) in (("halo", ("local", "recv")), ("replicated", ("rank_step", "publish"))):
+            row = rr["evolve"][frontier]
+            equal = ((row["rounds"], row["flushes"], row["flush_bytes"], row["converged"])
+                     == (evolve_ref["rounds"], evolve_ref["flushes"], evolve_ref["flush_bytes"], True)
+                     and np.array_equal(x_ranks[r][f"resolve_{frontier}"], evolve_ref["x"]))
+            log(f"[3] grouped resolve {json.dumps({'card': card, 'problem': 'sssp', 'k': EVOLVE_BATCHES[0], 'frontier': frontier, 'rank': r, 'ranks': RANKS, **row, 'equal': equal, 'one_process_rounds': evolve_ref['rounds'], 'one_process_total_s': evolve_ref['total_s']})}")
+            others = sum(v for k, v in row.items() if k.endswith("_launches") and k not in (f"{a}_launches", f"{b}_launches"))
+            if not equal:
+                raise AssertionError(f"rank {r}'s {frontier} resolve differs from the one-process resolve")
+            if not row[f"{a}_launches"] == row[f"{b}_launches"] == row["rounds"] * row["S"] or others:
+                raise AssertionError(f"rank {r}'s {frontier} resolve did not launch {a} and {b} once a step: {row}")
+            launches[a] += row[f"{a}_launches"]
+            launches[b] += row[f"{b}_launches"]
+    o = one["s16"]
+    for r, rr in enumerate(ranks):
+        small = rr["s16"]
+        for frontier in ("replicated", "halo"):
+            row, want = small[f"resolve_{frontier}"], o[f"resolve_{frontier}"]
+            same = ({k: row[k] for k in ("rounds", "converged", "flushes", "flush_bytes")}
+                    == {k: want[k] for k in ("rounds", "converged", "flushes", "flush_bytes")}
+                    and np.array_equal(x_ranks[r][f"s16_resolve_{frontier}"].view(np.int32),
+                                       x_one[f"s16_resolve_{frontier}"].view(np.int32)))
+            log(f"[3] grouped resolve s{HALO_SCALE} pagerank k={EVOLVE_BATCHES[0]} {frontier}: rank {r} "
+                f"{json.dumps(row)}; one process {json.dumps(want)}; equal: {same}")
+            if not same:
+                raise AssertionError(f"rank {r}'s s{HALO_SCALE} {frontier} PageRank resolve differs from the one process's")
+            for k in launches:
+                launches[k] += row[f"{k}_launches"]
+        cold, warm = small["store_cold"], small["store_warm"]
+        log(f"[3] grouped store s{HALO_SCALE}: rank {r} cold {json.dumps(cold)}; warm {json.dumps(warm)}")
+        if any(warm[k] for k in COLD_COUNTERS) or not (cold["stripe_builds"] and cold["plan_shard_builds"]):
+            raise AssertionError(f"rank {r}: a warm group built {warm}, a cold one {cold}")
+        for phase in ("warm", "cold"):
+            if not np.array_equal(x_ranks[r][f"s16_store_{phase}"].view(np.int32), x_ranks[0]["s16_store_cold"].view(np.int32)):
+                raise AssertionError(f"rank {r}'s {phase} store solve differs from rank 0's cold one")
+        serve, want = small["serve"], o["serve"]
+        same = (serve["answers"] == want["answers"] and serve["clock"] == want["clock"]
+                and all(np.array_equal(x_ranks[r][f"s16_serve_{q}"], x_one[f"s16_serve_{q}"]) for q in want["answers"]))
+        log(f"[3] grouped service s{HALO_SCALE}: rank {r} {json.dumps({k: v for k, v in serve.items() if k != 'answers'})}; "
+            f"one process {json.dumps({k: v for k, v in want.items() if k != 'answers'})}; equal: {same}")
+        if not (same and serve["lane_faults"] == 0 and serve["updates_applied"] == 1
+                and serve["completed"] == 2 * RANK_SERVE_QUERIES):
+            raise AssertionError(f"rank {r}'s grouped service differs from the one-process service: {serve}")
+        launches["rank_step"] += serve["rank_step_launches"]
+        launches["publish"] += serve["publish_launches"]
+        log(f"[3] rank {r}: the s{HALO_SCALE} checks of updates, the store and serving took {small['s']:.1f} s")
+    st = ranks[0]["s16"]["store_one"]
+    log(f"[3] one process on the group's store s{HALO_SCALE}: {json.dumps(st)}")
+    if (any(st[k] for k in COLD_COUNTERS) or (st["stripe_loads"], st["plan_shard_loads"]) != (P, SHARDS)
+            or not np.array_equal(x_ranks[0]["s16_store_one"].view(np.int32), x_ranks[0]["s16_store_cold"].view(np.int32))):
+        raise AssertionError(f"a one-process solver did not load the group's store: {st}")
+    return launches
+
+
+def halo_rank_phase(npz: str, dstar: dict, evolve_ref: dict) -> dict:
     """Phase 3, the solves across processes: this script with
     ``--halo-rank one`` (the one-process solves), then RANKS processes
     with ``--halo-rank R`` on this one card over a ``gloo`` group (NCCL
@@ -1340,8 +1602,10 @@ def halo_rank_phase(npz: str, dstar: dict) -> dict:
     bit for bit, K2's rank entry and receive must launch once a step a rank
     (the one-process solve: K2 once a round), and each rank's peak device
     memory must be below the one-process solve's; then the replicated
-    frontier and the batches (``replicated_rank_check``).  Prints ms a step
-    a rank.  Returns the kernels line's launches."""
+    frontier and the batches (``replicated_rank_check``), and updates, the
+    store and serving (``rank_evolve_check``; ``evolve_ref`` is the
+    evolving-graph path's first SSSP resolve).  Prints ms a step a rank.
+    Returns the kernels line's launches."""
     t0 = time.perf_counter()
     spec = json.dumps({"pagerank": int(dstar["pagerank"]), "sssp": int(dstar["sssp"])})
     me = str(Path(__file__).resolve())
@@ -1393,8 +1657,12 @@ def halo_rank_phase(npz: str, dstar: dict) -> dict:
             recv += row["recv_launches"]
     log(f"[3] halo ranks path: {local} rank-entry and {recv} receive launches")
     rep = replicated_rank_check(one_all["replicated"], [rr["replicated"] for rr in ranks_all], x_one, x_ranks, card)
+    ev = rank_evolve_check(one_all, ranks_all, x_one, x_ranks, evolve_ref, card)
+    log(f"[3] updates, the store and serving across ranks: {json.dumps(ev)} launches; the s22 resolves took "
+        f"{max(rr['evolve'][f]['total_s'] for rr in ranks_all for f in rr['evolve']):.1f} s a rank and frontier at most")
     log(f"[3] halo and replicated ranks paths done in {time.perf_counter() - t0:.1f} s")
-    return {"local": local, "recv": recv, **rep}
+    return {"local": local + ev["local"], "recv": recv + ev["recv"], **rep,
+            "rank_step": rep["rank_step"] + ev["rank_step"], "publish": rep["publish"] + ev["publish"]}
 
 
 def replicated_rank_check(one: dict, ranks: list, x_one: dict, x_ranks: list, card: str) -> dict:
@@ -3602,6 +3870,9 @@ def smoke(scale: int, gen: subprocess.Popen, npz: str) -> int:
             r = inc.resolve(updates=batch)
             total_s = time.perf_counter() - t1
             launches = fused_solve_cuda.launches - before
+            if name == "sssp" and k == EVOLVE_BATCHES[0]:  # what the ranks' resolves are held to
+                evolve_ref = {"x": r.x, "rounds": r.rounds, "flushes": r.flushes, "flush_bytes": r.flush_bytes,
+                              "total_s": total_s}
             report = inc._last_report
             sched = inc.schedule()
             row_ptr_ok = torch.equal(sched.row_ptr, engine._cell_row_ptr(sched.dst_local, sched.delta))
@@ -3922,7 +4193,7 @@ def smoke(scale: int, gen: subprocess.Popen, npz: str) -> int:
     torch.cuda.empty_cache()
     log(f"[3] halo batch and serving: done in {time.perf_counter() - t0:.1f} s")
     # the halo solve across processes (K2's rank entry and receive)
-    halo_ranks = halo_rank_phase(npz, dstar)
+    halo_ranks = halo_rank_phase(npz, dstar, evolve_ref)
     t0 = time.perf_counter()
     rank_full = halo_rank_full_check(dev, full["pagerank"], full["sssp"], dstar)
     compare_launches += rank_full["launches"]

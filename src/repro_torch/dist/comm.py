@@ -17,6 +17,12 @@ pinned host buffers (``HaloGroup.transport`` names which one ran).  Both
 gather in rank order, which is shard (and worker) order, so every rank
 receives the same block the one-process exchange would.  float8 values cross
 as a ``uint8`` view (``gloo`` takes no float8).
+
+Two small collectives serve what every rank must decide alike:
+:meth:`HaloGroup.broadcast_object` hands rank 0's Python object (a δ-model
+read from a store, a service's new requests) to every rank, and
+:meth:`HaloGroup.any` tells every rank whether some rank raised a flag (a
+serving lane's fault).
 """
 
 from __future__ import annotations
@@ -96,6 +102,20 @@ class HaloGroup:
             dist.all_gather_into_tensor(out, wire, group=self.group)
             self.transport = "gloo (host)"
         return out.view(t.dtype) if t.element_size() == 1 else out
+
+    def broadcast_object(self, obj=None):
+        """Rank 0's ``obj`` on every rank (pickled; the other ranks' ``obj``
+        is ignored)."""
+        box = [obj if self.rank == 0 else None]
+        dist.broadcast_object_list(box, src=dist.get_global_rank(self.group, 0), group=self.group)
+        return box[0]
+
+    def any(self, flag: bool) -> bool:
+        """Whether any rank's ``flag`` is set (one all-gather of a word)."""
+        local = torch.tensor([1 if flag else 0], dtype=torch.int32)
+        if self.backend == "nccl":
+            local = local.to(torch.device("cuda", torch.cuda.current_device()))
+        return bool(self.all_gather(local).any())
 
     def sum_partials(self, partials):
         """The sum of every shard's partial (this rank's ``partials``, one a

@@ -90,16 +90,21 @@ __all__ = [
     "frontier_sharded_round_fn",
     "halo_exchange",
     "make_frontier_plan",
+    "outgrows",
+    "patch_cells",
     "plan_shard_bounds",
     "plan_shard_from_cells",
     "quantize_halo",
+    "patch_rank_cells",
     "rank_cells",
+    "rank_plan",
     "rank_schedule",
     "replicated_rank",
     "replicated_rank_round_fn",
     "resolve_halo_dtype",
     "schedule_rows",
     "shard_halos",
+    "stripe_width",
 ]
 
 #: Wire dtypes of the halo exchange.  ``"f32"`` ships the committed boundary
@@ -643,7 +648,7 @@ class RankSchedule:
         return self.val.device
 
 
-def _stripe_width(indptr, lo: int, hi: int, S: int, delta: int) -> int:
+def stripe_width(indptr, lo: int, hi: int, S: int, delta: int) -> int:
     """A worker's widest cell (its stripe's natural ``M_w``), from ``indptr``."""
     s = np.arange(S, dtype=np.int64)
     r0 = np.minimum(lo + s * delta, hi)
@@ -651,26 +656,59 @@ def _stripe_width(indptr, lo: int, hi: int, S: int, delta: int) -> int:
     return int((indptr[r1] - indptr[r0]).max()) if S else 0
 
 
-def rank_schedule(graph: CSRGraph, block_bounds, delta: int, pad_val, w0: int, w1: int, device) -> tuple:
+def outgrows(indptr, block_bounds, workers, S: int, delta: int, M: int) -> bool:
+    """Whether the stripe of any of ``workers`` is wider than ``M``, read
+    from ``indptr`` (no stripe is built, so every process decides alike)."""
+    bb = block_bounds
+    return any(stripe_width(indptr, int(bb[w]), int(bb[w + 1]), S, delta) > M for w in workers)
+
+
+def patch_cells(cells: dict, stripes: dict, pad_val, delta: int, w0: int = 0) -> dict:
+    """Copies of ``cells`` (any of a schedule's ``src``, ``val`` and
+    ``dst_local``, ``(S, P_c, M)`` tensors or host arrays) with the stripe
+    of worker ``w`` (``stripes[w]``, :func:`build_worker_stripe`'s arrays)
+    written at index ``w - w0`` and its tail padded as the schedule pads it
+    (``src`` 0, ``val`` ``pad_val``, ``dst_local`` δ).  Every stripe must
+    fit ``M`` and index a worker of the cells."""
+    fill = {"src": 0, "val": pad_val.item(), "dst_local": delta}
+    out = {f: a.clone() if torch.is_tensor(a) else a.copy() for f, a in cells.items()}
+    for w, st in stripes.items():
+        i, m = w - w0, st["src"].shape[1]
+        for f, a in out.items():
+            if not 0 <= i < a.shape[1] or m > a.shape[2]:
+                raise ValueError(f"worker {w}'s stripe of width {m} does not fit the cells")
+            a[:, i] = fill[f]
+            a[:, i, :m] = torch.from_numpy(st[f]).to(a.device, a.dtype) if torch.is_tensor(a) else st[f]
+    return out
+
+
+def rank_schedule(graph: CSRGraph, block_bounds, delta: int, pad_val, w0: int, w1: int, device,
+                  stripe: Callable | None = None) -> tuple:
     """The cells of workers ``[w0, w1)`` of the schedule
     :func:`repro_torch.core.engine.make_schedule` builds at ``delta`` over
     ``block_bounds``, built from those workers' stripes alone (the global
-    ``M`` from ``indptr``).  Returns ``(RankSchedule on device, host
-    arrays)``: the host ``src``, ``dst_local`` and ``rows`` of those
+    ``M`` from ``indptr``).  ``stripe(lo, hi, S, δ)`` gives a worker's
+    stripe (default: :func:`build_worker_stripe` of ``graph``; a solver
+    with a store loads it from there).  Returns ``(RankSchedule on device,
+    host arrays)``: the host ``src``, ``dst_local`` and ``rows`` of those
     workers, from which the rank's plan pieces are cut."""
     bb = np.asarray(block_bounds, dtype=np.int64)
     B = int(np.diff(bb).max())
     delta = int(min(max(int(delta), 1), B))
     S = -(-B // delta)
     P = bb.size - 1
-    M = max(1, max(_stripe_width(graph.indptr, int(bb[w]), int(bb[w + 1]), S, delta) for w in range(P)))
+    M = max(1, max(stripe_width(graph.indptr, int(bb[w]), int(bb[w + 1]), S, delta) for w in range(P)))
     P_r = w1 - w0
     src = np.zeros((S, P_r, M), dtype=np.int32)
     val = np.full((S, P_r, M), pad_val, dtype=graph.values.dtype)
     dst_local = np.full((S, P_r, M), delta, dtype=np.int32)
     rows = np.full((S, P_r, delta), graph.n, dtype=np.int32)
+    if stripe is None:
+        def stripe(lo, hi, S, delta):
+            return build_worker_stripe(graph, lo, hi, S, delta, pad_val)
+
     for i, w in enumerate(range(w0, w1)):
-        st = build_worker_stripe(graph, int(bb[w]), int(bb[w + 1]), S, delta, pad_val)
+        st = stripe(int(bb[w]), int(bb[w + 1]), S, delta)
         m = st["src"].shape[1]
         src[:, i, :m] = st["src"]
         val[:, i, :m] = st["val"]
@@ -693,6 +731,22 @@ def rank_schedule(graph: CSRGraph, block_bounds, delta: int, pad_val, w0: int, w
         block_bounds=bb,
     )
     return sched, {"src": src, "dst_local": dst_local, "rows": rows}
+
+
+def patch_rank_cells(sched: RankSchedule, host: dict, stripes: dict, pad_val, edges: int) -> tuple:
+    """``(sched, host)`` (:func:`rank_schedule`'s) with the stripes of some
+    of the rank's workers replaced (:func:`patch_cells`): copies of the
+    device ``val`` and ``dst_local`` and of the host ``src`` and
+    ``dst_local``, ``row_ptr`` derived again from the patched ``dst_local``
+    (the kernels walk the edges through it).  ``rows`` depend on the block
+    bounds alone and stay.  The cells of the other workers, and their
+    shapes, are unchanged."""
+    dev = patch_cells({"val": sched.val, "dst_local": sched.dst_local}, stripes, pad_val, sched.delta, sched.w0)
+    host = {**host, **patch_cells({"src": host["src"], "dst_local": host["dst_local"]}, stripes, pad_val,
+                                  sched.delta, sched.w0)}
+    patched = dataclasses.replace(sched, **dev, row_ptr=_cell_row_ptr(dev["dst_local"], sched.delta),
+                                  edges=int(edges), src=None, rows_all=None)
+    return patched, host
 
 
 def replicated_rank(sched: RankSchedule, host: dict) -> RankSchedule:
@@ -758,25 +812,28 @@ def replicated_rank_round_fn(sched: RankSchedule, rows, semiring: Semiring, row_
     return rnd
 
 
-def rank_plan(graph: CSRGraph, sched: RankSchedule, host: dict, n_shards: int, device=None) -> FrontierPlan:
+def rank_plan(graph: CSRGraph, sched: RankSchedule, host: dict, n_shards: int, device=None,
+              piece: Callable | None = None) -> FrontierPlan:
     """The plan of the rank's shards (those of its workers ``[w0, w1)``),
     from its own cells (``host``, :func:`rank_schedule`'s) and every
-    shard's halo read from the graph (:meth:`FrontierPlan.for_shards`)."""
+    shard's halo read from the graph (:meth:`FrontierPlan.for_shards`).
+    ``piece(src, dst_local, rows, vb_lo, vb_hi)`` gives a shard's piece from
+    its workers' host cells (default: :func:`plan_shard_from_cells`; a
+    solver with a store loads it from there)."""
     D = int(n_shards)
     P_loc = sched.P // D
     if sched.w0 % P_loc or sched.w1 % P_loc:
         raise ValueError(f"workers [{sched.w0}, {sched.w1}) are not whole shards of {P_loc}")
     d0, d1 = sched.w0 // P_loc, sched.w1 // P_loc
     vb = plan_shard_bounds(sched, D)
+    if piece is None:
+        def piece(src, dst_local, rows, vb_lo, vb_hi):
+            return plan_shard_from_cells(src, dst_local, rows, sched.n, sched.delta, vb_lo, vb_hi)
+
     pieces = []
     for d in range(d0, d1):
         w = slice((d - d0) * P_loc, (d - d0 + 1) * P_loc)
-        pieces.append(
-            plan_shard_from_cells(
-                host["src"][:, w], host["dst_local"][:, w], host["rows"][:, w],
-                sched.n, sched.delta, int(vb[d]), int(vb[d + 1]),
-            )
-        )
+        pieces.append(piece(host["src"][:, w], host["dst_local"][:, w], host["rows"][:, w], int(vb[d]), int(vb[d + 1])))
     return FrontierPlan.for_shards(sched, D, d0, d1, pieces, shard_halos(graph, vb), device)
 
 

@@ -18,6 +18,19 @@ source), so its solvers count no ``traces`` or ``compiles``:
 ``--assert-warm`` holds the counters the port has, ``schedule_builds``,
 ``plan_builds``, ``stripe_builds`` and ``plan_shard_builds``, all at zero.
 
+Across processes, ``GraphService(group=...)`` on every rank of a
+``torch.distributed`` group serves over the rank rounds (each lane quantum
+:class:`~repro_torch.solve.BatchStepper` across the group).  Rank 0 is the
+front end: :meth:`GraphService.submit` and :meth:`GraphService.submit_update`
+take requests there alone, and :meth:`GraphService.pump`,
+:meth:`GraphService.drain` and :meth:`GraphService.advance_clock` are
+collective: each first calls :meth:`GraphService.sync`, which hands rank
+0's new requests, updates and clock moves to every rank, whose schedulers
+then decide alike (their decisions run on the round clock alone) and pump
+the same lanes.  :attr:`GraphService.idle` is a plain read: every rank
+calls ``sync()`` before it reads it.  Every rank returns the results; only
+``latency_s`` differs.
+
 Example::
 
     PYTHONPATH=src python -m repro_torch.launch.serve_graph --graph twitter \\
@@ -110,6 +123,10 @@ class GraphService:
     (:class:`~repro_torch.solve.BatchStepper`) have no ladder, and a fault
     in a lane quantum is the scheduler's to retry on the same kernel either
     way.
+
+    ``group`` (a ``torch.distributed`` group or a
+    :class:`~repro_torch.dist.comm.HaloGroup`) serves across processes, as
+    the module docstring says; ``degrade=True`` is refused there.
     """
 
     def __init__(
@@ -133,7 +150,20 @@ class GraphService:
         feature_dim: int = 4,
         degrade: bool = False,
         device=None,
+        group=None,
     ):
+        if group is not None:
+            if degrade:
+                raise NotImplementedError(
+                    "GraphService(group=..., degrade=True): every rank would have to step down the ladder "
+                    "together; ROADMAP queue A (A9, third part)"
+                )
+            from repro_torch.dist.comm import HaloGroup
+
+            if not isinstance(group, HaloGroup):
+                group = HaloGroup(group)
+        self.group = group
+        self._outbox: list[tuple] = []  # rank 0's requests, updates and clock moves since the last sync
         self.device = resolve_device(device)
         self.graph = graph
         self.n_workers = n_workers
@@ -185,6 +215,7 @@ class GraphService:
                 reprobe_every=self.reprobe_every,
                 degrade=self.degrade,
                 device=self.device,
+                group=self.group,
             )
             self._solvers[name] = sv
         return sv
@@ -208,16 +239,68 @@ class GraphService:
                 classes=classes,
                 queue_capacity=self.queue_capacity,
                 per_graph_quota=self.per_graph_quota,
+                group=self.group,
             )
         return self._scheduler
 
+    # ------------------------------------------------- across processes #
+    def _front_end(self, what: str, op) -> None:
+        """Log rank 0's ``op`` for the next sync; refuse on any other rank."""
+        if self.group is None:
+            return
+        if self.group.rank != 0:
+            raise ValueError(f"{what} on rank {self.group.rank}: a GraphService(group=...) takes requests on rank 0")
+        self._outbox.append(op)
+
+    def sync(self) -> None:
+        """Across a group (collective: every rank calls it, in the same
+        order): hand rank 0's requests, updates and clock moves since the
+        last sync to every other rank, which applies them to its scheduler
+        in the same order.  :meth:`pump`, :meth:`drain` and
+        :meth:`advance_clock` call it first; a caller syncs before reading
+        :attr:`idle` on every rank.  Nothing across one process."""
+        if self.group is None:
+            return
+        ops = self.group.broadcast_object(self._outbox)
+        self._outbox = []
+        if self.group.rank == 0:
+            return
+        apply = {"submit": self.scheduler.submit, "update": self.scheduler.submit_update,
+                 "clock": self.scheduler.advance_clock}
+        for kind, arg in ops:
+            apply[kind](arg)
+
+    @property
+    def clock_rounds(self) -> int:
+        """The scheduler's round clock (the same on every rank after a sync)."""
+        return self.scheduler.clock_rounds
+
+    @property
+    def idle(self) -> bool:
+        """Whether queue, lanes and pending updates are empty (a plain read:
+        across a group, of what this rank has seen by its last
+        :meth:`sync`)."""
+        return self.scheduler.idle
+
+    def advance_clock(self, to_rounds: int) -> None:
+        """Fast-forward the round clock across an idle gap; collective
+        across a group (rank 0's ``to_rounds`` holds)."""
+        if self.group is None or self.group.rank == 0:
+            self._front_end("advance_clock", ("clock", int(to_rounds)))
+            self.scheduler.advance_clock(to_rounds)
+        self.sync()
+
     def submit(self, req: QueryRequest) -> Admission:
-        """Admit one request (or reject with a reason) — never blocks."""
+        """Admit one request (or reject with a reason) — never blocks.
+        Across a group, on rank 0 alone."""
+        self._front_end("submit", ("submit", req))
         return self.scheduler.submit(req)
 
     def submit_update(self, req) -> Admission:
         """Admit one edge-update batch; it applies at a quiesced round
-        boundary (see :meth:`ContinuousScheduler.submit_update`)."""
+        boundary (see :meth:`ContinuousScheduler.submit_update`).  Across a
+        group, on rank 0 alone; every rank applies it."""
+        self._front_end("submit_update", ("update", req))
         return self.scheduler.submit_update(req)
 
     def take_update_results(self) -> list:
@@ -248,13 +331,17 @@ class GraphService:
         return report
 
     def pump(self) -> list[QueryResult]:
-        """Run one scheduling quantum; return the queries that retired."""
+        """Run one scheduling quantum; return the queries that retired
+        (collective across a group, every rank's results)."""
+        self.sync()
         results = self._unclaimed + self.scheduler.pump()
         self._unclaimed = []
         return results
 
     def drain(self) -> list[QueryResult]:
-        """Pump until queue and lanes are empty; return everything retired."""
+        """Pump until queue and lanes are empty; return everything retired
+        (collective across a group)."""
+        self.sync()
         results = self._unclaimed + self.scheduler.drain()
         self._unclaimed = []
         return results

@@ -181,17 +181,39 @@ def replay_continuous(scheduler, trace: Trace) -> dict:
     scheduler pumps whenever work is pending, and the clock fast-forwards
     across idle gaps.  Latency of a request = retirement clock − arrival
     ``t``.
+
+    ``scheduler`` may be a
+    :class:`~repro_torch.launch.serve_graph.GraphService`, which has the
+    scheduler's ``submit``, ``pump``, ``advance_clock``, ``idle`` and
+    ``clock_rounds``.  Across processes, pass the ``GraphService(group=...)``
+    on every rank with the same trace: rank 0 submits, every rank syncs
+    before it reads ``idle`` and pumps, and every rank returns the same
+    report and results.
     """
+    from repro_torch.launch.serve_graph import GraphService  # serve_graph imports this package
+
+    group = getattr(scheduler, "group", None)
+    if group is not None and not isinstance(scheduler, GraphService):
+        raise ValueError("across a group, replay through the GraphService(group=...), not its scheduler")
+    front = group is None or group.rank == 0
+
+    def idle() -> bool:
+        if group is not None:
+            scheduler.sync()  # collective: rank 0's requests reach every rank first
+        return scheduler.idle
+
     events = sorted(trace.events, key=lambda e: e.t)
     arrival: dict[str, float] = {}
     results = []
     rejected: dict[str, int] = {}
     i = 0
     wall0 = time.perf_counter()
-    while i < len(events) or not scheduler.idle:
+    while i < len(events) or not idle():
         while i < len(events) and events[i].t <= scheduler.clock_rounds:
             ev = events[i]
             i += 1
+            if not front:  # rank 0's requests reach this rank at its next pump
+                continue
             adm = scheduler.submit(
                 QueryRequest(
                     algo=ev.algo,
@@ -204,12 +226,14 @@ def replay_continuous(scheduler, trace: Trace) -> dict:
                 arrival[adm.request_id] = ev.t
             else:
                 rejected[adm.reason] = rejected.get(adm.reason, 0) + 1
-        if scheduler.idle:
+        if idle():
             if i < len(events):  # idle gap: fast-forward to the next arrival
                 scheduler.advance_clock(math.ceil(events[i].t))
             continue
         results.extend(scheduler.pump())
     wall_s = time.perf_counter() - wall0
+    if group is not None:
+        arrival, rejected = group.broadcast_object((arrival, rejected))
     latencies = [r.finished_clock - arrival[r.request_id] for r in results]
     report = summarize(latencies, clock_rounds=scheduler.clock_rounds, wall_s=wall_s)
     report["offered"] = len(events)

@@ -236,6 +236,17 @@ class ContinuousScheduler:
     from the queue, run, retire); :meth:`drain` pumps until idle and returns
     every completed :class:`QueryResult`.  All scheduling state advances in
     deterministic round-clock time.
+
+    ``group`` (a :class:`~repro_torch.dist.comm.HaloGroup`, set by a
+    ``GraphService(group=...)``) makes a lane fault every rank's: the ranks
+    agree on a flag after the ``scheduler.lane`` site, on one in
+    :meth:`~repro_torch.solve.BatchStepper.run` after the
+    ``kernel.dispatch`` site and the quantum's set-up (both before the
+    quantum's first gather, which a faulted rank would never join), and on
+    one after the quantum, so that no rank retries a quantum the others
+    have finished.  A fault that one rank raises between the quantum's
+    gathers (a launch error in its loop) is not agreed on: it leaves the
+    others in a gather until the group's timeout raises there too.
     """
 
     def __init__(
@@ -245,6 +256,7 @@ class ContinuousScheduler:
         classes: dict[str, ClassPolicy] | None = None,
         queue_capacity: int = 64,
         per_graph_quota: int | None = None,
+        group=None,
     ):
         if not isinstance(services, dict):
             services = {"default": services}
@@ -253,6 +265,7 @@ class ContinuousScheduler:
         if per_graph_quota is not None and per_graph_quota < 1:
             raise ValueError(f"per_graph_quota must be >= 1, got {per_graph_quota}")
         self.services = dict(services)
+        self.group = group
         self.classes = dict(DEFAULT_CLASSES)
         if classes:
             self.classes.update(classes)
@@ -546,14 +559,27 @@ class ContinuousScheduler:
             if lane.stepper.occupancy == 0:
                 continue
             before = lane.stepper.rounds_executed
+            faulted = False
             try:
                 fire("scheduler.lane", graph=key[0], algo=key[1], request_class=key[2])
-                retired = lane.run_quantum()
-            except (ValueError, TypeError, NotImplementedError):
-                # caller/config errors, and a path the port does not have
-                # yet — not a fault to retry
-                raise
             except Exception:
+                faulted = True
+            if self.group is not None:
+                # before the quantum's gathers: a rank faulted here would
+                # leave the others waiting in them
+                faulted = self.group.any(faulted)
+            if not faulted:
+                try:
+                    retired = lane.run_quantum()
+                except (ValueError, TypeError, NotImplementedError):
+                    # caller/config errors, and a path the port does not have
+                    # yet — not a fault to retry
+                    raise
+                except Exception:
+                    faulted = True
+                if self.group is not None:
+                    faulted = self.group.any(faulted)  # a fault on any rank is every rank's
+            if faulted:
                 self.clock_rounds += lane.policy.slot_rounds
                 ran += lane.policy.slot_rounds
                 self._on_lane_fault(key, lane)

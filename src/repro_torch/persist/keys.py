@@ -51,6 +51,7 @@ __all__ = [
     "epilogue_digest",
     "graph_fingerprint",
     "layout_digest",
+    "plan_cells_fingerprint",
     "plan_shard_fingerprint",
     "problem_fingerprint",
     "solver_namespace",
@@ -144,15 +145,25 @@ def plan_shard_fingerprint(sched, vb_lo: int, vb_hi: int, w0: int, w1: int) -> s
     delta)``.  A mutation that leaves these workers' stripes byte-identical
     reuses the piece.
     """
+    return plan_cells_fingerprint(
+        sched.n, sched.delta, vb_lo, vb_hi, sched.src[:, w0:w1], sched.dst_local[:, w0:w1], sched.rows[:, w0:w1]
+    )
+
+
+def plan_cells_fingerprint(n: int, delta: int, vb_lo: int, vb_hi: int, src, dst_local, rows) -> str:
+    """:func:`plan_shard_fingerprint` from the shard's workers' cells
+    ``(S, P_loc, ·)`` themselves, as a rank of a group holds them on the
+    host: the same digest for the same cells, so a group and a one-process
+    solver share the store's plan pieces."""
     return _digest(
         env_fingerprint().encode(),
-        str(int(sched.n)).encode(),
-        str(int(sched.delta)).encode(),
+        str(int(n)).encode(),
+        str(int(delta)).encode(),
         str(int(vb_lo)).encode(),
         str(int(vb_hi)).encode(),
-        _host(sched.src[:, w0:w1]).tobytes(),
-        _host(sched.dst_local[:, w0:w1]).tobytes(),
-        _host(sched.rows[:, w0:w1]).tobytes(),
+        _host(src).tobytes(),
+        _host(dst_local).tobytes(),
+        _host(rows).tobytes(),
     )
 
 

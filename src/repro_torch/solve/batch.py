@@ -301,7 +301,10 @@ class BatchStepper:
 
         Returns the slots that finished this quantum (first convergence, or
         the ``max_rounds`` budget exhausted, at quantum granularity).  No-op
-        on an empty batch.
+        on an empty batch.  Across a group the ranks agree on a fault before
+        the quantum's first gather (the ``kernel.dispatch`` site, the
+        epilogue, the kernels' load): if one rank raised there, every rank
+        raises.
         """
         if quantum < 1:
             raise ValueError(f"quantum must be >= 1, got {quantum}")
@@ -310,11 +313,22 @@ class BatchStepper:
             return []
         # chaos hook before any state changes: a kernel fault here leaves the
         # stepper untouched, so the scheduler can evict and retry its riders
-        fire("kernel.dispatch", backend=self.backend, frontier=self.frontier)
-        t0 = time.perf_counter()
-        if self._epilogue is None:
-            self._epilogue = self.solver.batch_row_update(self._qb, self.capacity, self._feat)
-        build.load_seconds(self.backend, self.solver.device)
+        group = self.solver.group
+        fault = None
+        try:
+            fire("kernel.dispatch", backend=self.backend, frontier=self.frontier)
+            t0 = time.perf_counter()
+            if self._epilogue is None:
+                self._epilogue = self.solver.batch_row_update(self._qb, self.capacity, self._feat)
+            build.load_seconds(self.backend, self.solver.device)
+        except Exception as e:
+            if group is None:
+                raise
+            fault = e
+        # across a group, before the quantum's first gather: a rank that
+        # faulted here would leave the others waiting in it
+        if group is not None and group.any(fault is not None):
+            raise fault or RuntimeError("another rank faulted before the quantum's gathers")
         residual = self.solver.problem.residual
         self._X, res, r, conv, rpq = _solve(
             self.solver, self.sched, self.backend, self.frontier, self._epilogue, residual, self._X,

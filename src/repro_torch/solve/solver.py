@@ -76,8 +76,18 @@ the group's all-gather of every worker's new rows and K1's publish; the
 residual is taken over the whole frontier, the same bits on every rank, so
 the stopping test needs no collective.  ``delta="auto"`` probes on the
 replicated frontier across the group, so every rank fits the same δ-model.
-``cache_dir``, ``degrade``, ``apply_updates`` and ``resolve`` across
-processes raise ``NotImplementedError`` (ROADMAP queue A).
+``apply_updates`` and ``resolve`` run on every rank: each holds the whole
+CSR on the host and applies the same batch, so every rank has the same
+report, graph and warm state with no collective, and patches only its own
+workers' cells; a δ whose touched stripe outgrows ``M`` drops on every rank
+alike (decided from ``indptr`` for every touched worker).  With
+``cache_dir`` a rank reads and writes only its own workers' stripes and its
+own shards' plan pieces, under the digests a one-process solver uses, so one
+store serves both; rank 0 alone writes the δ-models and the observation
+log, and hands what it reads of them to the other ranks (constructing such
+a solver, ``reprobe_delta`` and a logged solve are collective).
+``degrade=True`` and checkpointed solves across processes raise
+``NotImplementedError`` (ROADMAP queue A).
 
 Fault tolerance: with ``degrade=True`` a fault that the ``kernel.dispatch``
 site raises (:class:`~repro_torch.ft.inject.InjectedFault`) does not
@@ -122,7 +132,7 @@ from repro_torch.graphs.partition import PARTITION_METHODS
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels.round_block import Epilogue
 from repro_torch.persist import SolverCache
-from repro_torch.persist.keys import plan_shard_fingerprint, stripe_fingerprint
+from repro_torch.persist.keys import plan_cells_fingerprint, plan_shard_fingerprint, stripe_fingerprint
 from repro_torch.solve import batch
 from repro_torch.solve.problem import Problem
 
@@ -194,11 +204,6 @@ class Solver:
         if n_shards < 1 or n_workers % n_shards:
             raise ValueError(f"P={n_workers} not divisible by D={n_shards}")
         if group is not None:
-            if cache_dir is not None:
-                raise NotImplementedError(
-                    "Solver(group=..., cache_dir=...): persistence across processes is "
-                    "ROADMAP queue A (A9, third part)"
-                )
             if degrade:
                 raise NotImplementedError(
                     "Solver(group=..., degrade=True): every rank would have to step down the ladder "
@@ -296,20 +301,50 @@ class Solver:
             self.max_rounds,
         )
 
+    @property
+    def _writes_shared(self) -> bool:
+        """Whether this process writes the store's shared entries (the
+        δ-models, the observation log): across a group, rank 0 alone, since
+        W appenders would duplicate or interleave the log's rows."""
+        return self.group is None or self.group.rank == 0
+
+    def _from_root(self, read):
+        """``read()`` of the store; across a group rank 0's, handed to every
+        rank, so that all ranks see one version of an entry rank 0 may be
+        rewriting."""
+        if self.group is None:
+            return read()
+        return self.group.broadcast_object(read() if self.group.rank == 0 else None)
+
+    def _stored(self, kind: str, digest: str, build) -> tuple:
+        """``(entry, built)``: the store's ``kind`` (``"stripe"`` or
+        ``"plan_shard"``) under ``digest``, or ``build()`` saved there;
+        counts ``<kind>_loads`` or ``<kind>_builds``."""
+        entry = getattr(self.persist, f"load_{kind}")(digest)
+        if entry is not None:
+            self.stats[f"{kind}_loads"] += 1
+            return entry, False
+        entry = build()
+        getattr(self.persist, f"save_{kind}")(digest, entry)
+        self.stats[f"{kind}_builds"] += 1
+        return entry, True
+
     def _warm_from_persist(self):
         """Load the δ-models eagerly — the one entry with no lazy fallback.
 
         ``delta="auto"`` then resolves to the persisted δ* without a single
-        probe solve.  Schedules and halo plans stay lazy: :meth:`schedule`
-        and :meth:`frontier_plan` consult the store on an in-memory miss, so
-        a warm process loads only the δ it serves.
+        probe solve (across a group, rank 0's read on every rank).
+        Schedules and halo plans stay lazy: :meth:`schedule`,
+        :meth:`frontier_plan` and :meth:`rank_layout` consult the store on
+        an in-memory miss, so a warm process loads only the δ it serves.
         """
-        loaded = self.persist.load_delta_model()
+        loaded, loaded_inc = self._from_root(
+            lambda: (self.persist.load_delta_model(), self.persist.load_delta_model(regime="incremental"))
+        )
         if loaded is not None:
             self.delta_model, best = loaded
             self._auto_delta = int(min(best, self.block_size))
             self.stats["cache_loads"] += 1
-        loaded_inc = self.persist.load_delta_model(regime="incremental")
         if loaded_inc is not None:
             self.delta_model_incremental, best_inc = loaded_inc
             self._auto_delta_incremental = int(min(best_inc, self.block_size))
@@ -416,7 +451,7 @@ class Solver:
             bytes_per_elem=np.dtype(self.problem.semiring.dtype).itemsize,
         )
         best = min(self.delta_model.best_delta(), self.block_size)
-        if self.persist is not None:
+        if self.persist is not None and self._writes_shared:
             self.persist.save_delta_model(self.delta_model, best)
         return best
 
@@ -430,24 +465,28 @@ class Solver:
         repoints ``delta="auto"`` at the new δ* (a resolve's at the
         incremental one).  Nothing is dropped: schedules are keyed by
         numeric δ, so the old δ*'s stay warm in memory and on disk.
-        Returns ``(old_delta_star, new_delta_star)``.
+        Across a group it is collective: every rank refits from rank 0's
+        read of the log (the refit reads round counts alone), so all move
+        to the same δ*.  Returns ``(old_delta_star, new_delta_star)``.
         """
         if self.persist is None:
             raise ValueError("reprobe_delta requires a Solver(cache_dir=...)")
         self._reprobing = True
         try:
             old = self.resolve_delta("auto")  # probes or loads the base model
-            models = refit_delta_models(self.delta_model, self.persist.load_observations())
+            models = refit_delta_models(self.delta_model, self._from_root(self.persist.load_observations))
             self.delta_model = models.get("cold", self.delta_model)
             new = int(min(self.delta_model.best_delta(), self.block_size))
             self._auto_delta = new
             self._obs_since_refit = 0
-            self.persist.save_delta_model(self.delta_model, new)
+            if self._writes_shared:
+                self.persist.save_delta_model(self.delta_model, new)
             if "incremental" in models:
                 inc = models["incremental"]
                 self.delta_model_incremental = inc
                 self._auto_delta_incremental = int(min(inc.best_delta(), self.block_size))
-                self.persist.save_delta_model(inc, self._auto_delta_incremental, regime="incremental")
+                if self._writes_shared:
+                    self.persist.save_delta_model(inc, self._auto_delta_incremental, regime="incremental")
             return old, new
         finally:
             self._reprobing = False
@@ -456,12 +495,15 @@ class Solver:
         self, delta: int, rounds: int, total_time_s: float, backend: str,
         kind: str = "solve", regime: str = "cold",
     ):
-        """Log one observed ``(δ, rounds, time)``; maybe trigger a refit."""
+        """Log one observed ``(δ, rounds, time)``; maybe trigger a refit.
+        Across a group rank 0 logs its time, and every rank counts, so all
+        refit at the same solve."""
         if self.persist is None:
             return
-        self.persist.record_observation(
-            delta, rounds, total_time_s, backend=backend, kind=kind, regime=regime
-        )
+        if self._writes_shared:
+            self.persist.record_observation(
+                delta, rounds, total_time_s, backend=backend, kind=kind, regime=regime
+            )
         self._obs_since_refit += 1
         if (
             self.reprobe_every is not None
@@ -519,16 +561,8 @@ class Solver:
         S = -(-self.block_size // delta_eff)  # ceil, as build_stripe_schedule
         stripes, built = [], 0
         for w in range(self.n_workers):
-            lo, hi = int(bounds[w]), int(bounds[w + 1])
-            digest = stripe_fingerprint(graph, lo, hi, S, delta_eff, pad_val)
-            stripe = self.persist.load_stripe(digest)
-            if stripe is None:
-                stripe = build_worker_stripe(graph, lo, hi, S, delta_eff, pad_val)
-                self.persist.save_stripe(digest, stripe)
-                self.stats["stripe_builds"] += 1
-                built += 1
-            else:
-                self.stats["stripe_loads"] += 1
+            stripe, fresh = self._stored_stripe(int(bounds[w]), int(bounds[w + 1]), S, delta_eff)
+            built += fresh
             stripes.append(stripe)
         arrays = stripe_schedule_arrays(
             assemble_stripe_schedule(graph, bounds, delta_eff, pad_val, stripes)
@@ -538,6 +572,15 @@ class Solver:
         self.stats["schedule_builds" if built else "cache_loads"] += 1
         self.persist.save_schedule(arrays)
         return sched
+
+    def _stored_stripe(self, lo: int, hi: int, S: int, delta: int) -> tuple:
+        """``(stripe, built)`` of the worker block ``[lo, hi)`` through the
+        shared store (:meth:`_stored`)."""
+        graph, pad_val = self._sched_graph, self.problem.semiring.pad_edge_val
+        return self._stored(
+            "stripe", stripe_fingerprint(graph, lo, hi, S, delta, pad_val),
+            lambda: build_worker_stripe(graph, lo, hi, S, delta, pad_val),
+        )
 
     def frontier_plan(self, sched: DeviceSchedule) -> engine_sharded.FrontierPlan:
         """The cached owner-computes halo plan for ``sched`` over
@@ -573,15 +616,11 @@ class Solver:
         pieces, built = [], 0
         for d in range(D):
             lo, hi, w0, w1 = int(vb[d]), int(vb[d + 1]), d * P_loc, (d + 1) * P_loc
-            digest = plan_shard_fingerprint(sched, lo, hi, w0, w1)
-            piece = self.persist.load_plan_shard(digest)
-            if piece is None:
-                piece = engine_sharded.build_plan_shard(sched, lo, hi, w0, w1)
-                self.persist.save_plan_shard(digest, piece)
-                self.stats["plan_shard_builds"] += 1
-                built += 1
-            else:
-                self.stats["plan_shard_loads"] += 1
+            piece, fresh = self._stored(
+                "plan_shard", plan_shard_fingerprint(sched, lo, hi, w0, w1),
+                lambda: engine_sharded.build_plan_shard(sched, lo, hi, w0, w1),
+            )
+            built += fresh
             pieces.append(piece)
         plan = engine_sharded.assemble_frontier_plan(sched, D, pieces)
         self._plans[(sched.delta, D)] = plan
@@ -598,7 +637,11 @@ class Solver:
         (:func:`~repro_torch.dist.engine_sharded.replicated_rank`).  A rank
         holds the same ``P/W`` workers on both, so their cells are built
         once a δ from the graph on the host (its own stripes; the plan from
-        every shard's halo), and each layout is cached per δ."""
+        every shard's halo), and each layout is cached per δ.  With a store
+        the rank loads (or builds and saves) its own workers' stripes and
+        its own shards' plan pieces alone; ``schedule_builds`` and
+        ``plan_builds`` count layouts with at least one built stripe or
+        piece, ``cache_loads`` the others."""
         if self.group is None:
             raise ValueError("rank_layout needs a Solver(group=...)")
         frontier = self.resolve_frontier(frontier)
@@ -607,22 +650,45 @@ class Solver:
         if hit is None:
             cells = self._rank_cells.get(delta_eff)
             if cells is None:
-                w0, w1 = self.group.split(self.n_workers, "workers")
-                cells = self._rank_cells[delta_eff] = engine_sharded.rank_schedule(
-                    self._sched_graph, self.bounds, delta_eff, self.problem.semiring.pad_edge_val,
-                    w0, w1, self.device,
-                )
-                self.stats["schedule_builds"] += 1
+                cells = self._rank_cells[delta_eff] = self._rank_cells_built(delta_eff)
             sched, host = cells
             if frontier == "halo":
                 self.group.split(self.n_shards)  # a rank holds whole shards
-                plan = engine_sharded.rank_plan(self._sched_graph, sched, host, self.n_shards, self.device)
-                self.stats["plan_builds"] += 1
+                piece = None
+                if self.persist is not None:
+                    def piece(src, dst_local, rows, lo, hi):
+                        return self._stored(
+                            "plan_shard", plan_cells_fingerprint(sched.n, sched.delta, lo, hi, src, dst_local, rows),
+                            lambda: engine_sharded.plan_shard_from_cells(src, dst_local, rows, sched.n, sched.delta,
+                                                                         lo, hi),
+                        )[0]
+                before = self.stats["plan_shard_builds"]
+                plan = engine_sharded.rank_plan(self._sched_graph, sched, host, self.n_shards, self.device, piece)
+                built = self.persist is None or self.stats["plan_shard_builds"] > before
+                self.stats["plan_builds" if built else "cache_loads"] += 1
                 hit = (sched, plan)
             else:
                 hit = (engine_sharded.replicated_rank(sched, host), None)
             self._rank_layouts[(delta_eff, frontier)] = hit
         return hit
+
+    def _rank_cells_built(self, delta_eff: int) -> tuple:
+        """This rank's workers' cells at ``delta_eff``
+        (:func:`~repro_torch.dist.engine_sharded.rank_schedule`), their
+        stripes through the store where there is one."""
+        w0, w1 = self.group.split(self.n_workers, "workers")
+        stripe = None
+        if self.persist is not None:
+            def stripe(lo, hi, S, delta):
+                return self._stored_stripe(lo, hi, S, delta)[0]
+        before = self.stats["stripe_builds"]
+        cells = engine_sharded.rank_schedule(
+            self._sched_graph, self.bounds, delta_eff, self.problem.semiring.pad_edge_val, w0, w1, self.device,
+            stripe,
+        )
+        built = self.persist is None or self.stats["stripe_builds"] > before
+        self.stats["schedule_builds" if built else "cache_loads"] += 1
+        return cells
 
     # ------------------------------------------------------------------ #
     # inputs
@@ -732,7 +798,7 @@ class Solver:
         tol = self.tol if tol is None else tol
         max_rounds = self.max_rounds if max_rounds is None else max_rounds
         if self.group is not None:
-            return self._solve_ranks(x0, q, delta, backend, frontier, halo_dtype, tol, max_rounds)
+            return self._solve_ranks(x0, q, delta, backend, frontier, halo_dtype, tol, max_rounds, regime)
         sched = self.schedule(delta)
         x_ext = self._x_ext(x0)
         feat = tuple(x_ext.shape[1:])
@@ -790,7 +856,7 @@ class Solver:
 
         return fused_loop(solve, sched, sr, x_ext, tol, max_rounds, compile_time_s=build_s)
 
-    def _solve_ranks(self, x0, q, delta, backend, frontier, halo_dtype, tol, max_rounds) -> EngineResult:
+    def _solve_ranks(self, x0, q, delta, backend, frontier, halo_dtype, tol, max_rounds, regime) -> EngineResult:
         """This rank's share of a solve across processes (collective).
 
         Replicated: the one-process solve's loop (the reference's
@@ -807,7 +873,8 @@ class Solver:
         residual over its owned vertices, summed in shard order across the
         group (the same bits for any number of ranks), against ``tol``.  The
         owned rows are gathered once at the end, so every rank returns the
-        whole answer."""
+        whole answer.  Either way every rank counts the observation, and
+        rank 0 logs it (:meth:`_record_observation`)."""
         sched, plan = self.rank_layout(delta, frontier)
         sr, residual, g = self.problem.semiring, self.problem.residual, self.group
         x_host = extend_frontier(self._x0_host(x0), sr, "cpu")
@@ -825,8 +892,18 @@ class Solver:
                 return ref.solve_loop(rnd, x, residual, tol, max_rounds)
 
             result = fused_loop(loop, sched, sr, x_host.to(self.device), tol, max_rounds, compile_time_s=build_s)
-            self._last_x = np.asarray(result.x)
-            return result
+        else:
+            result = self._halo_ranks(sched, plan, x_host, feat, row_update, backend, halo_dtype, tol, max_rounds,
+                                      build_s)
+        self._last_x = np.asarray(result.x)
+        self._record_observation(sched.delta, result.rounds, result.total_time_s, backend, regime=regime)
+        return result
+
+    def _halo_ranks(self, sched, plan, x_host, feat, row_update, backend, halo_dtype, tol, max_rounds,
+                    build_s) -> EngineResult:
+        """The halo frontier of :meth:`_solve_ranks`: the host loop over this
+        rank's shards."""
+        sr, residual, g = self.problem.semiring, self.problem.residual, self.group
         x_loc = x_host[plan.gather_index.cpu().long()].contiguous().to(self.device)
         ef = torch.zeros((plan.d1 - plan.d0, plan.S, plan.H) + feat, dtype=torch.float32, device=self.device)
         rank_round = engine_sharded.frontier_rank_round_fn(
@@ -843,9 +920,7 @@ class Solver:
         def finish(x_loc):
             return torch.cat([g.gather_owned(x_loc, plan.vertex_bounds), x_host[-1:]])
 
-        result = host_loop(rnd, sched, sr, x_loc, shard_residuals, tol, max_rounds, build_s, finish=finish)
-        self._last_x = np.asarray(result.x)
-        return result
+        return host_loop(rnd, sched, sr, x_loc, shard_residuals, tol, max_rounds, build_s, finish=finish)
 
     def _x0_host(self, x0) -> np.ndarray:
         """``x0`` (the problem's default when None), shape-checked, on the host."""
@@ -871,13 +946,14 @@ class Solver:
         namespace is derived again from the new graph, the observation log
         and the fitted δ-models carry over to it, and every patched stripe
         goes to the shared store, so a restarted process on the mutated
-        graph builds no stripe the batch did not touch.
+        graph builds no stripe the batch did not touch.  Across a group every
+        rank applies the batch (no collective) and patches its own workers'
+        cells (:meth:`_patch_rank_cells`).
 
         The block bounds are **pinned** across updates: recomputing a
         degree-sensitive partition on the mutated graph would shift every
         block boundary and invalidate all stripes for a one-row change.
         """
-        self._refuse_group("apply_updates")
         bounds = self.bounds  # pin pre-mutation bounds before swapping graphs
         new_graph, report = self.graph.apply_updates(batch)
         self.graph = new_graph
@@ -896,16 +972,12 @@ class Solver:
         self._plans = {}
         if self.persist is not None:
             self._carry_persist_over()
-        self._patch_schedules(report)
+        if self.group is None:
+            self._patch_schedules(report)
+        else:
+            self._patch_rank_cells(report)
         self._last_report = report
         return report
-
-    def _refuse_group(self, what: str) -> None:
-        if self.group is not None:
-            raise NotImplementedError(
-                f"{what} across processes (Solver(group=...)) is not ported yet: "
-                "ROADMAP queue A (A9, third part)"
-            )
 
     def _carry_persist_over(self):
         """Point the store at the mutated graph's namespace, carrying the
@@ -914,6 +986,8 @@ class Solver:
         namespace but barely moves the curve) and both fitted δ-models."""
         old_obs = self.persist.dir / "observations.jsonl"
         self.persist = self._make_persist()
+        if not self._writes_shared:
+            return
         new_obs = self.persist.dir / "observations.jsonl"
         if old_obs.exists() and not new_obs.exists():
             try:
@@ -937,54 +1011,72 @@ class Solver:
     def _patch_schedules(self, report):
         """Rebuild only the touched workers' stripes of every cached schedule.
 
-        A stripe that outgrows the schedule's padded width ``M`` drops that
-        δ's schedule for a lazy full rebuild (global re-padding would touch
-        every worker anyway).  Otherwise the patched tensors are copies on the
-        schedule's device with its shapes, and ``row_ptr`` is derived anew
-        from the patched ``dst_local``: the kernels walk each row's edges
-        through it, and the plain rounds never read it.  With a store, each
-        rebuilt stripe is saved under its digest.
+        A stripe that outgrows the schedule's padded width ``M`` (read from
+        ``indptr``, :func:`~repro_torch.dist.engine_sharded.outgrows`, as a
+        group reads it) drops that δ's schedule for a lazy full rebuild
+        (global re-padding would touch every worker anyway).  Otherwise the
+        patched tensors (:func:`~repro_torch.dist.engine_sharded.patch_cells`)
+        are copies on the schedule's device with its shapes, and ``row_ptr``
+        is derived anew from the patched ``dst_local``: the kernels walk each
+        row's edges through it, and the plain rounds never read it.  With a
+        store, each rebuilt stripe is saved under its digest.
         """
         bounds = self.bounds
         graph = self._sched_graph
         pad_val = self.problem.semiring.pad_edge_val
         touched = self._touched_workers(report.affected_rows)
         for delta_eff, sched in list(self._schedules.items()):
-            stripes, fits = {}, True
-            for w in touched:
-                lo, hi = int(bounds[w]), int(bounds[w + 1])
-                st = build_worker_stripe(graph, lo, hi, sched.S, delta_eff, pad_val)
-                if st["src"].shape[1] > sched.M:
-                    fits = False
-                    break
-                stripes[int(w)] = st
-            if not fits:
+            if engine_sharded.outgrows(graph.indptr, bounds, touched, sched.S, delta_eff, sched.M):
                 del self._schedules[delta_eff]
                 continue
-            src, val, dst_local = sched.src.clone(), sched.val.clone(), sched.dst_local.clone()
-            for w, st in stripes.items():
-                m = st["src"].shape[1]
-                src[:, w] = 0
-                src[:, w, :m] = torch.from_numpy(st["src"]).to(src.device)
-                val[:, w] = pad_val.item()
-                val[:, w, :m] = torch.from_numpy(st["val"]).to(val.device, val.dtype)
-                dst_local[:, w] = delta_eff
-                dst_local[:, w, :m] = torch.from_numpy(st["dst_local"]).to(dst_local.device)
-                # rows[:, w] is untouched: it depends only on (lo, hi, δ, n)
+            stripes = {
+                int(w): build_worker_stripe(graph, int(bounds[w]), int(bounds[w + 1]), sched.S, delta_eff, pad_val)
+                for w in touched
+            }
+            # rows[:, w] is untouched: it depends only on (lo, hi, δ, n)
+            cells = engine_sharded.patch_cells(
+                {"src": sched.src, "val": sched.val, "dst_local": sched.dst_local}, stripes, pad_val, delta_eff
+            )
             self._schedules[delta_eff] = dataclasses.replace(
                 sched,
-                src=src,
-                val=val,
-                dst_local=dst_local,
-                row_ptr=_cell_row_ptr(dst_local, delta_eff),
+                **cells,
+                row_ptr=_cell_row_ptr(cells["dst_local"], delta_eff),
                 edges=graph.nnz,
-                padding_overhead=src.numel() / max(graph.nnz, 1),
+                padding_overhead=cells["src"].numel() / max(graph.nnz, 1),
             )
             if self.persist is not None:
                 for w, st in stripes.items():
                     lo, hi = int(bounds[w]), int(bounds[w + 1])
                     digest = stripe_fingerprint(graph, lo, hi, sched.S, delta_eff, pad_val)
                     self.persist.save_stripe(digest, st)
+
+    def _patch_rank_cells(self, report):
+        """:meth:`_patch_schedules` across a group: every rank rebuilds the
+        touched stripes of its own workers ``[w0, w1)`` in each cached δ's
+        cells (:func:`~repro_torch.dist.engine_sharded.patch_rank_cells`)
+        and saves them to the store; the layouts drop, and come again
+        lazily from the patched cells (a halo plan's halos from the mutated
+        graph).  Whether a touched stripe outgrows ``M`` is read from
+        ``indptr`` for every touched worker, not only the rank's own, so
+        all ranks keep or drop a δ alike with no collective: a rank that
+        kept its cells while another rebuilt them at a new ``M`` would run
+        another schedule and hang in the gather."""
+        bounds, graph = self.bounds, self._sched_graph
+        pad_val = self.problem.semiring.pad_edge_val
+        touched = self._touched_workers(report.affected_rows)
+        w0, w1 = self.group.split(self.n_workers, "workers")
+        self._rank_layouts = {}
+        for delta_eff, (sched, host) in list(self._rank_cells.items()):
+            if engine_sharded.outgrows(graph.indptr, bounds, touched, sched.S, delta_eff, sched.M):
+                del self._rank_cells[delta_eff]
+                continue
+            stripes = {}
+            for w in touched[(touched >= w0) & (touched < w1)]:
+                lo, hi = int(bounds[w]), int(bounds[w + 1])
+                stripes[int(w)] = st = build_worker_stripe(graph, lo, hi, sched.S, delta_eff, pad_val)
+                if self.persist is not None:
+                    self.persist.save_stripe(stripe_fingerprint(graph, lo, hi, sched.S, delta_eff, pad_val), st)
+            self._rank_cells[delta_eff] = engine_sharded.patch_rank_cells(sched, host, stripes, pad_val, graph.nnz)
 
     def resolve(
         self,
@@ -1011,9 +1103,9 @@ class Solver:
         ``x0=`` overrides the warm seed (defaults to this solver's last
         solve's fixed point).  With ``updates=None`` this is a plain warm
         re-solve.  ``delta=None``/``"auto"`` prefers the incremental-regime
-        δ* once one is fitted (``_auto_delta_incremental``).
+        δ* once one is fitted (``_auto_delta_incremental``).  Across a group
+        it is collective, and every rank returns the one-process answer.
         """
-        self._refuse_group("resolve")
         if x0 is None and self._last_x is None:
             raise ValueError(
                 "resolve() warm-starts from the previous fixed point — "

@@ -44,6 +44,7 @@ from repro.graphs import generators as j_gen  # noqa: E402
 import repro_torch.solve as t_solve  # noqa: E402
 from repro_torch.core import engine as t_engine  # noqa: E402
 from repro_torch.core.semiring import MIN_PLUS, PLUS_TIMES  # noqa: E402
+from repro_torch.ft import elastic as t_elastic  # noqa: E402
 from repro_torch.graphs import formats as t_formats  # noqa: E402
 from repro_torch.graphs import generators as t_gen  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
@@ -442,9 +443,11 @@ def test_batch_refusals(name, kwargs, exc, match, tmp_path):
                             device="cpu")
     if kwargs.pop("group", None):  # a solver whose shards span processes: a group of one rank here
         # A batch across processes runs (it gives the one-process batch's
-        # answer); what such a solver still refuses is an update.
+        # answer), and so does a resolve; what such a solver still refuses
+        # is a checkpointed solve.
         one = t_solve.Solver(ts.graph, ts.problem, n_workers=P, min_chunk=MIN_CHUNK, frontier="halo", device="cpu")
         want = one.solve_batch(x0, delta=24, **kwargs)
+        want_resolve = one.resolve(x0=x0[0], delta=24)
         with _one_rank_group(tmp_path) as pg:
             grouped = t_solve.Solver(ts.graph, ts.problem, n_workers=P, min_chunk=MIN_CHUNK, frontier="halo",
                                      device="cpu", group=pg)
@@ -453,8 +456,11 @@ def test_batch_refusals(name, kwargs, exc, match, tmp_path):
             np.testing.assert_array_equal(got.x, want.x)
             np.testing.assert_array_equal(got.rounds_per_query, want.rounds_per_query)
             assert t_solve.BatchStepper(grouped, capacity=2).capacity == 2
+            got_resolve = grouped.resolve(x0=x0[0], delta=24)
+            assert got_resolve.rounds == want_resolve.rounds
+            np.testing.assert_array_equal(got_resolve.x, want_resolve.x)
             with pytest.raises(exc, match=match):
-                grouped.resolve(x0=x0[0])
+                t_elastic.checkpointed_solve(grouped, ckpt_dir=tmp_path / "ckpt")
         return
     if kwargs.pop("x0", None):
         x0 = np.zeros((Q, ts.graph.n + 1), x0.dtype)

@@ -10,8 +10,9 @@ the JAX reference, and K2's rank entries' plain versions.
   the residuals' bits do not depend on W; int8 and fp8 PageRank equal the
   one-process plain K2 solve, and their x and error-feedback residuals
   after three rounds equal the one-process plain K2 rounds'; each rank
-  holds only its own shards' arrays; ``D % W != 0`` and the paths not
-  ported across processes raise, and the ones ported since run and give
+  holds only its own shards' arrays; ``D % W != 0`` raises, and the paths
+  once refused across processes (the replicated frontier, ``delta="auto"``,
+  batches, a store, ``apply_updates`` and ``resolve``) run and give
   ``repro``'s answers; the ranks load neither ``jax`` nor ``repro``.
 * In one process: a rank's schedule cells and plan blocks equal the
   whole schedule's and plan's slices, and the local step plus the receive
@@ -35,6 +36,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import repro.solve as j_solve  # noqa: E402
+from repro.evolve import EdgeBatch as JEdgeBatch  # noqa: E402
 from repro.graphs import formats as j_formats  # noqa: E402
 from repro.graphs import generators as j_gen  # noqa: E402
 import repro_torch.solve as t_solve  # noqa: E402
@@ -195,19 +197,28 @@ def test_each_rank_holds_only_its_shards(ranks, W, D):
 def _lifted_reference():
     """``repro``'s jit answers of the paths across processes that once
     raised and now run: SSSP at δ = 32 (replicated, on a halo solver and
-    not), at ``delta="auto"``, and a two-source batch at δ = 32."""
+    not, and with a store), at ``delta="auto"``, a two-source batch at δ =
+    32, a solve after ``apply_updates`` and a ``resolve`` (the batches of
+    ``update_ops``)."""
     gname, scale, kind = R.graph_spec("sssp")
     g = j_gen.make_graph(gname, scale=scale, efactor=8, kind=kind)
     sv = j_solve.Solver(g, j_solve.sssp_problem(), n_workers=R.P, min_chunk=R.MIN_CHUNK, backend="jit")
     at32 = sv.solve(delta=32)
-    return {"replicated": at32, "solve replicated": at32, "auto": sv.solve(delta="auto"),
-            "batch": j_solve.solve_batch(sv, j_solve.multi_source_x0(g, [0, 3]), delta=32)}
+    out = {"replicated": at32, "solve replicated": at32, "cache_dir": at32, "auto": sv.solve(delta="auto"),
+           "batch": j_solve.solve_batch(sv, j_solve.multi_source_x0(g, [0, 3]), delta=32)}
+    up = j_solve.Solver(g, j_solve.sssp_problem(), n_workers=R.P, min_chunk=R.MIN_CHUNK, delta=32, backend="jit")
+    first, second = (JEdgeBatch.from_ops(**o) for o in R.update_ops(g))
+    up.apply_updates(first)
+    out["apply_updates"] = up.solve()
+    out["resolve"] = up.resolve(updates=second)
+    return out
 
 
 def test_refusals_across_processes(ranks):
-    """The refusals that still stand raise; the paths a later port lifted
-    (the replicated frontier, ``delta="auto"``, batches) run and give
-    ``repro``'s jit answers."""
+    """The refusals that still stand (``D % W != 0``) raise; the paths a
+    later port lifted (the replicated frontier, ``delta="auto"``, batches,
+    a store, ``apply_updates`` and ``resolve``) run and give ``repro``'s jit
+    answers."""
     lifted = _lifted_reference()
     for r in range(WORLD):
         got = list(ranks[r]["refusals"])
@@ -215,18 +226,16 @@ def test_refusals_across_processes(ranks):
             "D % W": "ValueError: D=6 shards do not split evenly over W=4",
             "D % W solver": "ValueError: D=2 shards do not split evenly over W=4",
             "replicated": "ran",
-            "cache_dir": "NotImplementedError",
+            "cache_dir": "ran",
             "solve replicated": "ran",
             "auto": "ran",
             "batch": "ran",
-            "apply_updates": "NotImplementedError",
-            "resolve": "NotImplementedError",
+            "apply_updates": "ran",
+            "resolve": "ran",
         }
         assert len(got) == len(want)
         for line, (what, start) in zip(got, want.items()):
             assert line.startswith(f"{what}: {start}"), line
-            if start == "NotImplementedError":
-                assert "ROADMAP queue A" in line, line
             if start == "ran":
                 jr = lifted[what]
                 assert ranks[r][f"lifted/{what}/rounds"][0] == jr.rounds, what

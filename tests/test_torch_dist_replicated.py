@@ -14,8 +14,9 @@ plain versions.
   (multi-source SSSP, ppr, ppr compacting) equals the reference's jit batch
   (x, ``rounds_per_query``), Q = 1 the unbatched solve, and an open batch
   the reference's ``BatchStepper``; ``delta="auto"`` gives ``repro``'s δ*;
-  the residual bits do not depend on W; the refusals that still stand
-  raise; the ranks load neither ``jax`` nor ``repro``.
+  the residual bits do not depend on W; the refusal that still stands
+  raises, and a store, ``apply_updates`` and ``resolve`` run and give
+  ``repro``'s answers; the ranks load neither ``jax`` nor ``repro``.
 * In one process: a rank's replicated cells equal the whole schedule's
   slices, and K1's rank step over any split of the workers, joined in
   worker order and published, equals one step of the plain round, for
@@ -35,6 +36,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import repro.solve as j_solve  # noqa: E402
+from repro.evolve import EdgeBatch as JEdgeBatch  # noqa: E402
 from repro.algorithms.jacobi import jacobi_graph as j_jacobi_graph  # noqa: E402
 from repro.graphs.generators import make_graph as j_make_graph  # noqa: E402
 from repro_torch.core import engine as t_engine  # noqa: E402
@@ -85,7 +87,13 @@ def _reference() -> dict:
     sv = j_solve.Solver(gs, j_solve.sssp_problem(), n_workers=R.P, delta=R.BATCH_DELTA, min_chunk=R.BATCH_MIN_CHUNK)
     out["batch"] = j_solve.solve_batch(sv, j_solve.multi_source_x0(gs, list(R.BATCH_SOURCES)))
     out["q1"] = j_solve.solve_batch(sv, j_solve.multi_source_x0(gs, [0]))
-    out["solve"] = sv.solve(backend="jit")
+    out["solve"] = out["cache_dir"] = sv.solve(backend="jit")
+    up = j_solve.Solver(gs, j_solve.sssp_problem(), n_workers=R.P, delta=R.BATCH_DELTA, min_chunk=R.BATCH_MIN_CHUNK,
+                        backend="jit")
+    first, second = (JEdgeBatch.from_ops(**o) for o in R.update_ops(gs))
+    up.apply_updates(first)
+    out["apply_updates"] = up.solve()
+    out["resolve"] = up.resolve(updates=second)
     st = j_solve.BatchStepper(sv, R.STEPPER_CAPACITY)
     pending = list(enumerate(j_solve.multi_source_x0(gs, list(R.STEPPER_SOURCES))))
     retired = []
@@ -230,20 +238,24 @@ def test_residual_bits_do_not_depend_on_the_ranks(runs, name):
 
 
 def test_refusals_that_still_stand(runs):
-    ranks, _ = runs
+    """``P % W != 0`` raises; a store, ``apply_updates`` and ``resolve``,
+    refused until they were ported, run and give ``repro``'s answers."""
+    ranks, reference = runs
     for r in range(WORLD):
         got = list(ranks[r]["refusals"])
         want = {
             "P % W": "ValueError: P=6 workers do not split evenly over W=4",
-            "cache_dir": "NotImplementedError",
-            "apply_updates": "NotImplementedError",
-            "resolve": "NotImplementedError",
+            "cache_dir": "ran",
+            "apply_updates": "ran",
+            "resolve": "ran",
         }
         assert len(got) == len(want)
         for line, (what, start) in zip(got, want.items()):
             assert line.startswith(f"{what}: {start}"), line
-            if start == "NotImplementedError":
-                assert "ROADMAP queue A" in line, line
+            if start == "ran":
+                jr = reference[what]
+                assert ranks[r][f"lifted/{what}/rounds"][0] == jr.rounds, what
+                np.testing.assert_array_equal(ranks[r][f"lifted/{what}/x"], np.asarray(jr.x))
 
 
 def test_ranks_load_neither_jax_nor_repro(runs):

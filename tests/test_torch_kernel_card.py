@@ -1333,6 +1333,84 @@ def test_two_process_gloo_solve_on_the_card_equals_one_process(cuda_device, tmp_
             assert str(got["transport"][0]) == "gloo (pinned host)"
 
 
+_TWO_RANKS_RESOLVE = """
+import json, sys, datetime, numpy as np, torch, torch.distributed as dist
+from repro_torch.evolve import EdgeBatch
+from repro_torch.graphs.generators import make_graph
+from repro_torch.kernels import ops
+from repro_torch.solve import Solver, pagerank_problem, sssp_problem
+rank, init, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+dist.init_process_group("gloo", init_method=init, rank=rank, world_size=2, timeout=datetime.timedelta(seconds=120))
+fns = (ops.round_rank_step_cuda, ops.round_publish_cuda, ops.halo_local_step_cuda, ops.halo_recv_cuda,
+       ops.fused_solve_cuda)
+res = {}
+for name, prob, kind in (("sssp", sssp_problem(), "sssp"), ("pagerank", pagerank_problem(), "pagerank")):
+    g = make_graph("kron" if kind == "sssp" else "twitter", scale=10, efactor=8, kind=kind)
+    batch = EdgeBatch.from_ops(**json.load(open(f"{out}/{name}.json")))
+    for frontier in ("replicated", "halo"):
+        sv = Solver(g, prob, n_workers=8, delta=96, min_chunk=32, frontier=frontier, n_shards=4,
+                    group=dist.group.WORLD)
+        sv.solve()
+        before = [f.launches for f in fns]
+        r = sv.resolve(updates=batch)
+        res[f"{name}/{frontier}"] = r.x
+        res[f"{name}/{frontier}/counts"] = np.array([r.rounds, r.flushes, r.flush_bytes, sv.rank_layout()[0].S]
+                                                    + [f.launches - b for f, b in zip(fns, before)])
+np.savez(f"{out}/rank{rank}.npz", **res)
+dist.destroy_process_group()
+"""
+
+
+@pytest.mark.gpu
+def test_two_process_gloo_resolve_on_the_card_equals_one_process(cuda_device, tmp_path):
+    """Two processes share the card over a gloo group: after an update
+    batch (four deletes and four inserts), each rank's SSSP and PageRank
+    ``resolve`` on both frontiers equals the one-process kernel resolve bit
+    for bit, with K1's rank step and publish (replicated) or K2's rank entry
+    and receive (halo) once a step a rank, and no loop-entry launch."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    rng = np.random.default_rng(29)
+    graphs, ops_of = {}, {}
+    for name, kind in (("sssp", "sssp"), ("pagerank", "pagerank")):
+        g = graphs[name] = make_graph("kron" if kind == "sssp" else "twitter", scale=10, efactor=8, kind=kind)
+        dst = np.repeat(np.arange(g.n), np.diff(g.indptr))
+        dels = [(int(g.indices[e]), int(dst[e])) for e in rng.choice(g.nnz, size=4, replace=False)]
+        have = set((dst * g.n + g.indices).tolist())
+        ins = []
+        while len(ins) < 4:
+            s_, d_ = (int(v) for v in rng.integers(0, g.n, size=2))
+            if s_ != d_ and d_ * g.n + s_ not in have:
+                have.add(d_ * g.n + s_)
+                ins.append((s_, d_, int(rng.integers(1, 256)) if kind == "sssp" else 0.05))
+        ops_of[name] = {"inserts": ins, "deletes": dels}
+        (tmp_path / f"{name}.json").write_text(json.dumps(ops_of[name]))
+    repo = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(repo / "src"))
+    init = f"file://{tmp_path / 'store'}"
+    procs = [subprocess.Popen([sys.executable, "-c", _TWO_RANKS_RESOLVE, str(r), init, str(tmp_path)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = [p.communicate(timeout=600)[0] for p in procs]
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-4000:]
+    for name, prob in (("sssp", sssp_problem()), ("pagerank", pagerank_problem())):
+        sv = Solver(graphs[name], prob, n_workers=8, delta=96, min_chunk=32)
+        sv.solve()
+        one = sv.resolve(updates=EdgeBatch.from_ops(**ops_of[name]))
+        for r in range(2):
+            got = np.load(tmp_path / f"rank{r}.npz")
+            for frontier in ("replicated", "halo"):
+                rounds, flushes, fbytes, S, step, publish, local, recv, loop = got[f"{name}/{frontier}/counts"]
+                assert (rounds, flushes, fbytes) == (one.rounds, one.flushes, one.flush_bytes), (name, frontier)
+                per_step = (step, publish) if frontier == "replicated" else (local, recv)
+                assert per_step == (rounds * S, rounds * S) and loop == 0 and step + publish + local + recv == 2 * rounds * S
+                np.testing.assert_array_equal(got[f"{name}/{frontier}"].view(np.int32), one.x.view(np.int32))
+
+
 # K1's rank entries (a rank's commit step over its workers, the publish of
 # every worker's rows) and K2's rank entries over a batch's rows, against
 # their plain versions, bit for bit; the solves across two cards over nccl.

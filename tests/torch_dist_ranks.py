@@ -6,7 +6,8 @@ join one ``gloo`` group, run every case on the CPU (each problem of
 :data:`PROBLEMS` at each δ of :data:`DELTAS` on each ``(W, D)`` of
 :data:`LAYOUTS`, the quantized PageRank cases of :data:`QUANT`, and the
 refusals, of which the lifted ones now run; a case with fewer ranks on the subgroup of ranks ``[0, W)``), and
-each writes its results to ``DIR/rank<R>.npz``.  It imports ``torch`` and ``repro_torch``
+each writes its results to ``DIR/rank<R>.npz``.  The lifted paths' update
+batches come from :func:`update_ops`.  It imports ``torch`` and ``repro_torch``
 only; the test holds the results to ``repro`` and to the port's one-process
 halo solve.
 """
@@ -72,6 +73,24 @@ def port_case(name):
     return g, getattr(solve, factory)()
 
 
+def update_ops(g, seed=25) -> list:
+    """Two batches (op lists for ``EdgeBatch.from_ops``), drawn from ``g``
+    alone and disjoint, so the second still applies after the first: four
+    existing edges deleted and four fresh ones inserted (weights in [1,
+    255]) each."""
+    rng = np.random.default_rng(seed)
+    dst = np.repeat(np.arange(g.n, dtype=np.int64), np.diff(g.indptr))
+    dels = [(int(g.indices[e]), int(dst[e])) for e in rng.choice(g.nnz, size=8, replace=False)]
+    present = set((dst * g.n + g.indices).tolist())
+    fresh = []
+    while len(fresh) < 8:
+        s, d = (int(v) for v in rng.integers(0, g.n, size=2))
+        if s != d and d * g.n + s not in present:
+            present.add(d * g.n + s)
+            fresh.append((s, d, int(rng.integers(1, 256))))
+    return [{"inserts": fresh[i:i + 4], "deletes": dels[i:i + 4]} for i in (0, 4)]
+
+
 def key(*parts) -> str:
     return "/".join(str(p) for p in parts)
 
@@ -90,6 +109,7 @@ def main(argv=None) -> int:
     torch.set_num_threads(1)
     from repro_torch.dist import engine_sharded
     from repro_torch.dist.comm import HaloGroup
+    from repro_torch.evolve import EdgeBatch
     from repro_torch.solve import Solver, multi_source_x0
 
     dist.init_process_group(
@@ -173,15 +193,16 @@ def main(argv=None) -> int:
     refused("D % W solver", lambda: Solver(g, prob, n_workers=P, frontier="halo", n_shards=2, delta=32,
                                            device="cpu", group=grp), ValueError)
     ran("replicated", lambda: Solver(g, prob, n_workers=P, n_shards=4, device="cpu", group=grp).solve(delta=32))
-    refused("cache_dir", lambda: Solver(g, prob, n_workers=P, frontier="halo", n_shards=4, device="cpu",
-                                        group=grp, cache_dir=a.out), NotImplementedError)
+    ran("cache_dir", lambda: Solver(g, prob, n_workers=P, frontier="halo", n_shards=4, device="cpu", group=grp,
+                                    cache_dir=Path(a.out) / "cache").solve(delta=32))
     sv = Solver(g, prob, n_workers=P, min_chunk=MIN_CHUNK, delta=32, frontier="halo", n_shards=4,
                 device="cpu", group=grp)
     ran("solve replicated", lambda: sv.solve(frontier="replicated"))
     ran("auto", lambda: sv.solve(delta="auto"))
     ran("batch", lambda: sv.solve_batch(multi_source_x0(g, [0, 3])))
-    refused("apply_updates", lambda: sv.apply_updates(None), NotImplementedError)
-    refused("resolve", lambda: sv.resolve(x0=np.zeros(g.n, np.int32)), NotImplementedError)
+    batches = [EdgeBatch.from_ops(**o) for o in update_ops(g)]
+    ran("apply_updates", lambda: (sv.apply_updates(batches[0]), sv.solve())[1])
+    ran("resolve", lambda: sv.resolve(updates=batches[1]))
     out["refusals"] = np.array(refusals)
     out["foreign_modules"] = np.array(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "repro")), dtype=str)
 

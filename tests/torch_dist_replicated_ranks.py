@@ -9,8 +9,9 @@ the CPU at each width of :data:`WIDTHS` (a width W on the subgroup of ranks
 ``tests/test_frontier_sharded.py`` (:data:`PROBLEMS` at δ = 48 on the
 replicated frontier, whole solves and three rounds; ppr's query on both
 frontiers; the batches of ``TestShardedBatch`` on both frontiers, with
-compaction and an open batch), ``delta="auto"``, and the refusals that
-still stand.  Each rank writes its results to ``DIR/rank<R>.npz``.  It
+compaction and an open batch), ``delta="auto"``, the refusal that still
+stands and the paths lifted since (a store, ``apply_updates`` and
+``resolve``, with the batches of :func:`update_ops`).  Each rank writes its results to ``DIR/rank<R>.npz``.  It
 imports ``torch`` and ``repro_torch`` only; the test holds the results to
 ``repro``.
 """
@@ -79,6 +80,24 @@ def port_case(name, graphs):
     }[name]
 
 
+def update_ops(g, seed=26) -> list:
+    """Two batches (op lists for ``EdgeBatch.from_ops``), drawn from ``g``
+    alone and disjoint, so the second still applies after the first: four
+    existing edges deleted and four fresh ones inserted (weights in [1,
+    255]) each."""
+    rng = np.random.default_rng(seed)
+    dst = np.repeat(np.arange(g.n, dtype=np.int64), np.diff(g.indptr))
+    dels = [(int(g.indices[e]), int(dst[e])) for e in rng.choice(g.nnz, size=8, replace=False)]
+    present = set((dst * g.n + g.indices).tolist())
+    fresh = []
+    while len(fresh) < 8:
+        s, d = (int(v) for v in rng.integers(0, g.n, size=2))
+        if s != d and d * g.n + s not in present:
+            present.add(d * g.n + s)
+            fresh.append((s, d, int(rng.integers(1, 256))))
+    return [{"inserts": fresh[i:i + 4], "deletes": dels[i:i + 4]} for i in (0, 4)]
+
+
 def key(*parts) -> str:
     return "/".join(str(p) for p in parts)
 
@@ -97,6 +116,7 @@ def main(argv=None) -> int:
     torch.set_num_threads(1)
     from repro_torch.core import engine
     from repro_torch.dist import engine_sharded
+    from repro_torch.evolve import EdgeBatch
     from repro_torch.solve import (
         BatchStepper,
         Solver,
@@ -191,9 +211,16 @@ def main(argv=None) -> int:
         out[key("auto", W, "delta")] = np.array([sv.resolve_delta("auto"), r.rounds])
         out[key("auto", W, "x")] = r.x
 
-    # the refusals that still stand, on the four-rank group
+    # the refusal that still stands and the paths lifted since, on the
+    # four-rank group; the lifted paths' answers go under "lifted/<what>"
     g, prob = graphs["s"], sssp_problem()
     refusals = []
+
+    def ran(what, fn):
+        r = fn()
+        out[key("lifted", what, "x")] = r.x
+        out[key("lifted", what, "rounds")] = np.array([r.rounds])
+        refusals.append(f"{what}: ran")
 
     def refused(what, fn, exc):
         try:
@@ -205,11 +232,13 @@ def main(argv=None) -> int:
 
     grp = groups[4]
     refused("P % W", lambda: Solver(g, prob, n_workers=6, device="cpu", group=grp), ValueError)
-    refused("cache_dir", lambda: Solver(g, prob, n_workers=P, device="cpu", group=grp, cache_dir=a.out),
-            NotImplementedError)
+    ran("cache_dir", lambda: Solver(g, prob, n_workers=P, min_chunk=BATCH_MIN_CHUNK, device="cpu", group=grp,
+                                    cache_dir=Path(a.out) / "cache").solve(delta=BATCH_DELTA))
     sv = Solver(g, prob, n_workers=P, min_chunk=BATCH_MIN_CHUNK, delta=BATCH_DELTA, device="cpu", group=grp)
-    refused("apply_updates", lambda: sv.apply_updates(None), NotImplementedError)
-    refused("resolve", lambda: sv.resolve(x0=np.zeros(g.n, np.int32)), NotImplementedError)
+    sv.solve()
+    batches = [EdgeBatch.from_ops(**o) for o in update_ops(g)]
+    ran("apply_updates", lambda: (sv.apply_updates(batches[0]), sv.solve())[1])
+    ran("resolve", lambda: sv.resolve(updates=batches[1]))
     out["refusals"] = np.array(refusals)
     out["foreign_modules"] = np.array(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "repro")), dtype=str)
 
